@@ -1,0 +1,163 @@
+"""Host driver: build the simulation, run output intervals (port of
+``sphexample_tpu/core/driver.py``, main-path subset).
+
+Entry points run on the card: ``device=None`` resolves to ``"cuda"`` and
+raises when no GPU is present.  Only an explicit ``device="cpu"`` runs on
+the CPU (the plain sweep).  Re-grid, replay, output and checkpoints come
+with later slices of the port; the port's sweep has no capacity windows or
+encoding limits, so grid escapes are the only overflow left to guard.
+"""
+
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass
+from typing import Callable, Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..config import (
+    DensityDiffusionModel,
+    Geometry,
+    SimulationConstants,
+    SimulationMetaData,
+    SPHKernelInstance,
+    ViscosityModel,
+)
+from ..models import equations as eq
+from ..ops import cell_list as cl
+from ..ops.interactions import PhysicsSpec
+from ..state import SimulationState, allocate_particles
+from .step import StepConfig, check_supported, make_interval_fn
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` -> the card.  Raises when CUDA is asked for and absent:
+    the port never carries on silently on the CPU."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run the "
+            "plain PyTorch path on the CPU")
+    return dev
+
+
+@dataclass
+class Simulation:
+    """A ready-to-run simulation: static config + device state."""
+
+    cfg: StepConfig
+    state: SimulationState
+    meta: SimulationMetaData
+    n_live: int
+    interval_fn: Callable = None
+
+    def __post_init__(self):
+        if self.interval_fn is None:
+            self.interval_fn = make_interval_fn(self.cfg)
+
+
+def assemble_simulation(
+    position: np.ndarray,
+    density: np.ndarray,
+    ptype: np.ndarray,
+    group_marker: np.ndarray,
+    idp: np.ndarray,
+    meta: SimulationMetaData,
+    constants: SimulationConstants,
+    kernel: SPHKernelInstance,
+    viscosity: ViscosityModel,
+    diffusion: DensityDiffusionModel,
+    *,
+    geometries: Sequence[Geometry] = (),
+    capacity: Optional[int] = None,
+    device=None,
+) -> Simulation:
+    """Allocate the state on ``device`` from host arrays and assemble the
+    step config (static grid bounds from the initial positions)."""
+    dev = resolve_device(device)
+    check_supported(meta)
+    if any(g.motion is not None for g in geometries):
+        raise NotImplementedError("prescribed motion is not ported yet")
+    n = len(density)
+
+    grid = cl.grid_from_positions(position, kernel.H_inv, meta.grid_margin_cells)
+    particles = allocate_particles(position, density, ptype, group_marker, idp,
+                                   device=dev, dtype=meta.dtype, capacity=capacity)
+    dtype = particles.position.dtype
+    # initial pressure (reference RunSimulation, SPHCellList.jl:835)
+    particles = particles.replace(pressure=eq.pressure(particles.density, constants))
+
+    spec = PhysicsSpec(
+        constants=constants,
+        kernel=kernel,
+        viscosity=viscosity,
+        diffusion=diffusion,
+        shifting=meta.shifting,
+        kernel_output=meta.kernel_output,
+    )
+    cfg = StepConfig(spec=spec, meta=meta, grid=grid, block_size=meta.block_size)
+
+    def scalar(dt):
+        return torch.zeros((), dtype=dt, device=dev)
+
+    state = SimulationState(
+        particles=particles,
+        cell_start=torch.zeros((grid.ncells + 2,), dtype=torch.int32, device=dev),
+        total_time=scalar(dtype),
+        current_dt=scalar(dtype),
+        iteration=scalar(torch.int32),
+        max_occupancy=scalar(torch.int32),
+        max_segment=scalar(torch.int32),
+        occupied_cells=scalar(torch.int32),
+        position_half=torch.zeros_like(particles.position),
+        grid_escapes=scalar(torch.int32),
+    )
+    return Simulation(cfg=cfg, state=state, meta=meta, n_live=n)
+
+
+def run_simulation(
+    sim: Simulation,
+    log_callback: Optional[Callable[[dict], None]] = None,
+    max_intervals: Optional[int] = None,
+) -> Simulation:
+    """Outer host loop over output intervals (reference SPHCellList.jl:881-929).
+
+    Raises when particles escaped the static grid during an interval (they
+    were clamped into edge cells: wrong physics); re-gridding and replaying
+    the interval is a later slice of the port."""
+    meta = sim.meta
+    state = sim.state
+    counter = 1
+    intervals = 0
+    t_wall0 = time.perf_counter()
+    while True:
+        t_out = meta.output_time_for(counter)
+        prev_iter = int(state.iteration)
+        state = sim.interval_fn(state, t_out)
+        esc = int(state.grid_escapes)
+        if esc > 0:
+            raise RuntimeError(
+                f"{esc} particle(s) escaped the static cell grid and were "
+                f"clamped into edge cells (wrong physics); raise "
+                f"grid_margin_cells"
+            )
+        counter += 1
+        intervals += 1
+        tt = float(state.total_time)
+        if log_callback is not None:
+            log_callback(dict(
+                counter=counter,
+                total_time=tt,
+                iteration=int(state.iteration),
+                steps_in_interval=int(state.iteration) - prev_iter,
+                dt=float(state.current_dt),
+                wall_time=time.perf_counter() - t_wall0,
+            ))
+        if tt > meta.simulation_time:
+            break
+        if max_intervals is not None and intervals >= max_intervals:
+            break
+    sim.state = state
+    return sim

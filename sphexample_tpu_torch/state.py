@@ -1,0 +1,209 @@
+"""Particle state: flat structure-of-arrays dataclasses of torch tensors.
+
+The port of ``sphexample_tpu/state.py``: the reference's 17-field
+``StructArray`` SoA (reference ``src/PreProcess.jl:114``) as tensors on one
+chosen device, padded to a static capacity (``active`` marks live slots) and
+kept *cell-sorted* between lazy rebuilds so that all neighbor candidates are
+contiguous row segments of the arrays.
+
+The JAX package's Pallas table fields (``PallasTables``, ``BlockTables`` and
+their telemetry) have no counterpart: the port's CUDA sweep reads only
+``cell_start``, the stale cell coordinates and the sorted order.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from .config import ParticleType
+
+
+@dataclass
+class Particles:
+    """Cell-sorted particle SoA.  Field names mirror the reference
+    StructArray (PreProcess.jl:114); ``active`` is the padding mask and
+    ``cell`` the per-dimension cell coordinates of the last rebuild."""
+
+    cell: torch.Tensor            # [N, D] int32 cell coords from last rebuild
+    chunk_id: torch.Tensor        # [N] int32 - owning compute block (ParaView parity)
+    kernel_w: torch.Tensor        # [N] kernel sums (only filled in STORE mode)
+    kernel_grad: torch.Tensor     # [N, D]
+    position: torch.Tensor        # [N, D]
+    acceleration: torch.Tensor    # [N, D]
+    velocity: torch.Tensor        # [N, D]
+    density: torch.Tensor         # [N]
+    pressure: torch.Tensor        # [N]
+    gravity_factor: torch.Tensor  # [N] float: Fluid -1, Moving +1, Fixed 0
+    motion_limiter: torch.Tensor  # [N] float: Fluid 1 else 0
+    boundary_bool: torch.Tensor   # [N] uint8 = !motion_limiter
+    id: torch.Tensor              # [N] int32 1-based particle id (-1 for padding)
+    ptype: torch.Tensor           # [N] int32 ParticleType enum value
+    group_marker: torch.Tensor    # [N] int32
+    ghost_points: torch.Tensor    # [N, D] zero when no associated ghost node
+    ghost_normals: torch.Tensor   # [N, D]
+    active: torch.Tensor          # [N] bool padding mask
+
+    @property
+    def capacity(self) -> int:
+        return self.position.shape[0]
+
+    @property
+    def dims(self) -> int:
+        return self.position.shape[1]
+
+    @property
+    def device(self) -> torch.device:
+        return self.position.device
+
+    def replace(self, **kwargs) -> "Particles":
+        return dataclasses.replace(self, **kwargs)
+
+    def permute(self, perm: torch.Tensor) -> "Particles":
+        """Reorder every per-particle field by ``perm`` (the reference's full
+        17-field StructArray sort, SPHCellList.jl:142)."""
+        return Particles(**{
+            f.name: getattr(self, f.name).index_select(0, perm)
+            for f in dataclasses.fields(self)
+        })
+
+
+def _torch_dtype(dtype) -> torch.dtype:
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    return {"float32": torch.float32, "float64": torch.float64}[str(dtype)]
+
+
+def allocate_particles(
+    position: np.ndarray,
+    density: np.ndarray,
+    ptype: np.ndarray,
+    group_marker: np.ndarray,
+    idp: np.ndarray,
+    *,
+    device,
+    dtype=torch.float32,
+    capacity: Optional[int] = None,
+) -> Particles:
+    """Build Particles on ``device`` from host arrays (one row per particle).
+
+    Mirrors ``AllocateDataStructures`` (reference PreProcess.jl:45-119):
+    GravityFactor (Fluid -1, Moving +1, Fixed 0; :79-87), MotionLimiter
+    (Fluid 1 else 0; :89-98), BoundaryBool (:100), zero-initialised dynamic
+    fields (:102-112), rows sorted by particle ID (:116).  Slots beyond the
+    live count are inactive padding.
+    """
+    dtype = _torch_dtype(dtype)
+    n, dims = position.shape
+    capacity = int(capacity or n)
+    if capacity < n:
+        raise ValueError(f"capacity {capacity} < particle count {n}")
+
+    order = np.argsort(idp, kind="stable")
+    position = np.asarray(position, dtype=np.float64)[order]
+    density = np.asarray(density, dtype=np.float64)[order]
+    ptype = np.asarray(ptype, dtype=np.int32)[order]
+    group_marker = np.asarray(group_marker, dtype=np.int32)[order]
+    idp = np.asarray(idp, dtype=np.int64)[order]
+
+    gravity_factor = np.zeros(n)
+    gravity_factor[ptype == ParticleType.FLUID] = -1.0
+    gravity_factor[ptype == ParticleType.MOVING] = 1.0
+    motion_limiter = (ptype == ParticleType.FLUID).astype(np.float64)
+    boundary_bool = (motion_limiter == 0).astype(np.uint8)
+
+    def pad(a, fill=0):
+        a = np.asarray(a)
+        out = np.full((capacity,) + a.shape[1:], fill, dtype=a.dtype)
+        out[:n] = a
+        return out
+
+    def t(a, dt, fill=0):
+        return torch.as_tensor(pad(a, fill)).to(device=device, dtype=dt)
+
+    def zeros(*shape, dt=dtype):
+        return torch.zeros(shape, dtype=dt, device=device)
+
+    return Particles(
+        cell=zeros(capacity, dims, dt=torch.int32),
+        chunk_id=zeros(capacity, dt=torch.int32),
+        kernel_w=zeros(capacity),
+        kernel_grad=zeros(capacity, dims),
+        position=t(position, dtype),
+        acceleration=zeros(capacity, dims),
+        velocity=zeros(capacity, dims),
+        density=t(density, dtype),
+        pressure=zeros(capacity),
+        gravity_factor=t(gravity_factor, dtype),
+        motion_limiter=t(motion_limiter, dtype),
+        boundary_bool=t(boundary_bool, torch.uint8),
+        id=t(idp, torch.int32, fill=-1),
+        ptype=t(ptype, torch.int32),
+        group_marker=t(group_marker, torch.int32),
+        ghost_points=zeros(capacity, dims),
+        ghost_normals=zeros(capacity, dims),
+        active=torch.as_tensor(np.arange(capacity) < n).to(device),
+    )
+
+
+@dataclass
+class SimulationState:
+    """Full simulation state: particles + neighbor structure + the mutable
+    counters the reference keeps in ``SimulationMetaData``.  Scalars are
+    0-dim tensors on the particles' device."""
+
+    particles: Particles
+    cell_start: torch.Tensor      # [ncells + 2] int32 segment starts (incl. parking)
+    total_time: torch.Tensor      # scalar
+    current_dt: torch.Tensor      # scalar
+    iteration: torch.Tensor       # scalar int32
+    max_occupancy: torch.Tensor   # scalar int32 - max cell occupancy seen
+    max_segment: torch.Tensor     # scalar int32 - max 3-cell row segment length
+    occupied_cells: torch.Tensor  # scalar int32 - occupied-cell count at rebuild
+    # Scratch half-step position kept across steps ONLY for the lazy-rebuild
+    # displacement rule (update_delta_x!, reference SPHCellList.jl:706-724).
+    # Like the reference, it is NOT permuted on resort (scratch arrays are not
+    # part of the StructArray sort) - a faithful cadence quirk.
+    position_half: torch.Tensor   # [N, D]
+    # Active particles whose unclamped cell coords fell outside the static
+    # grid at any rebuild (they are clamped into edge cells: wrong physics);
+    # run_simulation raises when it is nonzero.
+    grid_escapes: torch.Tensor    # scalar int32
+    # Host-side count of lazy rebuilds taken (the rebuild decision is made
+    # on the host in the port).  Not part of the JAX state.
+    rebuilds: int = 0
+
+    def replace(self, **kwargs) -> "SimulationState":
+        return dataclasses.replace(self, **kwargs)
+
+
+_PARTICLE_FIELDS = tuple(f.name for f in dataclasses.fields(Particles))
+_STATE_TENSORS = ("cell_start", "total_time", "current_dt", "iteration",
+                  "max_occupancy", "max_segment", "occupied_cells",
+                  "position_half", "grid_escapes")
+
+
+def state_from_numpy(leaves: Dict[str, np.ndarray], device) -> SimulationState:
+    """Build the port's state from a flat dict of numpy leaves, named like
+    the JAX ``SimulationState``'s fields (``"particles.position"``,
+    ``"cell_start"``, ``"total_time"``, ...).  Keys the port has no field
+    for (the JAX package's Pallas tables and telemetry) are ignored; a
+    missing key raises ``KeyError``.  Dtypes are kept as given."""
+    def t(key):
+        return torch.tensor(np.asarray(leaves[key]), device=device)
+
+    particles = Particles(**{f: t(f"particles.{f}") for f in _PARTICLE_FIELDS})
+    return SimulationState(particles=particles,
+                           **{k: t(k) for k in _STATE_TENSORS})
+
+
+def state_to_numpy(state: SimulationState) -> Dict[str, np.ndarray]:
+    """The inverse of :func:`state_from_numpy`: a flat dict of numpy leaves."""
+    out = {f"particles.{f}": getattr(state.particles, f).cpu().numpy()
+           for f in _PARTICLE_FIELDS}
+    out.update({k: getattr(state, k).cpu().numpy() for k in _STATE_TENSORS})
+    return out

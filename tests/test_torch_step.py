@@ -1,0 +1,231 @@
+"""The slice as a whole on the CPU: the port's step against the JAX package's,
+started from one identical state (``state_from_numpy``), in f64 on a coarse
+3D dam break (ARTIFICIAL + LINEAR, the main path's models), with the bands of
+test_trajectory.py; plus ``adaptive_dt``, the ``position_half`` quirk, the
+rebuild cadence and the interval loop."""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import sphexample_tpu as J
+import sphexample_tpu_torch as T
+from sphexample_tpu.core.step import make_fixed_steps_fn as j_fixed
+from sphexample_tpu.core.step import sph_step as j_step
+from sphexample_tpu.ops.timestep import adaptive_dt as j_dt
+from sphexample_tpu_torch.core.step import make_fixed_steps_fn as t_fixed
+from sphexample_tpu_torch.core.step import make_interval_fn
+from sphexample_tpu_torch.core.step import sph_step as t_step
+from sphexample_tpu_torch.io.casegen import dam_break_3d
+from sphexample_tpu_torch.ops.timestep import adaptive_dt as t_dt
+
+torch.set_num_threads(1)
+OFF = 0.0037  # off the map_floor half-integer boundary (test_trajectory.py)
+DX = 0.05
+
+
+def _case(M, block_size=256):
+    const = M.SimulationConstants(dx=DX, c0=33.14, alpha=0.1, m0=1000 * DX**3, cfl=0.2)
+    kern = M.make_kernel(M.KernelFamily.WENDLAND_C2, 3, h=float(np.sqrt(3 * DX**2)))
+    meta = M.SimulationMetaData(simulation_name="torch_step", save_location=".",
+                                dims=3, dtype="float64", block_size=block_size)
+    return meta, const, kern
+
+
+def _assemble_jax():
+    pos, dens, ptype, grp, idp = dam_break_3d(DX)
+    meta, const, kern = _case(J)
+    return J.assemble_simulation(pos + OFF, dens, ptype, grp, idp, meta, const,
+                                 kern, J.ViscosityModel.ARTIFICIAL,
+                                 J.DensityDiffusionModel.LINEAR)
+
+
+def _assemble_port():
+    pos, dens, ptype, grp, idp = dam_break_3d(DX)
+    meta, const, kern = _case(T)
+    return T.assemble_simulation(pos + OFF, dens, ptype, grp, idp, meta, const,
+                                 kern, T.ViscosityModel.ARTIFICIAL,
+                                 T.DensityDiffusionModel.LINEAR, device="cpu")
+
+
+def _leaves(state):
+    """A JAX SimulationState as the flat dict of numpy leaves."""
+    out = {}
+    for f in dataclasses.fields(state):
+        v = getattr(state, f.name)
+        if f.name == "particles":
+            out.update({f"particles.{g.name}": np.asarray(getattr(v, g.name))
+                        for g in dataclasses.fields(v)})
+        elif hasattr(v, "shape"):
+            out[f.name] = np.asarray(v)
+    return out
+
+
+def _by_id(ids, a):
+    ids = np.asarray(ids)
+    live = ids > 0
+    return np.asarray(a)[live][np.argsort(ids[live], kind="stable")]
+
+
+def _started_pair(fluid_vz=0.0):
+    """A JAX state 5 steps in (sorted, position_half set), and the port's
+    copy of it."""
+    sim_j = _assemble_jax()
+    state = sim_j.state
+    if fluid_vz:
+        p = state.particles
+        v = p.velocity.at[:, 2].set(jnp.where(p.ptype == 1, fluid_vz, 0.0))
+        state = state.replace(particles=p.replace(velocity=v))
+    state = j_fixed(sim_j.cfg, 5)(state)
+    sim_t = _assemble_port()
+    return sim_j, state, sim_t, T.state_from_numpy(_leaves(state), "cpu")
+
+
+def test_trajectory_20_steps_matches_jax():
+    sim_j, sj, sim_t, st = _started_pair()
+    fj = j_fixed(sim_j.cfg, 20)(sj)
+    ft = t_fixed(sim_t.cfg, 20)(st)
+    ref = {k: _by_id(fj.particles.id, getattr(fj.particles, f))
+           for k, f in (("pos", "position"), ("vel", "velocity"), ("dens", "density"))}
+    fw = {k: _by_id(ft.particles.id.numpy(), getattr(ft.particles, f).numpy())
+          for k, f in (("pos", "position"), ("vel", "velocity"), ("dens", "density"))}
+    # test_trajectory.py:64-70
+    scale = float(np.abs(ref["pos"]).max())
+    assert float(ft.total_time) == pytest.approx(float(fj.total_time), rel=1e-12)
+    assert float(ft.current_dt) == pytest.approx(float(fj.current_dt), rel=1e-12)
+    np.testing.assert_allclose(fw["pos"], ref["pos"], rtol=1e-9, atol=1e-9 * scale)
+    np.testing.assert_allclose(fw["vel"], ref["vel"], rtol=1e-7, atol=1e-8)
+    np.testing.assert_allclose(fw["dens"], ref["dens"], rtol=1e-9, atol=1e-6)
+    np.testing.assert_array_equal(np.asarray(fj.cell_start), ft.cell_start.numpy())
+    np.testing.assert_array_equal(np.asarray(fj.particles.id), ft.particles.id.numpy())
+    assert int(ft.iteration) == int(fj.iteration) == 25
+    assert int(ft.max_segment) == int(fj.max_segment)
+    assert int(ft.occupied_cells) == int(fj.occupied_cells)
+    # the column fell
+    assert fw["vel"][:, 2].min() < -0.05
+
+
+def test_state_numpy_roundtrip():
+    _, sj, _, st = _started_pair()
+    leaves = _leaves(sj)
+    back = T.state_to_numpy(st)
+    assert set(back) <= set(leaves)
+    for k, v in back.items():
+        assert v.dtype == leaves[k].dtype, k
+        np.testing.assert_array_equal(v, leaves[k], err_msg=k)
+    with pytest.raises(KeyError):
+        T.state_from_numpy({k: v for k, v in back.items() if k != "cell_start"}, "cpu")
+
+
+@pytest.mark.parametrize("dx_acc", [0.0, 10.0])
+def test_position_half_not_permuted(dx_acc):
+    """The displacement accumulator reads position_half in its stored row
+    order, never permuted by a resort (reference scratch-array quirk) -
+    with and without a rebuild in the step."""
+    sim_j, sj, sim_t, st = _started_pair()
+    rng = np.random.default_rng(0)
+    ph = np.asarray(sj.position_half) + rng.normal(0, 1e-3, sj.position_half.shape)
+    sj = sj.replace(position_half=jnp.asarray(ph))
+    st = st.replace(position_half=torch.as_tensor(ph))
+    nj, dj = jax.jit(lambda s, d: j_step(sim_j.cfg, s, d))(sj, jnp.asarray(dx_acc))
+    nt, dt_ = t_step(sim_t.cfg, st, torch.tensor(dx_acc, dtype=torch.float64))
+    expect = dx_acc + 4.0 * np.sqrt(((ph - np.asarray(sj.particles.position)) ** 2)
+                                    .sum(-1).max())
+    rebuilt = expect >= sim_t.cfg.spec.kernel.h
+    assert float(dt_) == pytest.approx(0.0 if rebuilt else expect, abs=1e-15)
+    assert float(dj) == pytest.approx(float(dt_), abs=1e-15)
+    assert nt.rebuilds == st.rebuilds + int(rebuilt)
+    np.testing.assert_allclose(nt.position_half.numpy(), np.asarray(nj.position_half),
+                               rtol=1e-12, atol=1e-14)
+
+
+def test_rebuild_cadence_matches_jax():
+    """A column falling at 12 m/s rebuilds every few steps: the port takes
+    its lazy rebuilds on the same steps as the JAX package."""
+    sim_j, sj, sim_t, st = _started_pair(fluid_vz=-12.0)
+    step_j = jax.jit(lambda s, d: j_step(sim_j.cfg, s, d))
+    h = sim_t.cfg.spec.kernel.h
+    dj = jnp.asarray(1.0 + h)
+    dt_ = torch.tensor(1.0 + h, dtype=torch.float64)
+    r0 = st.rebuilds
+    taken_j, taken_t = [], []
+    for k in range(20):
+        sj, dj = step_j(sj, dj)
+        n_before = st.rebuilds
+        st, dt_ = t_step(sim_t.cfg, st, dt_)
+        taken_j.append(float(dj) == 0.0)
+        taken_t.append(st.rebuilds > n_before)
+    assert taken_t == taken_j
+    assert st.rebuilds - r0 == sum(taken_j) >= 3
+
+
+def test_adaptive_dt_parity():
+    rng = np.random.default_rng(7)
+    meta, jconst, jkern = _case(J)
+    _, tconst, tkern = _case(T)
+    pos = rng.normal(0, 0.5, (300, 3))
+    vel = rng.normal(0, 1.0, (300, 3))
+    acc = rng.normal(0, 10.0, (300, 3))
+    acc[:40] = 0.0  # zero acceleration -> inf, never the minimum
+    a = float(j_dt(jnp.asarray(pos), jnp.asarray(vel), jnp.asarray(acc), jconst, jkern))
+    b = float(t_dt(torch.as_tensor(pos), torch.as_tensor(vel), torch.as_tensor(acc),
+                   tconst, tkern))
+    assert b == pytest.approx(a, rel=1e-14)
+    z = torch.zeros(300, 3, dtype=torch.float64)
+    # all-zero acceleration: the acoustic limit alone, finite
+    c = float(t_dt(torch.as_tensor(pos), z, z, tconst, tkern))
+    assert c == pytest.approx(tconst.cfl * tkern.h / tconst.c0, rel=1e-14)
+
+
+def test_interval_runs_to_output_time_and_catches_divergence():
+    sim = _assemble_port()
+    interval = make_interval_fn(sim.cfg)
+    st = interval(sim.state, 0.002)
+    t = float(st.total_time)
+    assert t > 0.002 and t - float(st.current_dt) <= 0.002 and int(st.iteration) > 0
+    bad = st.replace(particles=st.particles.replace(
+        velocity=st.particles.velocity * float("nan")))
+    with pytest.raises(FloatingPointError):
+        interval(bad, t + 0.002)
+
+
+def test_run_simulation_and_unported_modes():
+    sim = _assemble_port()
+    meta = T.replace(sim.meta, output_times=0.001, simulation_time=0.0025)
+    sim.meta = meta
+    logs = []
+    T.run_simulation(sim, log_callback=logs.append)
+    assert len(logs) == 3 and logs[-1]["total_time"] > 0.0025
+    pos, dens, ptype, grp, idp = dam_break_3d(DX)
+    _, const, kern = _case(T)
+    for meta in (T.replace(sim.meta, mdbc=T.MDBCMode.SIMPLE),
+                 T.replace(sim.meta, shifting=T.ShiftingMode.PLANAR)):
+        with pytest.raises(NotImplementedError):
+            T.assemble_simulation(pos, dens, ptype, grp, idp, meta, const, kern,
+                                  T.ViscosityModel.ARTIFICIAL,
+                                  T.DensityDiffusionModel.LINEAR, device="cpu")
+    moving = T.Geometry("", 1, T.ParticleType.MOVING,
+                        T.MotionDetails(1.0, 0.0, 1.0, (1.0, 0.0, 0.0)))
+    with pytest.raises(NotImplementedError):
+        T.assemble_simulation(pos, dens, ptype, grp, idp, sim.meta, const, kern,
+                              T.ViscosityModel.ARTIFICIAL,
+                              T.DensityDiffusionModel.LINEAR, device="cpu",
+                              geometries=(moving,))
+
+
+def test_run_simulation_raises_on_grid_escape():
+    pos, dens, ptype, grp, idp = dam_break_3d(DX)
+    meta, const, kern = _case(T)
+    meta = T.replace(meta, grid_margin_cells=0, output_times=0.001,
+                     simulation_time=0.01)
+    sim = T.assemble_simulation(pos + OFF, dens, ptype, grp, idp, meta, const, kern,
+                                T.ViscosityModel.ARTIFICIAL,
+                                T.DensityDiffusionModel.LINEAR, device="cpu")
+    p = sim.state.particles
+    p.position[np.argmax(ptype == 1), 2] += 5.0  # one fluid particle far above
+    with pytest.raises(RuntimeError, match="escaped"):
+        T.run_simulation(sim, max_intervals=1)
