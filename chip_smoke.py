@@ -6,7 +6,8 @@
 Phases, each printing one JSON line (any failure exits non-zero):
 
 1. device   - the card's name and power limit (no GPU: exit 1, no result);
-2. build    - nvcc builds every ``sphexample_tpu_torch/csrc/*.cu``;
+2. build    - nvcc builds every ``sphexample_tpu_torch/csrc/*.cu``, one
+              process per source, all started together;
 3. parity   - the block-sweep kernel against its plain PyTorch version on one
               sweep of the 3D dam break (dx 0.0085, fluid velocity (0,0,-1))
               and the 2D dam break (dx 0.01); relative-to-field-max
@@ -20,10 +21,32 @@ Phases, each printing one JSON line (any failure exits non-zero):
               the rest, timed with CUDA events, and the device busy share
               over a profiled window;
 6. parity_after_run - phase 3's comparison on the state the run ends in;
-7. kernels  - one line per kernel: launches on the main path, time per
-              call of the wrapper (CUDA events; pack + kernel + collect)
-              and of the kernel alone (profiler), the plain version's
-              time, the bound.
+7. parity_mdbc_3d, parity_mdbc_2d - the mDBC moment kernel against its plain
+              PyTorch version on the three-layer mDBC dam break (3D at dx
+              0.0085: 131,736 ghost-carrying boundary particles + 117,300
+              fluid; 2D at dx 0.01), fluid densities perturbed from a seeded
+              generator; every moment column must agree below 1e-4 of the
+              column's max, and the solve / Shepard / keep decisions and the
+              corrected densities are compared with the rows within a hair
+              of the |det| threshold counted and printed;
+              parity_sweep_mdbc_3d - the block-sweep kernel against its plain
+              version on that 3D state as the first sweep of a step sees it
+              (pressure from the uncorrected density, then the mDBC correction,
+              fluid velocity (0,0,-1));
+8. run_mdbc - the 3D mDBC dam break (249,036 particles): 10 warm-up steps,
+              then 200 timed steps, with the physics checks of phase 4,
+              some boundary density moved off rho0 (the correction fired),
+              no grid escapes, and the launch counts (exactly 1 mDBC launch
+              and 2 block-sweep launches per step);
+9. breakdown_mdbc - phase 5 for the mDBC run, with stage 04 timed;
+10. parity_mdbc_after_run, parity_sweep_mdbc_after_run - phase 7's comparisons
+              on the state the run ends in;
+11. kernels - one line, one entry per kernel: launches on the main path that
+              runs it, time per call of the wrapper (CUDA events; pack +
+              kernel + collect) and of the kernel alone (profiler), the plain
+              version's time, the bound.  The block sweep runs on both paths:
+              its entry holds the dam-break path's numbers and, under keys
+              ending in ``_mdbc_path``, the mDBC path's own.
 
 Then the card's name and power limit from nvidia-smi on a line of their own,
 and last ``{"ok": true, "device": {...}}``.
@@ -40,9 +63,12 @@ import torch
 import sphexample_tpu_torch as T
 from sphexample_tpu_torch.core.step import _sweep, make_fixed_steps_fn, sph_step
 from sphexample_tpu_torch.io.casegen import dam_break_2d, dam_break_3d
+from sphexample_tpu_torch.models import equations as eq
 from sphexample_tpu_torch.ops import _build
 from sphexample_tpu_torch.ops import block_sweep as bs
 from sphexample_tpu_torch.ops import cell_list as cl
+from sphexample_tpu_torch.ops import mdbc
+from sphexample_tpu_torch.ops import mdbc_moments as mm
 from sphexample_tpu_torch.ops.interactions import candidates
 
 REL_TOL = 1e-4           # kernel vs plain, relative to the field's max
@@ -53,6 +79,15 @@ WARM_STEPS, STEPS = 10, 200
 # accepted pair the kernel gradient, continuity, LINEAR diffusion, pressure
 # term and accumulation; an approaching pair (v.x < 0) the viscosity term.
 OPS_CANDIDATE, OPS_PAIR, OPS_APPROACH = 9, 45, 9
+# the same for the 3D Wendland instance of csrc/mdbc_moments.cu: a candidate
+# costs the difference, squared distance and the cutoff and fluid compares; an
+# accepted pair the density guard and the volume (2), the distance, q, kernel
+# value (8) and gradient (4 + 3) and the 4 x (1 + 1 + 1 + 3 x 2) sums of b and A
+MDBC_OPS_CANDIDATE, MDBC_OPS_PAIR = 10, 56
+# rows whose |det| lies within this share of the 1e-3 threshold may take the
+# other branch in the kernel's summation order: counted, not compared
+NEAR_DET = 0.05
+RHO_TOL = 1e-4           # corrected densities, kernel vs plain moments (f32)
 # H100 SXM peaks (NVIDIA data sheet): f32 outside the tensor cores, HBM3
 PEAK_F32, PEAK_BYTES = 67e12, 3.35e12
 
@@ -83,11 +118,58 @@ def case_2d(dx=0.01):
     return dam_break_2d(dx), meta, const, kern
 
 
+def mdbc_dam_break(case):
+    """The three-layer mDBC dam break of ``case`` (3D or 2D): the fluid block
+    and tank extents of the dam break, its single wall layer replaced by
+    three lattice layers (the original one and two further out: floor and
+    sides, open top).  The boundary interface planes lie dx/2 inside the
+    innermost layer; a boundary particle's ghost point is its reflection
+    about every interface plane it lies beyond (edge and corner particles
+    reflect in 2 or 3 axes) and its normal is ghost - position.  Boundary
+    particles come first, with IDs from 1.  Returns (arrays, ghost_points,
+    ghost_normals, meta, const, kern)."""
+    (pos, _, ptype, _, _), meta, const, kern = case
+    dims, dx = meta.dims, const.dx
+    extents = (1.60, 0.67, 0.45) if dims == 3 else (1.60, 0.45)
+    counts = [int(round(L / dx)) for L in extents]
+    # lattice indices: two extra layers on every side but the open top
+    axes = [np.arange(-2, n + 2) for n in counts[:-1]] + [np.arange(-2, counts[-1])]
+    idx = np.stack(np.meshgrid(*axes, indexing="ij"), axis=-1).reshape(-1, dims)
+    hi = np.array([n - 2 for n in counts[:-1]] + [np.iinfo(np.int64).max])
+    wall = np.any((idx < 1) | (idx > hi), axis=-1)
+    walls = (idx[wall] + 0.5) * dx
+    # reflect about the interface planes x = dx and x = (n - 1) dx
+    top = np.array([(n - 1) * dx for n in counts[:-1]] + [np.inf])
+    ghost = np.where(walls < dx, 2 * dx - walls, walls)
+    ghost = np.where(walls > top, 2 * top - walls, ghost)
+    fluid = pos[ptype == int(T.ParticleType.FLUID)]
+    nb, nf = len(walls), len(fluid)
+    arrays = (
+        np.concatenate([walls, fluid]),
+        np.full(nb + nf, 1000.0),
+        np.concatenate([np.full(nb, int(T.ParticleType.FIXED)),
+                        np.full(nf, int(T.ParticleType.FLUID))]).astype(np.int32),
+        np.concatenate([np.full(nb, 1), np.full(nf, 2)]).astype(np.int32),
+        np.arange(1, nb + nf + 1),
+    )
+    meta = T.replace(meta, simulation_name=meta.simulation_name + "_mdbc",
+                     mdbc=T.MDBCMode.SIMPLE)
+    return arrays, ghost, ghost - walls, meta, const, kern
+
+
 def assemble(case):
     (pos, dens, ptype, grp, idp), meta, const, kern = case
     return T.assemble_simulation(pos, dens, ptype, grp, idp, meta, const, kern,
                                  T.ViscosityModel.ARTIFICIAL,
                                  T.DensityDiffusionModel.LINEAR, device="cuda")
+
+
+def assemble_mdbc(case):
+    (pos, dens, ptype, grp, idp), ghost, normals, meta, const, kern = mdbc_dam_break(case)
+    return T.assemble_simulation(pos, dens, ptype, grp, idp, meta, const, kern,
+                                 T.ViscosityModel.ARTIFICIAL,
+                                 T.DensityDiffusionModel.LINEAR, device="cuda",
+                                 ghost_points=ghost, ghost_normals=normals)
 
 
 def falling_state(sim):
@@ -97,6 +179,27 @@ def falling_state(sim):
     down = torch.zeros(p.dims, dtype=p.position.dtype, device=p.device)
     down[-1] = -1.0
     return p.replace(velocity=down * p.motion_limiter[:, None]), cs
+
+
+def perturbed_state(sim, seed=0):
+    """Rebuilt cell list, fluid densities within +-1% of rho0 from a seeded
+    generator, so that the moment systems are not degenerate."""
+    p, cs, _ = cl.rebuild(sim.state.particles, sim.cfg.spec.kernel.H_inv, sim.cfg.grid)
+    noise = np.random.default_rng(seed).uniform(-0.01, 0.01, size=p.capacity)
+    noise = torch.as_tensor(noise, dtype=p.density.dtype).to(p.device)
+    return p.replace(density=p.density * (1 + noise * p.motion_limiter)), cs
+
+
+def first_sweep_state(sim, p, cs):
+    """``p`` as the first sweep of an mDBC step sees it: pressure from the
+    uncorrected density, then the stage-04 density correction; fluid velocity
+    pointing down so that the viscous terms are live."""
+    p = p.replace(pressure=eq.pressure(p.density, sim.cfg.spec.constants))
+    p = p.replace(density=mdbc.mdbc_density_correction(
+        sim.cfg.spec, sim.cfg.grid, p, cs, sim.cfg.boundary_capacity))
+    down = torch.zeros(p.dims, dtype=p.position.dtype, device=p.device)
+    down[-1] = -1.0
+    return p.replace(velocity=down * p.motion_limiter[:, None])
 
 
 def compare(sim, p, cs, label):
@@ -118,6 +221,70 @@ def compare(sim, p, cs, label):
     emit(res)
     if not res["ok"]:
         fail(f"{label}: kernel and plain version disagree")
+    return res
+
+
+def moment_args(sim, p, cs):
+    """The moment wrapper's arguments on this state, as stage 04 makes them."""
+    bidx, bvalid = mdbc.compact_ghosts(p, sim.cfg.boundary_capacity)
+    return bidx, (sim.cfg.spec, sim.cfg.grid, p.ghost_points[bidx], bvalid,
+                  p.position, p.density, p.motion_limiter, cs)
+
+
+def compare_mdbc(sim, p, cs, label):
+    """The moment kernel against its plain version on the same inputs: every
+    moment column relative to its max; then both sets of moments through the
+    solve and the decision tree."""
+    bidx, args = moment_args(sim, p, cs)
+    gpoint, bvalid = args[2], args[3]
+    B = gpoint.shape[0]
+    bk, Ak = mm.mdbc_moments(*args)
+    bp, Ap = mm.mdbc_moments_plain(*args)
+    torch.cuda.synchronize()
+    k = torch.cat([bk, Ak.reshape(B, -1)], dim=1)
+    ref = torch.cat([bp, Ap.reshape(B, -1)], dim=1)
+    if not (torch.isfinite(k).all() and torch.isfinite(ref).all()):
+        fail(f"{label}: non-finite moments")
+    col_max = ref.abs().amax(dim=0)
+    col_err = (k - ref).abs().amax(dim=0)
+    col_rel = col_err / col_max.clamp(min=1e-30)
+    rho_k, dec_k = mdbc._mdbc_apply(sim.cfg.spec, p, bidx, bvalid, gpoint, bk, Ak)
+    rho_p, dec_p = mdbc._mdbc_apply(sim.cfg.spec, p, bidx, bvalid, gpoint, bp, Ap)
+    det = mdbc._det_solve(Ap, bp)[0].abs()
+    # near a threshold: |det| within NEAR_DET of 1e-3, or (below it) an A00
+    # that is zero in one version and a vanishing W > 0 in the other - a
+    # single neighbour on the rim of the support, where the two versions'
+    # roundings of d2 may decide the cutoff differently
+    a00p, a00k = Ap[:, 0, 0], Ak[:, 0, 0]
+    rim = 1e-6 * a00p.max()
+    near = ((det - mdbc.DET_THRESHOLD).abs() <= NEAR_DET * mdbc.DET_THRESHOLD) | (
+        (det < mdbc.DET_THRESHOLD) & ((a00p > 0) != (a00k > 0))
+        & (a00p <= rim) & (a00k <= rim))
+    flipped = (dec_k != dec_p) & bvalid
+    excluded = (near | flipped) & bvalid
+    held = bvalid & ~excluded
+    a, b = rho_k[bidx][held], rho_p[bidx][held]
+    rho_rel = float(((a - b).abs() / b.abs()).max()) if a.numel() else 0.0
+    res = {
+        "phase": label, "ghost_slots": B, "valid_ghosts": int(bvalid.sum()),
+        "ghosts_with_fluid_neighbour": int(((bp[:, 0] > 0) & bvalid).sum()),
+        "decisions_plain": {name: int(((dec_p == v) & bvalid).sum())
+                            for name, v in (("solve", 2), ("shepard", 1), ("keep", 0))},
+        "decisions_kernel": {name: int(((dec_k == v) & bvalid).sum())
+                             for name, v in (("solve", 2), ("shepard", 1), ("keep", 0))},
+        "moment_max_abs": float(col_err.max()), "moment_max_rel": float(col_rel.max()),
+        "moment_col_rel": [float(v) for v in col_rel],
+        "rho_max_rel": rho_rel, "rows_near_threshold_excluded": int(excluded.sum()),
+        "decision_flips": int(flipped.sum()),
+        "decision_flips_far_from_threshold": int((flipped & ~near).sum()),
+    }
+    res["ok"] = (res["moment_max_rel"] < REL_TOL and rho_rel < RHO_TOL
+                 and res["decision_flips_far_from_threshold"] == 0
+                 and res["ghosts_with_fluid_neighbour"] > 0
+                 and bool(torch.isfinite(rho_k).all()))
+    emit(res)
+    if not res["ok"]:
+        fail(f"{label}: moment kernel and plain version disagree")
     return res
 
 
@@ -160,6 +327,148 @@ def sweep_work(sim, p, cs):
     return n_cand, n_pair, n_appr, nbytes, ops
 
 
+def sweep_numbers(sim, p, cs):
+    """The block sweep on this state: the wrapper's and the plain version's
+    time per call (CUDA events), this state's work and the bound it gives."""
+    n_cand, n_pair, n_appr, nbytes, ops = sweep_work(sim, p, cs)
+    args = (sim.cfg.spec, sim.cfg.grid, p, cs, p.position, p.density,
+            p.pressure, p.velocity)
+    ms = time_cuda(lambda: bs.block_sweep(*args), 20)
+    plain_ms = time_cuda(lambda: bs.block_sweep_plain(*args, block_size=4096), 2)
+    t_bytes, t_ops = nbytes / PEAK_BYTES, ops / PEAK_F32
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes > t_ops else "operations",
+            "candidates": n_cand, "pairs": n_pair, "approaching_pairs": n_appr,
+            "bytes": nbytes, "ops": ops}
+
+
+def mdbc_work(sim, args):
+    """Candidates and in-support fluid pairs of these ghosts (what the moment
+    kernel really evaluates), and the bytes it must move."""
+    spec, grid, gpoint, bvalid, position, density, ml, cs = args
+    kern = spec.kernel
+    gcoords = cl.clamp_coords(cl.cell_coords(gpoint, kern.H_inv), grid)
+    starts, ends = cl.row_segments(gcoords, grid, cs)
+    B, d = gpoint.shape
+    n_cand = n_pair = 0
+    for b0 in range(0, B, 8192):
+        i, j = candidates(starts, ends, b0, min(b0 + 8192, B))
+        live = bvalid[i]
+        i, j = i[live], j[live]
+        xij = gpoint[i] - position[j]
+        n_cand += int(i.numel())
+        n_pair += int((((xij * xij).sum(-1) <= kern.H2) & (ml[j] > 0.5)).sum())
+    n = position.shape[0]
+    # inputs read once (ghost points, validity, position, density, motion
+    # limiter, cell_start) + the [B, K] f32 output
+    nbytes = (B * d * gpoint.element_size() + B + n * (d + 2) * position.element_size()
+              + cs.numel() * 4 + B * mm.n_moments(d) * 4)
+    ops = MDBC_OPS_CANDIDATE * n_cand + MDBC_OPS_PAIR * n_pair
+    return n_cand, n_pair, nbytes, ops
+
+
+def run_phase(sim, label, mdbc_on):
+    """10 warm-up + 200 timed steps through ``make_fixed_steps_fn`` with the
+    launch counts set to 0 just before the timed steps and read just after,
+    and the physics checks.  Returns (end state, the emitted record)."""
+    ids0 = sim.state.particles.id.clone()
+    pos0 = sim.state.particles.position.clone()
+    fixed0 = sim.state.particles.ptype == int(T.ParticleType.FIXED)
+    state = make_fixed_steps_fn(sim.cfg, WARM_STEPS)(sim.state)
+    torch.cuda.synchronize()
+    rebuilds0 = state.rebuilds
+    torch.cuda.reset_peak_memory_stats()
+    bs.launches = 0
+    mm.launches = 0
+    t0 = time.perf_counter()
+    state = make_fixed_steps_fn(sim.cfg, STEPS)(state)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    sweep_launches, mdbc_launches = bs.launches, mm.launches
+    p = state.particles
+    n = sim.n_live
+    finite = all(bool(torch.isfinite(getattr(p, f)).all()) for f in
+                 ("position", "velocity", "acceleration", "density", "pressure"))
+    fluid = p.ptype == int(T.ParticleType.FLUID)
+    rho0 = sim.cfg.spec.constants.rho0
+    rho_f = p.density[fluid]
+    order_now = torch.argsort(p.id)
+    order0 = torch.argsort(ids0)
+    walls_still = bool(torch.equal(p.position[order_now][fixed0[order0]],
+                                   pos0[order0][fixed0[order0]]))
+    rho_b = p.density[(p.ptype == int(T.ParticleType.FIXED)) & p.active]
+    run = {
+        "phase": label, "n": n, "steps": STEPS, "wall_s": wall,
+        "particle_steps_per_s": n * STEPS / wall, "ms_per_step": 1e3 * wall / STEPS,
+        "device": torch.cuda.get_device_name(0), "rebuilds": state.rebuilds - rebuilds0,
+        "sim_time_s": float(state.total_time), "dt": float(state.current_dt),
+        "fluid_rho_min": float(rho_f.min()), "fluid_rho_max": float(rho_f.max()),
+        "fluid_vz_min": float(p.velocity[fluid][:, -1].min()),
+        "boundary_rho_min": float(rho_b.min()), "boundary_rho_max": float(rho_b.max()),
+        "boundary_rows_off_rho0": int((rho_b != rho0).sum()),
+        "launches": sweep_launches, "mdbc_launches": mdbc_launches,
+        "ghosts": sim.cfg.boundary_capacity if mdbc_on else 0,
+        "finite": finite, "walls_still": walls_still,
+        "max_occupancy": int(state.max_occupancy), "max_segment": int(state.max_segment),
+        "grid_escapes": int(state.grid_escapes),
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
+    }
+    emit(run)
+    if not finite:
+        fail(f"{label}: non-finite fields after the run")
+    if not (abs(run["fluid_rho_min"] / rho0 - 1) <= 0.02
+            and abs(run["fluid_rho_max"] / rho0 - 1) <= 0.02):
+        fail(f"{label}: fluid density left rho0 +- 2%")
+    if not run["fluid_vz_min"] < 0:
+        fail(f"{label}: the fluid column is not falling")
+    if not walls_still:
+        fail(f"{label}: fixed boundary particles moved")
+    if sweep_launches != 2 * STEPS:
+        fail(f"{label}: block-sweep launches {sweep_launches} != 2 x {STEPS} steps")
+    if mdbc_launches != (STEPS if mdbc_on else 0):
+        fail(f"{label}: mDBC launches {mdbc_launches} in {STEPS} steps")
+    if run["grid_escapes"] != 0:
+        fail(f"{label}: particles escaped the static grid")
+    if mdbc_on and run["boundary_rows_off_rho0"] == 0:
+        fail(f"{label}: no boundary density moved off rho0 - mDBC did not fire")
+    return state, run
+
+
+def breakdown_phase(sim, state, run, label):
+    """Where a step's time goes (CUDA events; profiler for busy share)."""
+    pf, csf = state.particles, state.cell_start
+    sweep_ms = time_cuda(lambda: _sweep(sim.cfg, pf, csf, pf.position, pf.density,
+                                        pf.pressure, pf.velocity), 20)
+    rebuild_ms = time_cuda(lambda: cl.rebuild(pf, sim.cfg.spec.kernel.H_inv,
+                                              sim.cfg.grid), 10)
+    dx_far = torch.full((), 1e9, dtype=state.total_time.dtype, device="cuda")
+    dx_none = torch.zeros((), dtype=state.total_time.dtype, device="cuda")
+    step_rebuild_ms = time_cuda(lambda: sph_step(sim.cfg, state, dx_far), 10)
+    step_plain_ms = time_cuda(lambda: sph_step(sim.cfg, state, dx_none), 10)
+    step_ms = run["ms_per_step"]
+    brk = {
+        "phase": label, "step_ms": step_ms,
+        "sweep_ms": sweep_ms, "two_sweeps_share": 2 * sweep_ms / step_ms,
+        "rebuild_ms": rebuild_ms, "rebuilds_per_step": run["rebuilds"] / STEPS,
+        "step_ms_with_rebuild": step_rebuild_ms, "step_ms_without_rebuild": step_plain_ms,
+    }
+    if sim.cfg.meta.mdbc is T.MDBCMode.SIMPLE:
+        # stage 04 as the step runs it: compaction, kernel, solve, scatter
+        stage_ms = time_cuda(lambda: mdbc.mdbc_density_correction(
+            sim.cfg.spec, sim.cfg.grid, pf, csf, sim.cfg.boundary_capacity), 20)
+        _, args = moment_args(sim, pf, csf)
+        bvec, Amat = mm.mdbc_moments(*args)
+        brk.update(
+            mdbc_stage_ms=stage_ms, mdbc_stage_share=stage_ms / step_ms,
+            mdbc_compact_ms=time_cuda(lambda: mdbc.compact_ghosts(
+                pf, sim.cfg.boundary_capacity), 20),
+            mdbc_moments_ms=time_cuda(lambda: mm.mdbc_moments(*args), 20),
+            mdbc_solve_ms=time_cuda(lambda: mdbc._det_solve(Amat, bvec), 20))
+    brk.update(prof_window(sim, state))
+    emit(brk)
+    return brk
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device - this script runs on the card only",
@@ -181,113 +490,99 @@ def main():
           "ptxas": {k: [ln for ln in v.splitlines() if "registers" in ln or "spill" in ln][:8]
                     for k, v in _build.build_logs.items()}})
 
-    # 3 - parity on the initial lattices
+    # 3 - block-sweep parity on the initial lattices
     sim3 = assemble(case_3d())
     p3, cs3 = falling_state(sim3)
     par3 = compare(sim3, p3, cs3, "parity_3d")
+    del p3, cs3
     sim2 = assemble(case_2d())
     p2, cs2 = falling_state(sim2)
     compare(sim2, p2, cs2, "parity_2d")
     del sim2, p2, cs2
 
-    # 4 - the main path: 10 warm-up + 200 timed steps
-    sim = sim3
-    ids0 = sim.state.particles.id.clone()
-    pos0 = sim.state.particles.position.clone()
-    fixed0 = sim.state.particles.ptype == int(T.ParticleType.FIXED)
-    state = make_fixed_steps_fn(sim.cfg, WARM_STEPS)(sim.state)
-    torch.cuda.synchronize()
-    rebuilds0 = state.rebuilds
-    bs.launches = 0
-    t0 = time.perf_counter()
-    state = make_fixed_steps_fn(sim.cfg, STEPS)(state)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = bs.launches
-    p = state.particles
-    n = sim.n_live
-    finite = all(bool(torch.isfinite(getattr(p, f)).all()) for f in
-                 ("position", "velocity", "acceleration", "density", "pressure"))
-    fluid = p.ptype == int(T.ParticleType.FLUID)
-    rho0 = sim.cfg.spec.constants.rho0
-    rho_f = p.density[fluid]
-    order_now = torch.argsort(p.id)
-    order0 = torch.argsort(ids0)
-    walls_still = bool(torch.equal(p.position[order_now][fixed0[order0]],
-                                   pos0[order0][fixed0[order0]]))
-    run = {
-        "phase": "run", "n": n, "steps": STEPS, "wall_s": wall,
-        "particle_steps_per_s": n * STEPS / wall, "ms_per_step": 1e3 * wall / STEPS,
-        "device": kind, "nvidia_smi": smi, "rebuilds": state.rebuilds - rebuilds0,
-        "sim_time_s": float(state.total_time), "dt": float(state.current_dt),
-        "fluid_rho_min": float(rho_f.min()), "fluid_rho_max": float(rho_f.max()),
-        "fluid_vz_min": float(p.velocity[fluid][:, -1].min()),
-        "launches": launches, "finite": finite, "walls_still": walls_still,
-        "max_occupancy": int(state.max_occupancy), "max_segment": int(state.max_segment),
-        "grid_escapes": int(state.grid_escapes),
-        "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
-    }
-    emit(run)
-    if not finite:
-        fail("non-finite fields after the run")
-    if not (abs(run["fluid_rho_min"] / rho0 - 1) <= 0.02
-            and abs(run["fluid_rho_max"] / rho0 - 1) <= 0.02):
-        fail("fluid density left rho0 +- 2%")
-    if not run["fluid_vz_min"] < 0:
-        fail("the fluid column is not falling")
-    if not walls_still:
-        fail("fixed boundary particles moved")
-    if launches != 2 * STEPS:
-        fail(f"block-sweep launches {launches} != 2 x {STEPS} steps")
-
-    # 5 - where a step's time goes (CUDA events; profiler for busy share)
+    # 4-6 - the dam-break path: run, breakdown, parity on the end state
+    state, run = run_phase(sim3, "run", mdbc_on=False)
+    brk = breakdown_phase(sim3, state, run, "breakdown")
     pf, csf = state.particles, state.cell_start
-    sweep_ms = time_cuda(lambda: _sweep(sim.cfg, pf, csf, pf.position, pf.density,
-                                        pf.pressure, pf.velocity), 20)
-    rebuild_ms = time_cuda(lambda: cl.rebuild(pf, sim.cfg.spec.kernel.H_inv,
-                                              sim.cfg.grid), 10)
-    dx_far = torch.full((), 1e9, dtype=state.total_time.dtype, device="cuda")
-    dx_none = torch.zeros((), dtype=state.total_time.dtype, device="cuda")
-    step_rebuild_ms = time_cuda(lambda: sph_step(sim.cfg, state, dx_far), 10)
-    step_plain_ms = time_cuda(lambda: sph_step(sim.cfg, state, dx_none), 10)
-    busy = prof_window(sim, state)
-    step_ms = 1e3 * wall / STEPS
-    brk = {
-        "phase": "breakdown", "step_ms": step_ms,
-        "sweep_ms": sweep_ms, "two_sweeps_share": 2 * sweep_ms / step_ms,
-        "rebuild_ms": rebuild_ms, "rebuilds_per_step": run["rebuilds"] / STEPS,
-        "step_ms_with_rebuild": step_rebuild_ms, "step_ms_without_rebuild": step_plain_ms,
-        **busy,
-    }
-    emit(brk)
+    par_after = compare(sim3, pf, csf, "parity_after_run")
 
-    # 6 - parity on the state the run ends in (cells no longer on the lattice)
-    par_after = compare(sim, pf, csf, "parity_after_run")
-
-    # 7 - the kernel line
-    n_cand, n_pair, n_appr, nbytes, ops = sweep_work(sim, pf, csf)
-    args = (sim.cfg.spec, sim.cfg.grid, pf, csf, pf.position, pf.density,
-            pf.pressure, pf.velocity)
-    kernel_ms = time_cuda(lambda: bs.block_sweep(*args), 20)
-    plain_ms = time_cuda(lambda: bs.block_sweep_plain(*args, block_size=4096), 2)
-    t_bytes, t_ops = nbytes / PEAK_BYTES, ops / PEAK_F32
-    bound_ms = 1e3 * max(t_bytes, t_ops)
-    emit({"kernels": [{
+    # the block sweep's entry of the kernel line (the dam-break end state)
+    nums = sweep_numbers(sim3, pf, csf)
+    sweep_entry = {
         "name": "block_sweep", "route": "cuda",
         "source": "sphexample_tpu_torch/csrc/block_sweep.cu",
         "replaces": "sphexample_tpu/ops/pallas_block_sweep.py:573 (_make_block_kernel)",
-        "launches": launches,
+        "launches": run["launches"],
         "max_abs_err": max(par_after["drhodt_max_abs"], par_after["acc_max_abs"]),
         "max_rel_err": max(par3["drhodt_rel"], par3["acc_rel"],
                            par_after["drhodt_rel"], par_after["acc_rel"]),
-        "ms": kernel_ms, "ms_per_launch": kernel_ms,
-        "kernel_only_ms": brk.get("kernel_only_ms", "not measured"), "plain_ms": plain_ms,
-        "bound_ms": bound_ms, "bound_us": 1e3 * bound_ms,
+        "ms": nums["ms"], "ms_per_launch": nums["ms"],
+        "kernel_only_ms": brk.get("block_sweep_kernel_only_ms", "not measured"),
+        "plain_ms": nums["plain_ms"],
+        "bound_ms": nums["bound_ms"], "bound_by": nums["bound_by"],
+        "library_ms": None,
+        **{k: nums[k] for k in ("candidates", "pairs", "approaching_pairs",
+                                "bytes", "ops")},
+    }
+    del sim3, state, pf, csf
+    torch.cuda.empty_cache()
+
+    # 7 - moment-kernel parity on the initial mDBC lattices
+    simm = assemble_mdbc(case_3d())
+    n_ghost = simm.cfg.boundary_capacity
+    if (n_ghost, simm.n_live) != (131736, 249036):
+        fail(f"the mDBC case has {n_ghost} ghosts / {simm.n_live} particles")
+    pm, csm = perturbed_state(simm)
+    parm3 = compare_mdbc(simm, pm, csm, "parity_mdbc_3d")
+    par_sweep_m3 = compare(simm, first_sweep_state(simm, pm, csm), csm,
+                           "parity_sweep_mdbc_3d")
+    del pm, csm
+    simm2 = assemble_mdbc(case_2d())
+    pm2, csm2 = perturbed_state(simm2)
+    compare_mdbc(simm2, pm2, csm2, "parity_mdbc_2d")
+    del simm2, pm2, csm2
+
+    # 8-10 - the mDBC path: run, breakdown, parity on the end state
+    state, runm = run_phase(simm, "run_mdbc", mdbc_on=True)
+    brkm = breakdown_phase(simm, state, runm, "breakdown_mdbc")
+    pf, csf = state.particles, state.cell_start
+    parm_after = compare_mdbc(simm, pf, csf, "parity_mdbc_after_run")
+    par_sweep_m = compare(simm, pf, csf, "parity_sweep_mdbc_after_run")
+
+    # 11 - the kernel line
+    _, margs = moment_args(simm, pf, csf)
+    m_cand, m_pair, m_bytes, m_ops = mdbc_work(simm, margs)
+    m_ms = time_cuda(lambda: mm.mdbc_moments(*margs), 20)
+    m_plain_ms = time_cuda(lambda: mm.mdbc_moments_plain(*margs), 2)
+    t_bytes, t_ops = m_bytes / PEAK_BYTES, m_ops / PEAK_F32
+    mdbc_entry = {
+        "name": "mdbc_moments", "route": "cuda",
+        "source": "sphexample_tpu_torch/csrc/mdbc_moments.cu",
+        "replaces": "sphexample_tpu/ops/pallas_mdbc.py:41 (_make_mdbc_kernel)",
+        "launches": runm["mdbc_launches"],
+        "max_abs_err": parm_after["moment_max_abs"],
+        "max_rel_err": max(parm3["moment_max_rel"], parm_after["moment_max_rel"]),
+        "ms": m_ms, "ms_per_launch": m_ms,
+        "kernel_only_ms": brkm.get("mdbc_moments_kernel_only_ms", "not measured"),
+        "plain_ms": m_plain_ms,
+        "bound_ms": 1e3 * max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes > t_ops else "operations",
         "library_ms": None,
-        "candidates": n_cand, "pairs": n_pair, "approaching_pairs": n_appr,
-        "bytes": nbytes, "ops": ops,
-    }]})
+        "ghosts": n_ghost, "candidates": m_cand, "pairs": m_pair,
+        "bytes": m_bytes, "ops": m_ops,
+    }
+    # the block sweep on the mDBC path, at that path's own shapes
+    nums = sweep_numbers(simm, pf, csf)
+    sweep_entry.update(
+        launches_mdbc_path=runm["launches"],
+        max_abs_err_mdbc_path=max(par_sweep_m["drhodt_max_abs"],
+                                  par_sweep_m["acc_max_abs"]),
+        max_rel_err_mdbc_path=max(par_sweep_m3["drhodt_rel"], par_sweep_m3["acc_rel"],
+                                  par_sweep_m["drhodt_rel"], par_sweep_m["acc_rel"]),
+        kernel_only_ms_mdbc_path=brkm.get("block_sweep_kernel_only_ms",
+                                          "not measured"),
+        **{f"{k}_mdbc_path": v for k, v in nums.items()})
+    emit({"kernels": [sweep_entry, mdbc_entry]})
     print(smi)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
@@ -296,7 +591,9 @@ def main():
 
 def prof_window(sim, state, steps=20):
     """Device busy share of ``steps`` steps under torch.profiler (kernel
-    time summed over the window's wall time)."""
+    time summed over the window's wall time), and each hand-written kernel's
+    time alone, without its wrapper's pack and collect."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     run = make_fixed_steps_fn(sim.cfg, steps)
@@ -306,22 +603,28 @@ def prof_window(sim, state, steps=20):
         run(state)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    ev = prof.key_averages()
-    dev_us = sum(getattr(e, "self_device_time_total", 0.0) for e in ev)
-    top = sorted(ev, key=lambda e: getattr(e, "self_device_time_total", 0.0),
-                 reverse=True)[:8]
+    # device-side events only: an aten op's row repeats the time of the
+    # kernels it launched, so summing every row would count them twice
+    ev = [e for e in prof.key_averages()
+          if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+    dev_us = sum(e.self_device_time_total for e in ev)
+    top = sorted(ev, key=lambda e: e.self_device_time_total, reverse=True)[:8]
     if dev_us <= 0:
         return {"profiled_steps": steps, "busy_share": "not measured"}
-    # the kernel alone, without the wrapper's pack and collect
-    sweep = [e for e in ev if "block_sweep_kernel" in e.key]
-    sweep_us = sum(e.self_device_time_total for e in sweep)
-    sweep_n = sum(e.count for e in sweep)
-    return {
+    out = {
         "profiled_steps": steps, "profiled_wall_ms": 1e3 * wall,
         "device_busy_ms": dev_us / 1e3, "busy_share": dev_us / 1e6 / wall,
-        "kernel_only_ms": sweep_us / 1e3 / sweep_n if sweep_n else "not measured",
+        "device_ms_per_step": dev_us / 1e3 / steps,
+        "device_launches_per_step": sum(e.count for e in ev) / steps,
         "top_device_ops_ms": {e.key[:60]: e.self_device_time_total / 1e3 for e in top},
     }
+    for name in ("block_sweep", "mdbc_moments"):
+        mine = [e for e in ev if f"{name}_kernel" in e.key]
+        count = sum(e.count for e in mine)
+        if count:
+            out[f"{name}_kernel_only_ms"] = (
+                sum(e.self_device_time_total for e in mine) / 1e3 / count)
+    return out
 
 
 if __name__ == "__main__":

@@ -3,9 +3,10 @@
 
 Entry points run on the card: ``device=None`` resolves to ``"cuda"`` and
 raises when no GPU is present.  Only an explicit ``device="cpu"`` runs on
-the CPU (the plain sweep).  Re-grid, replay, output and checkpoints come
-with later slices of the port; the port's sweep has no capacity windows or
-encoding limits, so grid escapes are the only overflow left to guard.
+the CPU (the plain versions of the kernels).  Re-grid, replay, output and
+checkpoints come with later slices of the port; the port's kernels have no
+capacity windows or encoding limits, so grid escapes are the only overflow
+left to guard.
 """
 
 from __future__ import annotations
@@ -20,11 +21,13 @@ import torch
 from ..config import (
     DensityDiffusionModel,
     Geometry,
+    MDBCMode,
     SimulationConstants,
     SimulationMetaData,
     SPHKernelInstance,
     ViscosityModel,
 )
+from ..io.csv_io import load_boundary_normals, load_geometries
 from ..models import equations as eq
 from ..ops import cell_list as cl
 from ..ops.interactions import PhysicsSpec
@@ -70,12 +73,15 @@ def assemble_simulation(
     viscosity: ViscosityModel,
     diffusion: DensityDiffusionModel,
     *,
+    ghost_points: Optional[np.ndarray] = None,
+    ghost_normals: Optional[np.ndarray] = None,
     geometries: Sequence[Geometry] = (),
     capacity: Optional[int] = None,
     device=None,
 ) -> Simulation:
     """Allocate the state on ``device`` from host arrays and assemble the
-    step config (static grid bounds from the initial positions)."""
+    step config (static grid bounds from the initial positions, the mDBC
+    ghost count)."""
     dev = resolve_device(device)
     check_supported(meta)
     if any(g.motion is not None for g in geometries):
@@ -86,6 +92,24 @@ def assemble_simulation(
     particles = allocate_particles(position, density, ptype, group_marker, idp,
                                    device=dev, dtype=meta.dtype, capacity=capacity)
     dtype = particles.position.dtype
+
+    n_ghost = 0
+    if ghost_points is not None:
+        # Reference LoadMDBCNormals! (SPHCellList.jl:507-524): ghost rows map
+        # 1:1 onto the first particles in ID order (the boundary body loads
+        # first and IDs are contiguous from 1).
+        n_ghost = len(ghost_points)
+        if n_ghost > n:
+            raise ValueError(f"{n_ghost} ghost rows for {n} particles")
+        gp = np.zeros((particles.capacity, meta.dims))
+        gn = np.zeros((particles.capacity, meta.dims))
+        gp[:n_ghost] = ghost_points
+        gn[:n_ghost] = ghost_normals
+        particles = particles.replace(
+            ghost_points=torch.as_tensor(gp).to(device=dev, dtype=dtype),
+            ghost_normals=torch.as_tensor(gn).to(device=dev, dtype=dtype),
+        )
+
     # initial pressure (reference RunSimulation, SPHCellList.jl:835)
     particles = particles.replace(pressure=eq.pressure(particles.density, constants))
 
@@ -97,7 +121,8 @@ def assemble_simulation(
         shifting=meta.shifting,
         kernel_output=meta.kernel_output,
     )
-    cfg = StepConfig(spec=spec, meta=meta, grid=grid, block_size=meta.block_size)
+    cfg = StepConfig(spec=spec, meta=meta, grid=grid, block_size=meta.block_size,
+                     boundary_capacity=max(1, n_ghost))
 
     def scalar(dt):
         return torch.zeros((), dtype=dt, device=dev)
@@ -115,6 +140,34 @@ def assemble_simulation(
         grid_escapes=scalar(torch.int32),
     )
     return Simulation(cfg=cfg, state=state, meta=meta, n_live=n)
+
+
+def build_simulation(
+    geometries: Sequence[Geometry],
+    meta: SimulationMetaData,
+    constants: SimulationConstants,
+    kernel: SPHKernelInstance,
+    viscosity: ViscosityModel,
+    diffusion: DensityDiffusionModel,
+    particle_normals_path: Optional[str] = None,
+    capacity: Optional[int] = None,
+    device=None,
+) -> Simulation:
+    """Load CSV geometry and assemble a ready-to-run simulation."""
+    position, density, ptype, group_marker, idp = load_geometries(geometries, meta.dims)
+
+    ghost_points = ghost_normals = None
+    if meta.mdbc is MDBCMode.SIMPLE and particle_normals_path is not None:
+        _, ghost_points, ghost_normals = load_boundary_normals(
+            particle_normals_path, meta.dims
+        )
+
+    return assemble_simulation(
+        position, density, ptype, group_marker, idp,
+        meta, constants, kernel, viscosity, diffusion,
+        ghost_points=ghost_points, ghost_normals=ghost_normals,
+        geometries=geometries, capacity=capacity, device=device,
+    )
 
 
 def run_simulation(

@@ -7,6 +7,7 @@ Stage numbering mirrors the reference's timer taxonomy (SURVEY.md 3.2):
   01  adaptive dt                         (:748)
   02  lazy neighbor rebuild when dx >= h  (:758-762)
   03  pressure from density               (:771)
+  04  mDBC ghost-node density correction  (:772)
   05  first neighbor sweep                (:774)
   06  half step predictor                 (:778)
   07  clamp rho_half at boundary          (:781)
@@ -17,8 +18,8 @@ Stage numbering mirrors the reference's timer taxonomy (SURVEY.md 3.2):
   11  full step corrector                 (:798)
   12  time/iteration bookkeeping          (:800)
 
-mDBC (stage 04), prescribed motion and shifting come with later slices of
-the port; a configuration that asks for them raises NotImplementedError.
+Prescribed motion and shifting come with later slices of the port; a
+configuration that asks for them raises NotImplementedError.
 
 The lazy rebuild is a host ``if`` on the displacement accumulator: one
 device-to-host sync per step (the JAX package decides it on the device with
@@ -38,6 +39,7 @@ from ..models import equations as eq
 from ..ops import cell_list as cl
 from ..ops.block_sweep import block_sweep
 from ..ops.interactions import PhysicsSpec
+from ..ops.mdbc import mdbc_density_correction
 from ..ops.timestep import adaptive_dt
 from ..state import SimulationState
 
@@ -50,12 +52,11 @@ class StepConfig:
     meta: SimulationMetaData
     grid: cl.Grid
     block_size: int         # particle chunking of the plain sweep
+    boundary_capacity: int  # number of mDBC ghost-carrying particles (static)
 
 
 def check_supported(meta: SimulationMetaData) -> None:
     """Raise for the modes whose slice of the port has not landed yet."""
-    if meta.mdbc is not MDBCMode.NONE:
-        raise NotImplementedError("mDBC is not ported yet")
     if meta.shifting is not ShiftingMode.NONE:
         raise NotImplementedError("particle shifting is not ported yet")
 
@@ -116,8 +117,16 @@ def sph_step(cfg: StepConfig, state: SimulationState, dx_acc):
         dx_acc = torch.zeros_like(dx_acc)
         rebuilds += 1
 
-    # 03 - pressure from current density
+    # 03 - pressure from current density (quirk: computed BEFORE the mDBC
+    # correction mutates density; the first sweep therefore pairs corrected
+    # densities with pre-correction pressures, as the reference does)
     p = p.replace(pressure=eq.pressure(p.density, c))
+
+    # 04 - mDBC: the CUDA moment kernel on the card, its plain version for
+    # CPU tensors (``ops.mdbc_moments.mdbc_moments``); no host sync
+    if cfg.meta.mdbc is MDBCMode.SIMPLE:
+        p = p.replace(density=mdbc_density_correction(
+            spec, cfg.grid, p, cell_start, cfg.boundary_capacity))
 
     # 05 - first neighbor sweep (predictor forces)
     out1 = _sweep(cfg, p, cell_start, p.position, p.density, p.pressure,

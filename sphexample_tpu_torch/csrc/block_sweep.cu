@@ -54,6 +54,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "sph_kernel_functions.cuh"
+
 extern "C" {
 
 struct SweepParams {
@@ -79,8 +81,6 @@ struct SweepParams {
 
 namespace {
 
-enum { WENDLAND = 0, CUBIC = 1 };
-
 struct Row {
     float x[3];
     float v[3];
@@ -102,37 +102,6 @@ __device__ __forceinline__ Row load_row(const float4* __restrict__ pack, int i) 
         r.rho = b.x; r.rcp = b.y; r.p = b.z; r.ml = b.w;
     }
     return r;
-}
-
-template <int FAM>
-__device__ __forceinline__ float kernel_value(const SweepParams& P, float q) {
-    if constexpr (FAM == WENDLAND) {
-        const float t = 1.0f - 0.5f * q;
-        const float t2 = t * t;
-        return P.alpha_d * (t2 * t2) * (2.0f * q + 1.0f);
-    } else {
-        if (q <= 1.0f) return P.alpha_d * (1.0f - 1.5f * q * q + 0.75f * q * q * q);
-        const float t = 2.0f - q;
-        return P.alpha_d * 0.25f * (t * t * t);
-    }
-}
-
-// grad W = fac * x_ij
-template <int FAM>
-__device__ __forceinline__ float grad_factor(const SweepParams& P, float q, float d) {
-    if constexpr (FAM == WENDLAND) {
-        const float t = q - 2.0f;
-        return P.wendland_fac * (t * t * t);
-    } else {
-        float dwdq;
-        if (q <= 1.0f) {
-            dwdq = P.alpha_d * (-3.0f * q + 2.25f * q * q);
-        } else {
-            const float t = 2.0f - q;
-            dwdq = P.alpha_d * (-0.75f) * (t * t);
-        }
-        return dwdq * P.h_inv / (d + P.eta2);
-    }
 }
 
 template <int D, int FAM, bool VISC, bool DIFF>

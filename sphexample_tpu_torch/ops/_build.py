@@ -2,9 +2,9 @@
 
 Each ``csrc/<name>.cu`` becomes ``_build/lib<name>-<hash>.so``, a shared
 library with a plain C interface loaded with ctypes; ``<hash>`` covers the
-source and the compiler flags, so an edited source is rebuilt and a built
-one is reused.  Nothing here runs at import time: the CPU tests import every
-module on a machine without nvcc.
+source, the headers (``csrc/*.cuh``) and the compiler flags, so an edited
+source is rebuilt and a built one is reused.  Nothing here runs at import
+time: the CPU tests import every module on a machine without nvcc.
 """
 
 from __future__ import annotations
@@ -45,7 +45,8 @@ def _nvcc() -> str:
 
 def _target(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD / f"lib{name}-{digest}.so"
 
 
@@ -97,3 +98,8 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.sph_block_sweep.restype = ci
         lib.sph_error_string.argtypes = [ci]
         lib.sph_error_string.restype = ctypes.c_char_p
+    elif name == "mdbc_moments":
+        lib.sph_mdbc_moments.argtypes = [vp, ci] + [vp] * 8
+        lib.sph_mdbc_moments.restype = ci
+        lib.sph_mdbc_error_string.argtypes = [ci]
+        lib.sph_mdbc_error_string.restype = ctypes.c_char_p

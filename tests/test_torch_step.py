@@ -2,7 +2,9 @@
 started from one identical state (``state_from_numpy``), in f64 on a coarse
 3D dam break (ARTIFICIAL + LINEAR, the main path's models), with the bands of
 test_trajectory.py; plus ``adaptive_dt``, the ``position_half`` quirk, the
-rebuild cadence and the interval loop."""
+rebuild cadence and the interval loop; and the mDBC step on the mini
+still-wedge of test_trajectory.py against the JAX package and the numpy
+``reference_run``."""
 
 import dataclasses
 
@@ -14,6 +16,7 @@ import torch
 
 import sphexample_tpu as J
 import sphexample_tpu_torch as T
+from reference_impl import reference_run
 from sphexample_tpu.core.step import make_fixed_steps_fn as j_fixed
 from sphexample_tpu.core.step import sph_step as j_step
 from sphexample_tpu.ops.timestep import adaptive_dt as j_dt
@@ -202,12 +205,20 @@ def test_run_simulation_and_unported_modes():
     assert len(logs) == 3 and logs[-1]["total_time"] > 0.0025
     pos, dens, ptype, grp, idp = dam_break_3d(DX)
     _, const, kern = _case(T)
-    for meta in (T.replace(sim.meta, mdbc=T.MDBCMode.SIMPLE),
-                 T.replace(sim.meta, shifting=T.ShiftingMode.PLANAR)):
-        with pytest.raises(NotImplementedError):
-            T.assemble_simulation(pos, dens, ptype, grp, idp, meta, const, kern,
-                                  T.ViscosityModel.ARTIFICIAL,
+    with pytest.raises(NotImplementedError):
+        T.assemble_simulation(pos, dens, ptype, grp, idp,
+                              T.replace(sim.meta, shifting=T.ShiftingMode.PLANAR),
+                              const, kern, T.ViscosityModel.ARTIFICIAL,
+                              T.DensityDiffusionModel.LINEAR, device="cpu")
+    # mDBC is ported: it assembles, and without ghost rows it changes nothing
+    sim_m = T.assemble_simulation(pos + OFF, dens, ptype, grp, idp,
+                                  T.replace(sim.meta, mdbc=T.MDBCMode.SIMPLE),
+                                  const, kern, T.ViscosityModel.ARTIFICIAL,
                                   T.DensityDiffusionModel.LINEAR, device="cpu")
+    assert sim_m.cfg.boundary_capacity == 1
+    a = t_fixed(sim_m.cfg, 2)(sim_m.state)
+    b = t_fixed(_assemble_port().cfg, 2)(_assemble_port().state)
+    assert torch.equal(a.particles.density, b.particles.density)
     moving = T.Geometry("", 1, T.ParticleType.MOVING,
                         T.MotionDetails(1.0, 0.0, 1.0, (1.0, 0.0, 0.0)))
     with pytest.raises(NotImplementedError):
@@ -229,3 +240,105 @@ def test_run_simulation_raises_on_grid_escape():
     p.position[np.argmax(ptype == 1), 2] += 5.0  # one fluid particle far above
     with pytest.raises(RuntimeError, match="escaped"):
         T.run_simulation(sim, max_intervals=1)
+
+
+N_STEPS = 50  # test_trajectory.py:34
+
+
+def _wedge(M, **kw):
+    """The mini still-wedge of test_trajectory.py:74-117: an mDBC floor under
+    a falling fluid block, ARTIFICIAL + LINEAR, f64, ``OFF`` lattice shift."""
+    const = M.SimulationConstants(dx=0.02, c0=40.0, cfl=0.3)
+    kern = M.make_kernel(M.KernelFamily.WENDLAND_C2, 2, dx=const.dx)
+    dx = const.dx
+    xs, zs = np.meshgrid(np.arange(10), np.arange(10), indexing="ij")
+    fluid = np.stack([xs.ravel() * dx, zs.ravel() * dx + dx], axis=-1)
+    floor_x = np.arange(-4, 14) * dx
+    floor = np.stack([floor_x, np.zeros_like(floor_x)], axis=-1)
+    pos = np.concatenate([floor, fluid]) + OFF
+    nb, n = len(floor), len(floor) + len(fluid)
+    ptype = np.concatenate([np.full(nb, 2), np.full(len(fluid), 1)]).astype(np.int32)
+    ghost = np.zeros_like(pos)
+    ghost[:nb] = floor + OFF + np.array([0.0, dx])
+    ghostn = np.concatenate([np.tile(np.array([[0.0, dx]]), (nb, 1)),
+                             np.zeros((n - nb, 2))])
+    gm = np.concatenate([np.full(nb, 1), np.full(len(fluid), 2)]).astype(np.int32)
+    ids = np.arange(1, n + 1)
+    dens0 = np.full(n, const.rho0)
+    meta = M.SimulationMetaData(simulation_name="traj_wedge", save_location=".",
+                                dims=2, dtype="float64", mdbc=M.MDBCMode.SIMPLE,
+                                grid_margin_cells=4)
+    sim = M.assemble_simulation(pos, dens0, ptype, gm, ids, meta, const, kern,
+                                M.ViscosityModel.ARTIFICIAL,
+                                M.DensityDiffusionModel.LINEAR,
+                                ghost_points=ghost, ghost_normals=ghostn, **kw)
+    arrays = dict(pos=pos, dens=dens0, ptype=ptype, group_marker=gm, ids=ids,
+                  ghost_points=ghost)
+    return sim, const, kern, arrays
+
+
+def _final(ids, p, to_np):
+    return {k: _by_id(ids, to_np(getattr(p, f)))
+            for k, f in (("pos", "position"), ("vel", "velocity"), ("dens", "density"))}
+
+
+def _bands(fw, ref, t_fw, t_ref, dt_fw, dt_ref):
+    """test_trajectory.py:64-70."""
+    scale = float(np.abs(ref["pos"]).max())
+    assert t_fw == pytest.approx(t_ref, rel=1e-12)
+    assert dt_fw == pytest.approx(dt_ref, rel=1e-12)
+    np.testing.assert_allclose(fw["pos"], ref["pos"], rtol=1e-9, atol=1e-9 * scale)
+    np.testing.assert_allclose(fw["vel"], ref["vel"], rtol=1e-7, atol=1e-8)
+    np.testing.assert_allclose(fw["dens"], ref["dens"], rtol=1e-9, atol=1e-6)
+
+
+def test_trajectory_wedge_mdbc_matches_jax_and_reference():
+    sim_t, const, kern, arrays = _wedge(T, device="cpu")
+    # full-length ghost arrays (zero rows for the fluid), as test_trajectory.py
+    # passes them: 18 live slots and 100 fill slots that index row 0
+    assert sim_t.cfg.boundary_capacity == 118
+    ft = t_fixed(sim_t.cfg, N_STEPS)(sim_t.state)
+    fw = _final(ft.particles.id.numpy(), ft.particles, lambda a: a.numpy())
+
+    sim_j, *_ = _wedge(J)
+    assert sim_j.cfg.boundary_capacity == sim_t.cfg.boundary_capacity
+    fj = j_fixed(sim_j.cfg, N_STEPS)(sim_j.state)
+    jx = _final(fj.particles.id, fj.particles, np.asarray)
+    _bands(fw, jx, float(ft.total_time), float(fj.total_time),
+           float(ft.current_dt), float(fj.current_dt))
+    np.testing.assert_array_equal(np.asarray(fj.particles.id), ft.particles.id.numpy())
+
+    ref = reference_run(kernel_family="wendland", kern=kern, const=const,
+                        viscosity="artificial", diffusion="linear", shifting=False,
+                        kernel_output=False, mdbc=True, motion={}, n_steps=N_STEPS,
+                        **arrays)
+    _bands(fw, ref, float(ft.total_time), float(ref["total_time"]),
+           float(ft.current_dt), float(ref["dts"][-1]))
+    # the trajectory did something: the fluid fell and mDBC corrected the floor
+    assert fw["dens"].max() > const.rho0 + 1e-3
+    assert np.abs(fw["dens"][:18] - const.rho0).max() > 1e-6
+
+
+def test_mdbc_state_roundtrip_and_single_step():
+    """A JAX mDBC state 5 steps in goes through ``state_from_numpy`` into the
+    port (ghost points and normals included); one step on each side agrees."""
+    sim_j, *_ = _wedge(J)
+    sj = j_fixed(sim_j.cfg, 5)(sim_j.state)
+    sim_t, *_ = _wedge(T, device="cpu")
+    leaves = _leaves(sj)
+    st = T.state_from_numpy(leaves, "cpu")
+    back = T.state_to_numpy(st)
+    for k in ("particles.ghost_points", "particles.ghost_normals"):
+        assert np.abs(leaves[k]).max() > 0
+        np.testing.assert_array_equal(back[k], leaves[k])
+    h = sim_t.cfg.spec.kernel.h
+    for dx_acc in (0.0, 1.0 + h):   # without and with a rebuild
+        nj, _ = jax.jit(lambda s, d: j_step(sim_j.cfg, s, d))(sj, jnp.asarray(dx_acc))
+        nt, _ = t_step(sim_t.cfg, st, torch.tensor(dx_acc, dtype=torch.float64))
+        np.testing.assert_array_equal(np.asarray(nj.particles.id), nt.particles.id.numpy())
+        for f, tol in (("density", 1e-12), ("position", 1e-12), ("velocity", 1e-9),
+                       ("ghost_points", 0.0)):
+            np.testing.assert_allclose(getattr(nt.particles, f).numpy(),
+                                       np.asarray(getattr(nj.particles, f)),
+                                       rtol=tol, atol=tol, err_msg=f)
+        assert float(nt.total_time) == pytest.approx(float(nj.total_time), rel=1e-13)
