@@ -9,7 +9,8 @@ Reference: ``src/SimulationMetaDataConfiguration.jl:12-75`` and
 
 Knobs of the JAX package that only sized TPU structures (Pallas windows,
 chunk tables, device-program length, watchdogs, async output) are not
-copied: nothing in the port reads them.
+copied: nothing in the port reads them.  ``block_sweep`` is kept: it chooses
+between the port's two sweep kernels as it does between the JAX package's.
 """
 
 from __future__ import annotations
@@ -268,6 +269,10 @@ class SimulationMetaData:
     dtype: str = "float32"  # state dtype; "float64" for parity runs
     grid_margin_cells: int = 6  # static-grid padding around initial extent
     block_size: int = 1024  # particle chunking of the plain pair sweep
+    # the block sweep (one thread per self) where its model set and the
+    # capacity allow; False takes the cell sweep (one block per cell, every
+    # model and mode) - see core/driver.py:choose_sweep_kernel
+    block_sweep: bool = True
 
     def output_time_for(self, counter: int) -> float:
         """next_output_time (reference src/SPHCellList.jl:687-698)."""

@@ -1,12 +1,14 @@
 """Host driver: build the simulation, run output intervals (port of
-``sphexample_tpu/core/driver.py``, main-path subset).
+``sphexample_tpu/core/driver.py``, single-device part).
 
 Entry points run on the card: ``device=None`` resolves to ``"cuda"`` and
 raises when no GPU is present.  Only an explicit ``device="cpu"`` runs on
-the CPU (the plain versions of the kernels).  Re-grid, replay, output and
-checkpoints come with later slices of the port; the port's kernels have no
-capacity windows or encoding limits, so grid escapes are the only overflow
-left to guard.
+the CPU (the plain versions of the kernels).  ``assemble_simulation`` builds
+the motion table from ``geometries`` and chooses the sweep kernel
+(:func:`choose_sweep_kernel`).  Still missing: re-grid and replay of an
+interval on grid escapes, output and the asynchronous saver, checkpoints;
+the port's kernels have no capacity windows, so grid escapes are the only
+overflow left to guard.
 """
 
 from __future__ import annotations
@@ -30,9 +32,11 @@ from ..config import (
 from ..io.csv_io import load_boundary_normals, load_geometries
 from ..models import equations as eq
 from ..ops import cell_list as cl
+from ..ops.block_sweep import BLOCK_CAP_LIMIT
 from ..ops.interactions import PhysicsSpec
 from ..state import SimulationState, allocate_particles
-from .step import StepConfig, check_supported, make_interval_fn
+from .motion import build_motion_table
+from .step import StepConfig, make_interval_fn
 
 
 def resolve_device(device=None) -> torch.device:
@@ -44,6 +48,16 @@ def resolve_device(device=None) -> torch.device:
             "no CUDA device is available; pass device='cpu' to run the "
             "plain PyTorch path on the CPU")
     return dev
+
+
+def choose_sweep_kernel(block_sweep: bool, capacity: int) -> str:
+    """The sweep kernel of a deck, by the JAX package's own rule
+    (``sphexample_tpu/core/driver.py:149-169``): ``"block"`` when
+    ``meta.block_sweep`` is set and the particle capacity is within
+    ``BLOCK_CAP_LIMIT``, else ``"cell"``.  The model set plays no part: one
+    that the block sweep does not compute raises there, naming
+    ``block_sweep=False``."""
+    return "block" if block_sweep and capacity <= BLOCK_CAP_LIMIT else "cell"
 
 
 @dataclass
@@ -80,12 +94,9 @@ def assemble_simulation(
     device=None,
 ) -> Simulation:
     """Allocate the state on ``device`` from host arrays and assemble the
-    step config (static grid bounds from the initial positions, the mDBC
-    ghost count)."""
+    step config (static grid bounds from the initial positions, the motion
+    table, the mDBC ghost count, the sweep kernel)."""
     dev = resolve_device(device)
-    check_supported(meta)
-    if any(g.motion is not None for g in geometries):
-        raise NotImplementedError("prescribed motion is not ported yet")
     n = len(density)
 
     grid = cl.grid_from_positions(position, kernel.H_inv, meta.grid_margin_cells)
@@ -122,7 +133,10 @@ def assemble_simulation(
         kernel_output=meta.kernel_output,
     )
     cfg = StepConfig(spec=spec, meta=meta, grid=grid, block_size=meta.block_size,
-                     boundary_capacity=max(1, n_ghost))
+                     motion=build_motion_table(geometries, meta.dims),
+                     boundary_capacity=max(1, n_ghost),
+                     sweep_kernel=choose_sweep_kernel(meta.block_sweep,
+                                                      particles.capacity))
 
     def scalar(dt):
         return torch.zeros((), dtype=dt, device=dev)

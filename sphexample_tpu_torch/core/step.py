@@ -1,5 +1,5 @@
 """The 12-stage symplectic predictor-corrector step (port of
-``sphexample_tpu/core/step.py``, main-path subset).
+``sphexample_tpu/core/step.py``, single-device part).
 
 Stage numbering mirrors the reference's timer taxonomy (SURVEY.md 3.2):
 
@@ -18,8 +18,16 @@ Stage numbering mirrors the reference's timer taxonomy (SURVEY.md 3.2):
   11  full step corrector                 (:798)
   12  time/iteration bookkeeping          (:800)
 
-Prescribed motion and shifting come with later slices of the port; a
-configuration that asks for them raises NotImplementedError.
+Prescribed motion (``core/motion.py``) is applied once per half step, before
+stage 03 and after stage 07; PLANAR shifting is part of stage 11.  Still
+missing: the sharded step (communication context, halo exchange, distributed
+rebuild), which comes with the multi-GPU slice.
+
+The two sweeps go through ``cfg.sweep_kernel``: ``"block"``
+(``ops/block_sweep.py``, one thread per self; ZERO / ARTIFICIAL viscosity and
+ZERO / LINEAR diffusion only) or ``"cell"`` (``ops/cell_sweep.py``, one block
+per cell; every model and mode).  ``assemble_simulation`` chooses; nothing re-routes a
+model set that the chosen kernel does not compute - it raises.
 
 The lazy rebuild is a host ``if`` on the displacement accumulator: one
 device-to-host sync per step (the JAX package decides it on the device with
@@ -38,10 +46,12 @@ from ..config import MDBCMode, ShiftingMode, SimulationMetaData
 from ..models import equations as eq
 from ..ops import cell_list as cl
 from ..ops.block_sweep import block_sweep
+from ..ops.cell_sweep import cell_sweep
 from ..ops.interactions import PhysicsSpec
 from ..ops.mdbc import mdbc_density_correction
 from ..ops.timestep import adaptive_dt
 from ..state import SimulationState
+from .motion import MotionTable, progress_motion
 
 
 @dataclass(frozen=True)
@@ -52,20 +62,22 @@ class StepConfig:
     meta: SimulationMetaData
     grid: cl.Grid
     block_size: int         # particle chunking of the plain sweep
+    motion: MotionTable
     boundary_capacity: int  # number of mDBC ghost-carrying particles (static)
+    sweep_kernel: str       # "block" or "cell" (core/driver.py chooses)
 
 
-def check_supported(meta: SimulationMetaData) -> None:
-    """Raise for the modes whose slice of the port has not landed yet."""
-    if meta.shifting is not ShiftingMode.NONE:
-        raise NotImplementedError("particle shifting is not ported yet")
+_SWEEPS = {"block": block_sweep, "cell": cell_sweep}
 
 
 def _sweep(cfg: StepConfig, p, cell_start, position, density, pressure, velocity):
-    """One neighbor sweep: the CUDA kernel on the card, the plain version
-    for CPU tensors (``ops.block_sweep.block_sweep``)."""
-    return block_sweep(cfg.spec, cfg.grid, p, cell_start, position, density,
-                       pressure, velocity, cfg.block_size)
+    """One neighbor sweep through the chosen wrapper: its CUDA kernel on the
+    card, its plain version for CPU tensors."""
+    sweep = _SWEEPS.get(cfg.sweep_kernel)
+    if sweep is None:
+        raise ValueError(f"unknown sweep kernel {cfg.sweep_kernel!r}")
+    return sweep(cfg.spec, cfg.grid, p, cell_start, position, density,
+                 pressure, velocity, cfg.block_size)
 
 
 def _gravity_acc(cfg: StepConfig, particles, acc):
@@ -79,7 +91,6 @@ def _gravity_acc(cfg: StepConfig, particles, acc):
 
 def sph_step(cfg: StepConfig, state: SimulationState, dx_acc):
     """One symplectic step.  Returns (new_state, new_dx_acc)."""
-    check_supported(cfg.meta)
     spec = cfg.spec
     c = spec.constants
     kern = spec.kernel
@@ -117,6 +128,10 @@ def sph_step(cfg: StepConfig, state: SimulationState, dx_acc):
         dx_acc = torch.zeros_like(dx_acc)
         rebuilds += 1
 
+    # -- motion (first half, reference :765)
+    pos, vel = progress_motion(cfg.motion, p, state.total_time, dt2)
+    p = p.replace(position=pos, velocity=vel)
+
     # 03 - pressure from current density (quirk: computed BEFORE the mDBC
     # correction mutates density; the first sweep therefore pairs corrected
     # densities with pre-correction pressures, as the reference does)
@@ -143,6 +158,11 @@ def sph_step(cfg: StepConfig, state: SimulationState, dx_acc):
     # 07 - clamp rho_half at boundaries
     rho_half = eq.limit_density_at_boundary(rho_half, c.rho0, p.motion_limiter)
 
+    # -- motion (second half, reference :787); the second sweep still reads
+    # the pos_half of stage 06, taken before this advance
+    pos, vel = progress_motion(cfg.motion, p, state.total_time, dt2)
+    p = p.replace(position=pos, velocity=vel)
+
     # 03b - pressure from rho_half
     p = p.replace(pressure=eq.pressure(rho_half, c))
 
@@ -160,6 +180,16 @@ def sph_step(cfg: StepConfig, state: SimulationState, dx_acc):
     vel_new = p.velocity + acc2 * dt * ml
     mid_vel = 0.5 * (vel_new + (vel_new - acc2 * dt * ml))
     dpos = mid_vel * dt
+    if cfg.meta.shifting is ShiftingMode.PLANAR:
+        # Fickian shifting with free-surface scaling (reference :654-677):
+        # A=2, A_FST=0, A_FSM=D; shift disabled where the scaling is negative.
+        A_coef, A_fst = 2.0, 0.0
+        A_fsm = float(p.dims)
+        a_fsc = (out2.div_r - A_fst) / (A_fsm - A_fst)
+        vmag = torch.sqrt(torch.sum(vel_new * vel_new, dim=-1))
+        delta_x = (-a_fsc * A_coef * kern.h * vmag * dt)[:, None] * out2.grad_c
+        delta_x = torch.where(a_fsc[:, None] < 0, torch.zeros_like(delta_x), delta_x)
+        dpos = dpos + delta_x
     pos_new = p.position + dpos * ml
 
     updates = dict(position=pos_new, velocity=vel_new, acceleration=acc2,

@@ -81,29 +81,6 @@ struct SweepParams {
 
 namespace {
 
-struct Row {
-    float x[3];
-    float v[3];
-    float rho, rcp, p, ml;
-};
-
-// pack row: 3D (x,y,z,rho)(vx,vy,vz,rcp)(p,ml,-,-); 2D (x,y,vx,vy)(rho,rcp,p,ml)
-template <int D>
-__device__ __forceinline__ Row load_row(const float4* __restrict__ pack, int i) {
-    Row r;
-    if constexpr (D == 3) {
-        const float4 a = pack[3 * i], b = pack[3 * i + 1], c = pack[3 * i + 2];
-        r.x[0] = a.x; r.x[1] = a.y; r.x[2] = a.z; r.rho = a.w;
-        r.v[0] = b.x; r.v[1] = b.y; r.v[2] = b.z; r.rcp = b.w;
-        r.p = c.x; r.ml = c.y;
-    } else {
-        const float4 a = pack[2 * i], b = pack[2 * i + 1];
-        r.x[0] = a.x; r.x[1] = a.y; r.v[0] = a.z; r.v[1] = a.w;
-        r.rho = b.x; r.rcp = b.y; r.p = b.z; r.ml = b.w;
-    }
-    return r;
-}
-
 template <int D, int FAM, bool VISC, bool DIFF>
 __global__ void __launch_bounds__(128)
 block_sweep_kernel(const SweepParams P,

@@ -1,8 +1,13 @@
-// The SPH smoothing kernels (Wendland C2, cubic spline) as device functions,
-// shared by the CUDA sources of this directory.  The same forms as
+// Device functions shared by the CUDA sources of this directory.
+//
+// The SPH smoothing kernels (Wendland C2, cubic spline), in the same forms as
 // models/kernels.py: W(q) and grad W = fac * x_ij, q = d / h in [0, 2].
 // ``Params`` is any struct with the f32 members alpha_d, wendland_fac
 // (alpha_d * 5 / (8 h^2)), h_inv and eta2.
+//
+// The packed particle row both neighbor sweeps read (pack_fields in
+// ops/block_sweep.py): float4-aligned f32 rows with the GUARDED density
+// (padding rows carry 1, never 0) and its reciprocal.
 
 #pragma once
 
@@ -37,4 +42,28 @@ __device__ __forceinline__ float grad_factor(const Params& P, float q, float d) 
         }
         return dwdq * P.h_inv / (d + P.eta2);
     }
+}
+
+struct Row {
+    float x[3];
+    float v[3];
+    float rho, rcp, p, ml;
+};
+
+// pack row: 3D (x,y,z,rho)(vx,vy,vz,rcp)(p,ml,-,-); 2D (x,y,vx,vy)(rho,rcp,p,ml);
+// ``pack`` may point to global or shared memory
+template <int D>
+__device__ __forceinline__ Row load_row(const float4* pack, int i) {
+    Row r;
+    if constexpr (D == 3) {
+        const float4 a = pack[3 * i], b = pack[3 * i + 1], c = pack[3 * i + 2];
+        r.x[0] = a.x; r.x[1] = a.y; r.x[2] = a.z; r.rho = a.w;
+        r.v[0] = b.x; r.v[1] = b.y; r.v[2] = b.z; r.rcp = b.w;
+        r.p = c.x; r.ml = c.y;
+    } else {
+        const float4 a = pack[2 * i], b = pack[2 * i + 1];
+        r.x[0] = a.x; r.x[1] = a.y; r.v[0] = a.z; r.v[1] = a.w;
+        r.rho = b.x; r.rcp = b.y; r.p = b.z; r.ml = b.w;
+    }
+    return r;
 }

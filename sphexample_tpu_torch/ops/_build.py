@@ -103,3 +103,8 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.sph_mdbc_moments.restype = ci
         lib.sph_mdbc_error_string.argtypes = [ci]
         lib.sph_mdbc_error_string.restype = ctypes.c_char_p
+    elif name == "cell_sweep":
+        lib.sph_cell_sweep.argtypes = [vp, ci, vp, vp, vp, vp]
+        lib.sph_cell_sweep.restype = ci
+        lib.sph_cell_sweep_error_string.argtypes = [ci]
+        lib.sph_cell_sweep_error_string.restype = ctypes.c_char_p

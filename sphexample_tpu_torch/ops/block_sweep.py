@@ -27,6 +27,11 @@ from .interactions import PhysicsSpec, SweepOut, pair_sweep
 
 # kernel launches in this process (chip_smoke.py resets and reads it)
 launches = 0
+# The largest particle capacity ``assemble_simulation`` gives to this sweep; above it a
+# deck takes the cell sweep (ops/cell_sweep.py), as it does in the JAX
+# package, whose block kernel encodes row offsets in 21 bits.  The CUDA
+# kernel itself has no such limit (int32 indices).
+BLOCK_CAP_LIMIT = 1 << 21
 
 
 class SweepParams(ctypes.Structure):
@@ -69,7 +74,9 @@ def kernel_variant(spec: PhysicsSpec, dims: int) -> int:
         unsupported.append(f"kernel output {spec.kernel_output.name}")
     if unsupported:
         raise NotImplementedError(
-            "the CUDA block sweep does not compute " + ", ".join(unsupported))
+            "the CUDA block sweep does not compute " + ", ".join(unsupported)
+            + "; SimulationMetaData(block_sweep=False) takes the cell sweep, "
+            "which computes every model and mode")
     return ((dims == 3) << 3
             | (spec.kernel.family is KernelFamily.CUBIC_SPLINE) << 2
             | (spec.viscosity is ViscosityModel.ARTIFICIAL) << 1
@@ -111,11 +118,49 @@ def pack_fields(position, velocity, density, pressure, ml):
     return torch.cat([a.to(torch.float32) for a in cols], dim=1).contiguous()
 
 
-def collect(out, active, dtype, dims) -> SweepOut:
-    """[N, 1+D] kernel rows -> SweepOut, masked by ``active``, in ``dtype``."""
+def collect(out, active, dtype, dims, spec: PhysicsSpec = None) -> SweepOut:
+    """[N, K] kernel rows -> SweepOut, masked by ``active``, in ``dtype``.
+    Columns: drho, dv/dt, then (STORE) W, grad W, then (PLANAR) grad C, div r;
+    without ``spec`` only the first 1+D.  The mask is a select, never a
+    product: rows that no thread wrote may hold anything."""
     vals = torch.where(active[:, None], out, torch.zeros_like(out)).to(dtype)
-    return SweepOut(drhodt=vals[:, 0], acceleration=vals[:, 1:1 + dims],
-                    kernel_w=None, kernel_grad=None, grad_c=None, div_r=None)
+    k = 1 + dims
+    fields = dict(drhodt=vals[:, 0], acceleration=vals[:, 1:k], kernel_w=None,
+                  kernel_grad=None, grad_c=None, div_r=None)
+    if spec is not None and spec.kernel_output is KernelOutputMode.STORE:
+        fields.update(kernel_w=vals[:, k], kernel_grad=vals[:, k + 1:2 * k])
+        k *= 2
+    if spec is not None and spec.shifting is ShiftingMode.PLANAR:
+        fields.update(grad_c=vals[:, k:k + dims], div_r=vals[:, k + dims])
+    return SweepOut(**fields)
+
+
+def check_inputs(grid: Grid, particles: Particles, cell_start, position, density,
+                 pressure, velocity, reads_cell: bool) -> None:
+    """Raise on what a sweep kernel does not take: a field on another device,
+    of another shape or of another type than the kernel reads."""
+    n, dims = position.shape
+    if dims != grid.dims:
+        raise ValueError(f"positions are {dims}D, the grid {grid.dims}D")
+    dev = position.device
+    fields = [("velocity", velocity, (n, dims)), ("density", density, (n,)),
+              ("pressure", pressure, (n,)), ("active", particles.active, (n,)),
+              ("motion_limiter", particles.motion_limiter, (n,)),
+              ("cell_start", cell_start, (grid.ncells + 2,))]
+    if reads_cell:
+        fields.append(("cell", particles.cell, (n, dims)))
+    for name, t, shape in fields:
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, positions on {dev}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
+    if cell_start.dtype != torch.int32 or (reads_cell
+                                           and particles.cell.dtype != torch.int32):
+        raise TypeError("cell and cell_start must be int32")
+    if particles.active.dtype != torch.bool:
+        raise TypeError("active must be bool")
+    if not position.dtype.is_floating_point:
+        raise TypeError(f"position must be floating point, not {position.dtype}")
 
 
 def block_sweep_plain(spec: PhysicsSpec, grid: Grid, particles: Particles,
@@ -147,26 +192,9 @@ def _launch(spec, grid, particles, cell_start, position, density, pressure,
     global launches
     n, dims = position.shape
     variant = kernel_variant(spec, dims)
-    if dims != grid.dims:
-        raise ValueError(f"positions are {dims}D, the grid {grid.dims}D")
+    check_inputs(grid, particles, cell_start, position, density, pressure,
+                 velocity, reads_cell=True)
     dev = position.device
-    for name, t, shape in (("velocity", velocity, (n, dims)),
-                           ("density", density, (n,)),
-                           ("pressure", pressure, (n,)),
-                           ("cell", particles.cell, (n, dims)),
-                           ("active", particles.active, (n,)),
-                           ("motion_limiter", particles.motion_limiter, (n,)),
-                           ("cell_start", cell_start, (grid.ncells + 2,))):
-        if t.device != dev:
-            raise ValueError(f"{name} is on {t.device}, positions on {dev}")
-        if tuple(t.shape) != shape:
-            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
-    if particles.cell.dtype != torch.int32 or cell_start.dtype != torch.int32:
-        raise TypeError("cell and cell_start must be int32")
-    if particles.active.dtype != torch.bool:
-        raise TypeError("active must be bool")
-    if not position.dtype.is_floating_point:
-        raise TypeError(f"position must be floating point, not {position.dtype}")
 
     from ._build import load_library
 

@@ -1,6 +1,9 @@
 """The CUDA kernels on the card.  The block sweep: every template instance
 of ``csrc/block_sweep.cu`` against the plain sweep in f64, the wrapper's
-input checks, and a short run of the main path.  The mDBC moment kernel:
+input checks, and a short run of the main path.  The cell sweep: every
+viscosity x diffusion x kernel family of ``csrc/cell_sweep.cu`` with shifting
+and kernel output, every template instance, crowded, sparse and edge cells,
+its input checks, and a short moving-square run.  The mDBC moment kernel:
 every template instance of ``csrc/mdbc_moments.cu`` against its plain version
 in f64, crowded and edge-clamped cells included, its input checks, and a
 short mDBC run.  A CUDA kernel has no CPU mode, so
@@ -23,6 +26,7 @@ from sphexample_tpu_torch.io.casegen import dam_break_3d
 from sphexample_tpu_torch.models import equations as eq
 from sphexample_tpu_torch.ops import block_sweep as bs
 from sphexample_tpu_torch.ops import cell_list as cl
+from sphexample_tpu_torch.ops import cell_sweep as cw
 from sphexample_tpu_torch.ops import mdbc
 from sphexample_tpu_torch.ops import mdbc_moments as mm
 from sphexample_tpu_torch.ops.interactions import PhysicsSpec
@@ -306,3 +310,226 @@ def test_mdbc_steps_through_both_kernels(cuda):
     torch.testing.assert_close(dg, dc, rtol=2e-5, atol=0)
     torch.testing.assert_close(gpu.particles.position.cpu(), cpu.particles.position,
                                rtol=0, atol=2e-6)
+
+
+# --- the cell sweep -----------------------------------------------------------
+
+VISC = ["ZERO", "ARTIFICIAL", "LAMINAR", "LAMINAR_SPS"]
+DIFF = ["ZERO", "ZERO_GRAVITY_LINEAR", "LINEAR", "COMPLEX"]
+FIELDS = ("drhodt", "acceleration", "kernel_w", "kernel_grad", "grad_c", "div_r")
+
+
+def _full_spec(const, kern, visc, diff, store=True, shift=True):
+    return PhysicsSpec(
+        constants=const, kernel=kern, viscosity=T.ViscosityModel[visc],
+        diffusion=T.DensityDiffusionModel[diff],
+        shifting=T.ShiftingMode.PLANAR if shift else T.ShiftingMode.NONE,
+        kernel_output=T.KernelOutputMode.STORE if store else T.KernelOutputMode.NONE)
+
+
+def _state_at(pos, family, cap, grid=None, seed=0):
+    """Rows at ``pos`` with random velocities, densities and types (fluid,
+    fixed, moving), inactive padding, rebuilt in f64 on the CPU."""
+    rng = np.random.default_rng(seed)
+    n, dims = pos.shape
+    const = T.SimulationConstants(dx=DX, cfl=0.5)
+    kern = T.make_kernel(T.KernelFamily[family], dims, dx=DX)
+    ptype = rng.choice([1, 2, 3], size=n, p=[0.7, 0.2, 0.1]).astype(np.int32)
+    p = allocate_particles(pos, rng.uniform(990, 1040, size=n), ptype,
+                           np.ones(n, np.int32), np.arange(1, n + 1),
+                           device="cpu", dtype=torch.float64, capacity=cap)
+    vel = np.zeros((cap, dims))
+    vel[:n] = rng.normal(0, 0.5, size=(n, dims))
+    p = p.replace(velocity=torch.as_tensor(vel), pressure=eq.pressure(p.density, const))
+    grid = grid or cl.grid_from_positions(pos, kern.H_inv, margin_cells=3)
+    sp, cs, occ = cl.rebuild(p, kern.H_inv, grid)
+    return const, kern, grid, sp, cs, int(occ)
+
+
+def _hold_cell_sweep(cuda, spec, grid, p64, cs, n):
+    """The kernel on the f32 copy of ``p64`` against the plain f64 sweep:
+    one launch, every field of the mode set, padding rows zero."""
+    ref = cw.cell_sweep_plain(*_args(spec, grid, p64, cs))
+    p32 = _on(p64, cuda, torch.float32)
+    before = cw.launches
+    out = cw.cell_sweep(*_args(spec, grid, p32, cs.to(cuda)))
+    torch.cuda.synchronize()
+    assert cw.launches == before + 1
+    for f in FIELDS:
+        a, b = getattr(out, f), getattr(ref, f)
+        assert (a is None) == (b is None), f
+        if a is None:
+            continue
+        assert a.dtype == torch.float32 and a.device.type == cuda.type
+        a = a.double().cpu()
+        assert torch.isfinite(a).all(), f
+        assert not a[n:].any(), f  # padding rows stay zero
+        scale = float(b.abs().max())
+        assert scale > 0, f
+        assert float((a - b).abs().max()) <= REL_TOL * scale, f
+
+
+@pytest.mark.parametrize("dims", [2, 3])
+@pytest.mark.parametrize("family", ["WENDLAND_C2", "CUBIC_SPLINE"])
+@pytest.mark.parametrize("visc", VISC)
+@pytest.mark.parametrize("diff", DIFF)
+def test_cell_kernel_matches_plain_sweep(cuda, dims, family, visc, diff):
+    n, cap = (300, 320) if dims == 2 else (500, 530)
+    const, kern, grid, p64, cs = _sorted_state(dims, family, n, cap)
+    _hold_cell_sweep(cuda, _full_spec(const, kern, visc, diff), grid, p64, cs, n)
+
+
+@pytest.mark.parametrize("dims", [2, 3])
+@pytest.mark.parametrize("visc", ["ARTIFICIAL", "LAMINAR_SPS"])
+@pytest.mark.parametrize("store,shift", [(False, False), (True, False), (False, True)])
+def test_cell_kernel_instances_without_extras(cuda, dims, visc, store, shift):
+    n, cap = (300, 320) if dims == 2 else (500, 530)
+    const, kern, grid, p64, cs = _sorted_state(dims, "WENDLAND_C2", n, cap)
+    spec = _full_spec(const, kern, visc, "LINEAR", store, shift)
+    _hold_cell_sweep(cuda, spec, grid, p64, cs, n)
+
+
+@pytest.mark.parametrize("dims", [2, 3])
+@pytest.mark.parametrize("case", ["crowded", "sheet", "edge"])
+def test_cell_kernel_odd_cells(cuda, dims, case):
+    """A cell with more selves than a block has threads (and a row longer
+    than one shared-memory tile), a sheet one particle thick, and cells on
+    the edge of a grid without margin (clamped stencils, rows outside the
+    grid)."""
+    rng = np.random.default_rng(11)
+    kern = T.make_kernel(T.KernelFamily.WENDLAND_C2, dims, dx=DX)
+    grid = None
+    if case == "crowded":
+        # 150 rows inside one cell, 250 around it
+        inner = (rng.uniform(-0.45, 0.45, size=(150, dims)) + 2.0) * kern.H
+        outer = (rng.uniform(-1.4, 1.4, size=(250, dims)) + 2.0) * kern.H
+        pos = np.concatenate([inner, outer])
+    elif case == "sheet":
+        pos = rng.uniform(0, 1.5, size=(300, dims))
+        pos[:, -1] = 0.3 + rng.uniform(-0.01, 0.01, size=300) * DX
+    else:
+        pos = rng.uniform(-0.3, 0.3, size=(400, dims))
+        grid = cl.grid_from_positions(pos, kern.H_inv, margin_cells=0)
+        pos[:40] *= 1.5        # 40 rows outside the grid: clamped into edge cells
+    n = len(pos)
+    const, kern, grid, p64, cs, occ = _state_at(pos, "WENDLAND_C2", n + 23, grid)
+    if case == "crowded":
+        assert occ >= 150
+    spec = _full_spec(const, kern, "LAMINAR_SPS", "COMPLEX")
+    _hold_cell_sweep(cuda, spec, grid, p64, cs, n)
+
+
+def test_cell_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    const, kern, grid, p64, cs = _sorted_state(3, "WENDLAND_C2", 200, 200)
+    p = _on(p64, cuda, torch.float32)
+    cs = cs.to(cuda)
+    spec = _full_spec(const, kern, "LAMINAR_SPS", "COMPLEX")
+    before = cw.launches
+    with pytest.raises(ValueError, match="cell_start"):
+        cw.cell_sweep(*_args(spec, grid, p, cs.cpu()))
+    with pytest.raises(TypeError, match="int32"):
+        cw.cell_sweep(*_args(spec, grid, p, cs.long()))
+    with pytest.raises(ValueError, match="shape"):
+        cw.cell_sweep(spec, grid, p, cs, p.position, p.density[:-1], p.pressure,
+                      p.velocity)
+    with pytest.raises(ValueError, match="grid"):
+        cw.cell_sweep(*_args(spec, cl.Grid(cmin=(0, 0), shape=(4, 4)), p, cs))
+    assert cw.launches == before
+    # an unbuilt cell_start (all zeros) gives every row zero, as the plain version
+    out = cw.cell_sweep(*_args(spec, grid, p, torch.zeros_like(cs)))
+    assert not out.drhodt.any() and not out.kernel_w.any()
+
+
+def _moving_square(device, dtype="float32"):
+    """A closed box of fixed walls filled with fluid around a solid square
+    translating at 0.5 m/s, the MovingSquare mode set, g = 0."""
+    dp = 0.02
+    const = T.SimulationConstants(dx=dp, c0=28.0, delta_sph=0.1, g=0.0, Cb=112000.0,
+                                  alpha=1e-6, cfl=0.2)
+    kern = T.make_kernel(T.KernelFamily.WENDLAND_C2, 2, dx=dp, k=float(np.sqrt(2)))
+    ix, iz = np.meshgrid(np.arange(-2, 42), np.arange(-2, 32), indexing="ij")
+    ix, iz = ix.ravel(), iz.ravel()
+    wall = (ix < 0) | (ix >= 40) | (iz < 0) | (iz >= 30)
+    square = (ix >= 8) & (ix < 14) & (iz >= 12) & (iz < 18)
+    ptype = np.where(wall, 2, np.where(square, 3, 1)).astype(np.int32)
+    order = np.argsort(-ptype, kind="stable")       # square, walls, fluid
+    pos = (np.stack([ix, iz], axis=-1)[order] + 0.5) * dp + 0.0037
+    ptype = ptype[order]
+    n = len(pos)
+    meta = T.SimulationMetaData("gpu_square", ".", dims=2, dtype=dtype,
+                                shifting=T.ShiftingMode.PLANAR,
+                                kernel_output=T.KernelOutputMode.STORE,
+                                block_sweep=False, grid_margin_cells=4)
+    geoms = (T.Geometry("", 3, T.ParticleType.MOVING,
+                        T.MotionDetails(0.5, 0.0, 10.0, (1.0, 0.0))),)
+    sim = T.assemble_simulation(pos, np.full(n, 1000.0), ptype, ptype.copy(),
+                                np.arange(1, n + 1), meta, const, kern,
+                                T.ViscosityModel.LAMINAR_SPS,
+                                T.DensityDiffusionModel.LINEAR, geometries=geoms,
+                                device=device)
+    return sim, pos, ptype
+
+
+def test_moving_square_steps_through_the_cell_kernel(cuda):
+    """10 steps of a small moving-square box on the card (f32, the kernel) and
+    on the CPU (f32, the plain sweep): two cell-sweep launches per step, no
+    block-sweep launch, the square on its track, the same trajectory to f32
+    noise."""
+    (sim_g, pos0, ptype), (sim_c, _, _) = _moving_square(cuda), _moving_square("cpu")
+    assert sim_g.cfg.sweep_kernel == "cell"
+    b0, c0 = bs.launches, cw.launches
+    gpu, cpu = (make_fixed_steps_fn(s.cfg, 10)(s.state) for s in (sim_g, sim_c))
+    torch.cuda.synchronize()
+    assert cw.launches == c0 + 20 and bs.launches == b0
+    assert torch.equal(gpu.particles.id.cpu(), cpu.particles.id)
+    order = torch.argsort(gpu.particles.id.cpu())
+    pg = gpu.particles.position.cpu()[order]
+    sq = ptype == 3
+    x_track = pos0[sq, 0] + 0.5 * float(gpu.total_time)
+    assert np.abs(pg.numpy()[sq, 0] - x_track).max() < 1e-6
+    assert torch.equal(pg[torch.as_tensor(ptype == 2)], torch.as_tensor(pos0[ptype == 2],
+                                                       dtype=torch.float32))
+    torch.testing.assert_close(gpu.particles.position.cpu(), cpu.particles.position,
+                               rtol=0, atol=2e-6)
+    torch.testing.assert_close(gpu.particles.density.cpu(), cpu.particles.density,
+                               rtol=5e-6, atol=0)
+    # with k = sqrt 2 the kernel is cut at q = sqrt 2, where W is not yet
+    # zero, and lattice neighbours at 2 dp sit exactly on that rim: f32 noise
+    # in the positions flips a few of them in or out.  Such a row is off by
+    # one or two rim values; every other row agrees to f32 rounding.
+    kern = sim_g.cfg.spec.kernel
+    w_rim = kern.alpha_d * (1 - 0.5 * np.sqrt(2)) ** 4 * (2 * np.sqrt(2) + 1)
+    dw = (gpu.particles.kernel_w.cpu() - cpu.particles.kernel_w).abs()
+    off = dw > 1e-5 * cpu.particles.kernel_w.abs()
+    assert int(off.sum()) <= 0.02 * off.numel()
+    assert float(dw.max()) <= 2.02 * w_rim
+    assert float(gpu.particles.kernel_w[gpu.particles.ptype == 1].min()) > 0
+
+
+def test_block_rule_takes_the_cell_kernel_when_asked(cuda):
+    """``block_sweep=False`` on the main path's model set: the same 5 steps
+    through either kernel, to f32 summation-order noise."""
+    pos, dens, ptype, grp, idp = dam_break_3d(DX)
+    const = T.SimulationConstants(dx=DX, c0=33.14, alpha=0.1, m0=1000 * DX**3, cfl=0.2)
+    kern = T.make_kernel(T.KernelFamily.WENDLAND_C2, 3, h=float(np.sqrt(3 * DX**2)))
+    ends = {}
+    for flag in (True, False):
+        meta = T.SimulationMetaData("gpu_rule", ".", dims=3, block_sweep=flag)
+        sim = T.assemble_simulation(pos + 0.0037, dens, ptype, grp, idp, meta, const,
+                                    kern, T.ViscosityModel.ARTIFICIAL,
+                                    T.DensityDiffusionModel.LINEAR, device=cuda)
+        assert sim.cfg.sweep_kernel == ("block" if flag else "cell")
+        b0, c0 = bs.launches, cw.launches
+        ends[flag] = make_fixed_steps_fn(sim.cfg, 5)(sim.state)
+        assert (bs.launches - b0, cw.launches - c0) == ((10, 0) if flag else (0, 10))
+    a, b = ends[True].particles, ends[False].particles
+    assert torch.equal(a.id, b.id)
+    torch.testing.assert_close(a.position, b.position, rtol=0, atol=2e-6)
+    torch.testing.assert_close(a.density, b.density, rtol=5e-6, atol=0)
+    # a model set the block sweep lacks raises there and names the way out
+    meta = T.SimulationMetaData("gpu_rule", ".", dims=3)
+    sim = T.assemble_simulation(pos + 0.0037, dens, ptype, grp, idp, meta, const, kern,
+                                T.ViscosityModel.LAMINAR,
+                                T.DensityDiffusionModel.LINEAR, device=cuda)
+    with pytest.raises(NotImplementedError, match="block_sweep=False"):
+        make_fixed_steps_fn(sim.cfg, 1)(sim.state)

@@ -2,9 +2,12 @@
 started from one identical state (``state_from_numpy``), in f64 on a coarse
 3D dam break (ARTIFICIAL + LINEAR, the main path's models), with the bands of
 test_trajectory.py; plus ``adaptive_dt``, the ``position_half`` quirk, the
-rebuild cadence and the interval loop; and the mDBC step on the mini
+rebuild cadence and the interval loop; the mDBC step on the mini
 still-wedge of test_trajectory.py against the JAX package and the numpy
-``reference_run``."""
+``reference_run``; and the MovingSquare mode set (prescribed motion, PLANAR
+shifting, LAMINAR_SPS, kernel output) on the mini moving square of
+test_trajectory.py through the cell sweep, with the sweep-kernel rule of
+``assemble_simulation`` held against the JAX package's."""
 
 import dataclasses
 
@@ -20,10 +23,13 @@ from reference_impl import reference_run
 from sphexample_tpu.core.step import make_fixed_steps_fn as j_fixed
 from sphexample_tpu.core.step import sph_step as j_step
 from sphexample_tpu.ops.timestep import adaptive_dt as j_dt
+from sphexample_tpu.ops.pallas_block_sweep import BLOCK_CAP_LIMIT as J_BLOCK_CAP_LIMIT
+from sphexample_tpu_torch.core.driver import choose_sweep_kernel
 from sphexample_tpu_torch.core.step import make_fixed_steps_fn as t_fixed
 from sphexample_tpu_torch.core.step import make_interval_fn
 from sphexample_tpu_torch.core.step import sph_step as t_step
 from sphexample_tpu_torch.io.casegen import dam_break_3d
+from sphexample_tpu_torch.ops.block_sweep import BLOCK_CAP_LIMIT
 from sphexample_tpu_torch.ops.timestep import adaptive_dt as t_dt
 
 torch.set_num_threads(1)
@@ -205,11 +211,13 @@ def test_run_simulation_and_unported_modes():
     assert len(logs) == 3 and logs[-1]["total_time"] > 0.0025
     pos, dens, ptype, grp, idp = dam_break_3d(DX)
     _, const, kern = _case(T)
-    with pytest.raises(NotImplementedError):
-        T.assemble_simulation(pos, dens, ptype, grp, idp,
-                              T.replace(sim.meta, shifting=T.ShiftingMode.PLANAR),
-                              const, kern, T.ViscosityModel.ARTIFICIAL,
-                              T.DensityDiffusionModel.LINEAR, device="cpu")
+    # shifting is ported: it assembles and runs (the plain sweep on the CPU)
+    sim_s = T.assemble_simulation(pos + OFF, dens, ptype, grp, idp,
+                                  T.replace(sim.meta, shifting=T.ShiftingMode.PLANAR),
+                                  const, kern, T.ViscosityModel.ARTIFICIAL,
+                                  T.DensityDiffusionModel.LINEAR, device="cpu")
+    shifted = t_fixed(sim_s.cfg, 2)(sim_s.state)
+    assert torch.isfinite(shifted.particles.position).all()
     # mDBC is ported: it assembles, and without ghost rows it changes nothing
     sim_m = T.assemble_simulation(pos + OFF, dens, ptype, grp, idp,
                                   T.replace(sim.meta, mdbc=T.MDBCMode.SIMPLE),
@@ -219,13 +227,17 @@ def test_run_simulation_and_unported_modes():
     a = t_fixed(sim_m.cfg, 2)(sim_m.state)
     b = t_fixed(_assemble_port().cfg, 2)(_assemble_port().state)
     assert torch.equal(a.particles.density, b.particles.density)
+    # prescribed motion is ported: the table is built from the geometries, and
+    # a motion for a marker no MOVING row carries changes nothing
     moving = T.Geometry("", 1, T.ParticleType.MOVING,
                         T.MotionDetails(1.0, 0.0, 1.0, (1.0, 0.0, 0.0)))
-    with pytest.raises(NotImplementedError):
-        T.assemble_simulation(pos, dens, ptype, grp, idp, sim.meta, const, kern,
-                              T.ViscosityModel.ARTIFICIAL,
-                              T.DensityDiffusionModel.LINEAR, device="cpu",
-                              geometries=(moving,))
+    sim_v = T.assemble_simulation(pos + OFF, dens, ptype, grp, idp, sim.meta, const,
+                                  kern, T.ViscosityModel.ARTIFICIAL,
+                                  T.DensityDiffusionModel.LINEAR, device="cpu",
+                                  geometries=(moving,))
+    assert sim_v.cfg.motion.any_motion and sim_v.cfg.motion.velocity == (0.0, 1.0)
+    c = t_fixed(sim_v.cfg, 2)(sim_v.state)
+    assert torch.equal(c.particles.position, b.particles.position)
 
 
 def test_run_simulation_raises_on_grid_escape():
@@ -342,3 +354,156 @@ def test_mdbc_state_roundtrip_and_single_step():
                                        np.asarray(getattr(nj.particles, f)),
                                        rtol=tol, atol=tol, err_msg=f)
         assert float(nt.total_time) == pytest.approx(float(nj.total_time), rel=1e-13)
+
+
+def _square(M, speed=0.5, **kw):
+    """The mini moving square of test_trajectory.py:211-262: a prescribed-motion
+    body driving fluid, LAMINAR_SPS + LINEAR + PLANAR + STORE, k = sqrt 2, f64,
+    ``OFF`` lattice shift."""
+    const = M.SimulationConstants(dx=0.02, c0=30.0, cfl=0.3, g=0.0)
+    kern = M.make_kernel(M.KernelFamily.WENDLAND_C2, 2, dx=const.dx, k=float(np.sqrt(2)))
+    dx = const.dx
+    xs, zs = np.meshgrid(np.arange(12), np.arange(12), indexing="ij")
+    fluid = np.stack([xs.ravel() * dx, zs.ravel() * dx], axis=-1)
+    sq_x, sq_z = np.meshgrid(np.arange(4), np.arange(4), indexing="ij")
+    square = np.stack([(sq_x.ravel() - 5.0) * dx, (sq_z.ravel() + 4.0) * dx], axis=-1)
+    pos = np.concatenate([square, fluid]) + OFF
+    nm, n = len(square), len(square) + len(fluid)
+    ptype = np.concatenate([np.full(nm, 3), np.full(len(fluid), 1)]).astype(np.int32)
+    gm = np.concatenate([np.full(nm, 3), np.full(len(fluid), 2)]).astype(np.int32)
+    ids = np.arange(1, n + 1)
+    dens0 = np.full(n, const.rho0)
+    meta = M.SimulationMetaData(simulation_name="traj_square", save_location=".",
+                                dims=2, dtype="float64", shifting=M.ShiftingMode.PLANAR,
+                                kernel_output=M.KernelOutputMode.STORE,
+                                grid_margin_cells=4, block_sweep=False)
+    motion = M.MotionDetails(velocity=speed, start_time=0.0, duration=10.0,
+                             direction=(1.0, 0.0))
+    sim = M.assemble_simulation(
+        pos, dens0, ptype, gm, ids, meta, const, kern,
+        M.ViscosityModel.LAMINAR_SPS, M.DensityDiffusionModel.LINEAR,
+        geometries=(M.Geometry(csv_file="", group_marker=3, type=M.ParticleType.MOVING,
+                               motion=motion),), **kw)
+    arrays = dict(pos=pos, dens=dens0, ptype=ptype, group_marker=gm, ids=ids,
+                  ghost_points=np.zeros_like(pos))
+    return sim, const, kern, arrays, square
+
+
+def test_trajectory_moving_square_matches_jax_and_reference():
+    sim_t, const, kern, arrays, square = _square(T, device="cpu")
+    assert sim_t.cfg.sweep_kernel == "cell"
+    ft = t_fixed(sim_t.cfg, N_STEPS)(sim_t.state)
+    fw = _final(ft.particles.id.numpy(), ft.particles, lambda a: a.numpy())
+
+    sim_j, *_ = _square(J)
+    fj = j_fixed(sim_j.cfg, N_STEPS)(sim_j.state)
+    jx = _final(fj.particles.id, fj.particles, np.asarray)
+    _bands(fw, jx, float(ft.total_time), float(fj.total_time),
+           float(ft.current_dt), float(fj.current_dt))
+    np.testing.assert_array_equal(np.asarray(fj.particles.id), ft.particles.id.numpy())
+    # kernel output is written from the second sweep, as in the JAX package
+    np.testing.assert_allclose(ft.particles.kernel_w.numpy(),
+                               np.asarray(fj.particles.kernel_w), rtol=1e-9, atol=1e-9)
+    np.testing.assert_allclose(ft.particles.kernel_grad.numpy(),
+                               np.asarray(fj.particles.kernel_grad), rtol=1e-9, atol=1e-7)
+    assert float(ft.particles.kernel_w.min()) > 0
+
+    ref = reference_run(kernel_family="wendland", kern=kern, const=const,
+                        viscosity="laminar_sps", diffusion="linear", shifting=True,
+                        kernel_output=True, mdbc=False,
+                        motion={3: (0.5, 0.0, 10.0, (1.0, 0.0))}, n_steps=N_STEPS,
+                        **arrays)
+    _bands(fw, ref, float(ft.total_time), float(ref["total_time"]),
+           float(ft.current_dt), float(ref["dts"][-1]))
+    # the square moved at the prescribed speed
+    nm = len(square)
+    expected_x = square[:, 0] + OFF + 0.5 * float(ft.total_time)
+    np.testing.assert_allclose(fw["pos"][:nm, 0], expected_x, rtol=0, atol=1e-10)
+    np.testing.assert_array_equal(fw["vel"][:nm], np.tile([0.5, 0.0], (nm, 1)))
+
+
+def test_moving_square_state_roundtrip_and_rebuild_cadence():
+    """A JAX moving-square state 5 steps in starts the port bit for bit
+    (kernel sums, MOVING ``ptype`` and group markers included), and the port
+    takes its lazy rebuilds on the same steps: the displacement accumulator
+    sees the body's half-step advance, not ``motion_limiter * velocity``.
+    The body moves at 5 m/s here, so that it alone forces a rebuild every
+    dozen steps."""
+    sim_j, *_ = _square(J, speed=5.0)
+    sj = j_fixed(sim_j.cfg, 5)(sim_j.state)
+    sim_t, *_ = _square(T, speed=5.0, device="cpu")
+    leaves = _leaves(sj)
+    st = T.state_from_numpy(leaves, "cpu")
+    back = T.state_to_numpy(st)
+    for k in ("particles.kernel_w", "particles.kernel_grad", "particles.ptype",
+              "particles.group_marker", "particles.velocity", "position_half"):
+        assert np.abs(leaves[k]).max() > 0, k
+        assert back[k].dtype == leaves[k].dtype, k
+        np.testing.assert_array_equal(back[k], leaves[k], err_msg=k)
+    assert (leaves["particles.ptype"] == 3).sum() == 16
+
+    step_j = jax.jit(lambda s, d: j_step(sim_j.cfg, s, d))
+    h = sim_t.cfg.spec.kernel.h
+    dj = jnp.asarray(1.0 + h)
+    dt_ = torch.tensor(1.0 + h, dtype=torch.float64)
+    taken_j, taken_t = [], []
+    for _ in range(40):
+        sj, dj = step_j(sj, dj)
+        n_before = st.rebuilds
+        st, dt_ = t_step(sim_t.cfg, st, dt_)
+        taken_j.append(float(dj) == 0.0)
+        taken_t.append(st.rebuilds > n_before)
+        assert float(dt_) == pytest.approx(float(dj), rel=1e-9, abs=1e-15)
+    assert taken_t == taken_j
+    assert sum(taken_j) >= 2
+    np.testing.assert_array_equal(np.asarray(sj.particles.id), st.particles.id.numpy())
+    np.testing.assert_allclose(st.particles.position.numpy(),
+                               np.asarray(sj.particles.position), rtol=1e-9, atol=1e-11)
+
+
+def test_block_sweep_false_is_the_block_run_on_the_cpu():
+    """20 steps of the coarse dam break with ``block_sweep=False``: on the CPU
+    both kernels are the plain sweep, so the two runs agree bit for bit."""
+    sim_b = _assemble_port()
+    assert sim_b.cfg.sweep_kernel == "block"
+    sim_c = _assemble_port()
+    sim_c.cfg = dataclasses.replace(sim_c.cfg, sweep_kernel="cell")
+    fb = t_fixed(sim_b.cfg, 20)(sim_b.state)
+    fc = t_fixed(sim_c.cfg, 20)(sim_c.state)
+    for f in ("position", "velocity", "density", "acceleration", "id"):
+        assert torch.equal(getattr(fb.particles, f), getattr(fc.particles, f)), f
+    assert float(fb.total_time) == float(fc.total_time)
+    bad = dataclasses.replace(sim_c.cfg, sweep_kernel="pair")
+    with pytest.raises(ValueError, match="pair"):
+        t_fixed(bad, 1)(sim_c.state)
+
+
+@pytest.mark.parametrize("block_sweep", [True, False])
+def test_sweep_kernel_rule_matches_jax_rule(block_sweep):
+    """The port's ``choose_sweep_kernel`` against what JAX ``assemble_simulation``
+    does with the same flag: a chunk table (``ct_cap > 0``) means its block
+    kernel, none its cell-pair kernel."""
+    pos, dens, ptype, grp, idp = dam_break_3d(DX)
+    meta, const, kern = _case(J)
+    meta = J.replace(meta, use_pallas=True, block_sweep=block_sweep, dtype="float32")
+    sim_j = J.assemble_simulation(pos + OFF, dens, ptype, grp, idp, meta, const, kern,
+                                  J.ViscosityModel.ARTIFICIAL,
+                                  J.DensityDiffusionModel.LINEAR)
+    tmeta, tconst, tkern = _case(T)
+    sim_t = T.assemble_simulation(pos + OFF, dens, ptype, grp, idp,
+                                  T.replace(tmeta, block_sweep=block_sweep), tconst,
+                                  tkern, T.ViscosityModel.ARTIFICIAL,
+                                  T.DensityDiffusionModel.LINEAR, device="cpu")
+    assert (sim_j.cfg.ct_cap > 0) == (sim_t.cfg.sweep_kernel == "block") == block_sweep
+    assert sim_t.cfg.sweep_kernel == choose_sweep_kernel(
+        block_sweep, sim_t.state.particles.capacity)
+
+
+def test_sweep_kernel_rule_capacity_boundary():
+    assert BLOCK_CAP_LIMIT == J_BLOCK_CAP_LIMIT == 1 << 21
+    assert choose_sweep_kernel(True, 1 << 21) == "block"
+    assert choose_sweep_kernel(True, (1 << 21) + 1) == "cell"
+    assert choose_sweep_kernel(False, 1) == "cell"
+    # io/casegen.py:dam_break_3d at dx = 0.0035 and 0.0034
+    assert choose_sweep_kernel(True, 2027667) == "block"
+    assert choose_sweep_kernel(True, 2215035) == "cell"
