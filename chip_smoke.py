@@ -82,6 +82,38 @@ Phases, each printing one JSON line (any failure exits non-zero):
               that same state, and the moving-square path's under keys ending
               in ``_moving_square_path``.
 
+16. the sharded path, P = 4 slabs of the global cell-sorted order on the
+              cards visible (slab r on card r mod count; on one card they
+              share it, each on its own stream), ranks as threads:
+              sharded_rebuild - a state with every fluid position moved by
+              less than h, cut into 4 slabs: ``rebuild_sharded`` (local sort +
+              1-hop migration) against the single-device ``rebuild``: ``id``,
+              ``cell``, ``cell_start`` bitwise, 0 < migration <= halo;
+              sharded_parity_block, sharded_parity_cell_3d,
+              sharded_parity_cell_2d, sharded_parity_mdbc - per slab, the
+              windowed kernel against its plain version on the same
+              halo-extended inputs (below 1e-4 of each field's max), the 4
+              slabs' outputs concatenated against the single-device kernel on
+              the same global state (gate 1e-6 of the field's max; whether
+              bitwise is printed), the same through the real halo exchange of
+              4 thread ranks, and (block, cell 3D) the ``halo = 0`` window,
+              the whole gathered array;
+              run_sharded - the main path, the 159,712-particle 3D dam break
+              on 4 slabs, 10 + 200 steps: the gates of phase 4, exactly 2
+              windowed block-sweep launches per step per slab and none of any
+              other sweep, ``0 < max_halo <= halo``, every rank the same
+              number of rebuilds, and the gathered end state against the
+              single-device run of phase 4 within the trajectory bands of
+              tests/test_trajectory.py:64-70;
+              run_sharded_mdbc (249,036 particles, block sweep + mDBC on the
+              halo) and run_sharded_square (262,276 particles, the cell sweep
+              on the halo) with the gates of their single-device phases;
+              exchange - the bytes one slab sends per sweep and the time of
+              one halo exchange.
+              The kernel line then holds five entries: block_sweep,
+              block_sweep_sharded, cell_sweep, cell_sweep_sharded,
+              mdbc_moments (both of its uses).
+
 Then the card's name and power limit from nvidia-smi on a line of their own,
 and last ``{"ok": true, "device": {...}}``.
 """
@@ -103,12 +135,19 @@ from sphexample_tpu_torch.ops import _build
 from sphexample_tpu_torch.ops import block_sweep as bs
 from sphexample_tpu_torch.ops import cell_list as cl
 from sphexample_tpu_torch.ops import cell_sweep as cw
+from sphexample_tpu_torch.ops import halo as halo_mod
 from sphexample_tpu_torch.ops import mdbc
 from sphexample_tpu_torch.ops import mdbc_moments as mm
 from sphexample_tpu_torch.ops.interactions import candidates
+from sphexample_tpu_torch.parallel.context import SINGLE
+from sphexample_tpu_torch.parallel.mesh import (make_mesh, make_sharded_fixed_steps_fn,
+                                                make_sharded_fn, shard_simulation)
+from sphexample_tpu_torch.state import gather_state, split_state
 
 REL_TOL = 1e-4           # kernel vs plain, relative to the field's max
+SLAB_TOL = 1e-6          # 4 slabs concatenated vs the single-device kernel
 WARM_STEPS, STEPS = 10, 200
+N_SLABS = 4              # the sharded phases
 # the large-capacity path: io/casegen.py:dam_break_3d at this spacing has this
 # many particles, past the block sweep's capacity limit of 2^21 rows
 LARGE_DX, LARGE_N = 0.0034, 2215035
@@ -118,6 +157,15 @@ LARGE_DX, LARGE_N = 0.0034, 2215035
 # accepted pair the kernel gradient, continuity, LINEAR diffusion, pressure
 # term and accumulation; an approaching pair (v.x < 0) the viscosity term.
 OPS_CANDIDATE, OPS_PAIR, OPS_APPROACH = 9, 45, 9
+# the same for the 2D all-extras instance of csrc/cell_sweep.cu with Wendland,
+# LAMINAR_SPS and LINEAR (the moving-square model set), counted from its
+# source: a candidate 6 (difference, squared distance, compare); an accepted
+# pair 16 (distance, q, gradient factor, v_ij, v.x, x.gradW, limiter product)
+# + 4 continuity + 13 LINEAR diffusion + 9 pressure term and accumulation + 9
+# laminar term + 75 sub-particle-scale stress (13 for dv, gradW and their
+# products, 2 x 28 for the two tau . gradW, 6 to scale and add) + 11 STORE +
+# 10 PLANAR; no artificial term
+OPS_2D_ALL_EXTRAS = (6, 147, 0)
 # the same for the 3D Wendland instance of csrc/mdbc_moments.cu: a candidate
 # costs the difference, squared distance and the cutoff and fluid compares; an
 # accepted pair the density guard and the volume (2), the distance, q, kernel
@@ -258,6 +306,7 @@ def moving_square_checks(sim, case, state, sweep_out, label, total_steps):
     pos0, ptype0 = case[0][0], case[0][2]
     p = state.particles
     order = torch.argsort(p.id)               # IDs are 1..n in input order
+    order = order[p.id[order] > 0]            # padding rows (a sharded run's) out
     x_now = p.position[order][:, 0].double().cpu().numpy()
     body = ptype0 == int(T.ParticleType.MOVING)
     t = float(state.total_time)
@@ -520,15 +569,18 @@ def time_cuda(fn, reps):
     return t0.elapsed_time(t1) / reps
 
 
-def sweep_work(sim, p, cs, reads_cell=True):
+def sweep_work(sim, p, cs, reads_cell=True, lo=0, hi=None,
+               op_costs=None):
     """Candidates, pairs in support and approaching pairs of this state's
-    sweep (what the kernel really evaluates), and the bytes it must move."""
+    sweep (what the kernel really evaluates), and the bytes it must move;
+    with ``lo`` / ``hi`` the work of the selves [lo, hi) alone (a slab's)."""
     kern = sim.cfg.spec.kernel
     starts, ends = cl.row_segments(p.cell, sim.cfg.grid, cs)
     act = p.active
+    hi = p.capacity if hi is None else hi
     n_cand = n_pair = n_appr = 0
-    for b0 in range(0, p.capacity, 8192):
-        i, j = candidates(starts, ends, b0, min(b0 + 8192, p.capacity))
+    for b0 in range(lo, hi, 8192):
+        i, j = candidates(starts, ends, b0, min(b0 + 8192, hi))
         live = act[i]
         i, j = i[live], j[live]
         xij = p.position[i] - p.position[j]
@@ -544,7 +596,8 @@ def sweep_work(sim, p, cs, reads_cell=True):
     # too) + the [N, 1+D] f32 output
     nbytes = (n * (2 * d + 3) * p.position.element_size() + n
               + (n * d * 4 if reads_cell else 0) + cs.numel() * 4 + n * (1 + d) * 4)
-    ops = OPS_CANDIDATE * n_cand + OPS_PAIR * n_pair + OPS_APPROACH * n_appr
+    c_cand, c_pair, c_appr = op_costs or (OPS_CANDIDATE, OPS_PAIR, OPS_APPROACH)
+    ops = c_cand * n_cand + c_pair * n_pair + c_appr * n_appr
     return n_cand, n_pair, n_appr, nbytes, ops
 
 
@@ -568,9 +621,11 @@ def sweep_numbers(sim, p, cs, mod=bs, plain_reps=2):
             "bytes": nbytes, "ops": ops}
 
 
-def mdbc_work(sim, args):
+def mdbc_work(sim, args, ghost_rows=None):
     """Candidates and in-support fluid pairs of these ghosts (what the moment
-    kernel really evaluates), and the bytes it must move."""
+    kernel really evaluates), and the bytes it must move.  The bytes count all
+    B ghost slots as launched, or with ``ghost_rows`` only that many: a slab
+    is launched with the global B slots and fills a fraction of them."""
     spec, grid, gpoint, bvalid, position, density, ml, cs = args
     kern = spec.kernel
     gcoords = cl.clamp_coords(cl.cell_coords(gpoint, kern.H_inv), grid)
@@ -585,10 +640,12 @@ def mdbc_work(sim, args):
         n_cand += int(i.numel())
         n_pair += int((((xij * xij).sum(-1) <= kern.H2) & (ml[j] > 0.5)).sum())
     n = position.shape[0]
+    rows = B if ghost_rows is None else ghost_rows
     # inputs read once (ghost points, validity, position, density, motion
     # limiter, cell_start) + the [B, K] f32 output
-    nbytes = (B * d * gpoint.element_size() + B + n * (d + 2) * position.element_size()
-              + cs.numel() * 4 + B * mm.n_moments(d) * 4)
+    nbytes = (rows * d * gpoint.element_size() + rows
+              + n * (d + 2) * position.element_size()
+              + cs.numel() * 4 + rows * mm.n_moments(d) * 4)
     ops = MDBC_OPS_CANDIDATE * n_cand + MDBC_OPS_PAIR * n_pair
     return n_cand, n_pair, nbytes, ops
 
@@ -705,6 +762,412 @@ def breakdown_phase(sim, state, run, label):
     return brk
 
 
+# --- the sharded path: P slabs, ranks as threads ---------------------------------
+
+def unsharded(sim_sh):
+    """The single-device view of a sharded simulation: its gathered global
+    state (capacity padded to the slabs) under an unsharded config."""
+    cfg = dataclasses.replace(sim_sh.cfg, ctx=SINGLE, halo=0)
+    return T.Simulation(cfg=cfg, state=gather_state(sim_sh.state, "cuda:0"),
+                        meta=sim_sh.meta, n_live=sim_sh.n_live)
+
+
+def through_ranks(sim_sh, p, cs, fn):
+    """``fn(cfg_r, slab particles, cell_start)`` on every slab of the global
+    sorted state (p, cs) at once, through the thread ranks and their real
+    collectives; the results in rank order, moved to card 0."""
+    states = split_state(sim_sh.state[0].replace(particles=p, cell_start=cs,
+                                                 position_half=p.position),
+                         sim_sh.mesh.devices)
+    run, _ = make_sharded_fn(sim_sh.cfg, sim_sh.mesh,
+                             lambda c: lambda st: fn(c, st.particles, st.cell_start))
+    return run(states)
+
+
+def on0(t):
+    return None if t is None else t.to("cuda:0")
+
+
+def cat_sweeps(outs):
+    fields = {}
+    for _, field in SWEEP_FIELDS:
+        parts = [getattr(o, field) for o in outs]
+        fields[field] = None if parts[0] is None else torch.cat([on0(a) for a in parts])
+    return type(outs[0])(**fields)
+
+
+def slab_window(p, cs, r, halo):
+    """Slab r's window of the global sorted state, built by slicing: (slab
+    particles, rebased cell_start, the extended sweep fields, self_off).  Rows
+    past the global ends are zeros, as the end ranks receive them."""
+    N = p.capacity
+    C = N // N_SLABS
+    base = r * C
+    lo, hi, self_off = (0, N, base) if halo == 0 else (base - halo, base + C + halo, halo)
+
+    def ext(a):
+        zl = a.new_zeros((max(0, -lo),) + tuple(a.shape[1:]))
+        zr = a.new_zeros((max(0, hi - N),) + tuple(a.shape[1:]))
+        return torch.cat([zl, a[max(lo, 0):min(hi, N)], zr])
+
+    fields = {k: ext(getattr(p, k)) for k in
+              ("position", "density", "pressure", "velocity", "motion_limiter")}
+    return (p.map(lambda a: a[base:base + C]), halo_mod.rebase(cs, lo, hi - lo),
+            fields, self_off)
+
+
+def compare_window(sim_sh, simg, p, cs, label, mod, spec=None, halos=None):
+    """A windowed sweep kernel (``mod``) on the 4 slabs of the global state
+    (p, cs): per slab against its plain version on the same extended inputs;
+    the slabs' outputs concatenated against the single-device kernel on the
+    global state; and the same through the real exchange of 4 thread ranks."""
+    spec = spec or simg.cfg.spec
+    grid = simg.cfg.grid
+    window, plain, single = ((bs.block_sweep_window, bs.block_sweep_plain, bs.block_sweep)
+                             if mod is bs else
+                             (cw.cell_sweep_window, cw.cell_sweep_plain, cw.cell_sweep))
+    ref_single = single(spec, grid, p, cs, p.position, p.density, p.pressure, p.velocity)
+    res = {"phase": label, "n": int(p.active.sum()), "slabs": N_SLABS}
+    for halo in (halos or (sim_sh.cfg.halo,)):
+        tag = f"halo_{halo}"
+        outs, worst, worst_abs = [], 0.0, 0.0
+        for r in range(N_SLABS):
+            pl, cs_ext, f, self_off = slab_window(p, cs, r, halo)
+            args = (spec, grid, pl, cs_ext, f["position"], f["density"], f["pressure"],
+                    f["velocity"])
+            k = window(*args, f["motion_limiter"], self_off)
+            ref = plain(*args, block_size=4096, motion_limiter=f["motion_limiter"],
+                        self_off=self_off)
+            torch.cuda.synchronize()
+            d = sweep_diff(k, ref, f"{label}:{tag}:slab{r}")
+            worst = max(worst, max(v for key, v in d.items() if key.endswith("_rel")))
+            worst_abs = max(worst_abs,
+                            max(v for key, v in d.items() if key.endswith("_max_abs")))
+            outs.append(k)
+        d = sweep_diff(cat_sweeps(outs), ref_single, f"{label}:{tag}:concatenated")
+        res[f"{tag}_rows"] = int(f["position"].shape[0])
+        res[f"{tag}_window_vs_plain_max_rel"] = worst
+        res[f"{tag}_window_vs_plain_max_abs"] = worst_abs
+        res[f"{tag}_slabs_vs_single_max_rel"] = max(
+            v for key, v in d.items() if key.endswith("_rel"))
+        res[f"{tag}_slabs_vs_single_max_abs"] = max(
+            v for key, v in d.items() if key.endswith("_max_abs"))
+        res[f"{tag}_slabs_vs_single_bitwise"] = res[f"{tag}_slabs_vs_single_max_abs"] == 0.0
+    # the same sweep through sweep_sharded: pack, halo exchange, launch
+    sharded = bs.block_sweep_sharded if mod is bs else cw.cell_sweep_sharded
+    outs = through_ranks(sim_sh, p, cs, lambda c, pl, csl: sharded(
+        spec, grid, c.halo, pl, csl, pl.position, pl.density, pl.pressure, pl.velocity,
+        c.ctx))
+    d = sweep_diff(cat_sweeps(outs), ref_single, f"{label}:exchange")
+    res["exchange_vs_single_max_rel"] = max(v for key, v in d.items() if key.endswith("_rel"))
+    res["exchange_vs_single_bitwise"] = all(
+        v == 0.0 for key, v in d.items() if key.endswith("_max_abs"))
+    rels = [v for key, v in res.items() if key.endswith("_window_vs_plain_max_rel")]
+    slabs = [v for key, v in res.items() if key.endswith("_vs_single_max_rel")]
+    res["ok"] = max(rels) < REL_TOL and max(slabs) < SLAB_TOL
+    emit(res)
+    if not res["ok"]:
+        fail(f"{label}: windowed kernel, plain version and single-device kernel disagree")
+    return res
+
+
+def compare_window_mdbc(sim_sh, simg, p, cs, label):
+    """The moment kernel on the halo: per slab, the slab's own ghosts against
+    the extended position / density / limiter, kernel vs plain; the corrected
+    densities of the 4 slabs concatenated against the single-device
+    correction, sliced windows and the real exchange alike."""
+    spec, grid, B = simg.cfg.spec, simg.cfg.grid, simg.cfg.boundary_capacity
+    halo = sim_sh.cfg.halo
+    rho_single = mdbc.mdbc_density_correction(spec, grid, p, cs, B)
+    ks, refs, dens, ghosts = [], [], [], []
+    for r in range(N_SLABS):
+        pl, cs_ext, f, _ = slab_window(p, cs, r, halo)
+        bidx, bvalid = mdbc.compact_ghosts(pl, B)
+        args = (spec, grid, pl.ghost_points[bidx], bvalid, f["position"], f["density"],
+                f["motion_limiter"], cs_ext)
+        bk, Ak = mm.mdbc_moments(*args)
+        bp, Ap = mm.mdbc_moments_plain(*args)
+        torch.cuda.synchronize()
+        ks.append(torch.cat([bk, Ak.reshape(B, -1)], dim=1))
+        refs.append(torch.cat([bp, Ap.reshape(B, -1)], dim=1))
+        if not (torch.isfinite(ks[-1]).all() and torch.isfinite(refs[-1]).all()):
+            fail(f"{label}: non-finite moments on slab {r}")
+        # fill slots repeat row 0, so count the rows, not the valid slots
+        ghosts.append(int((torch.any(pl.ghost_points != 0, dim=-1) & pl.active).sum()))
+        dens.append(mdbc._mdbc_apply(spec, pl, bidx, bvalid, args[2], bk, Ak)[0])
+    # every moment column relative to its max over all four slabs, the measure
+    # of the single-device phase (the top slab's ghosts see the fluid only at
+    # the rim of their support: its own column maxima are all but zero)
+    k, ref = torch.cat(ks), torch.cat(refs)
+    col_rel = (k - ref).abs().amax(dim=0) / ref.abs().amax(dim=0).clamp(min=1e-30)
+    worst = float(col_rel.max())
+    worst_abs = float((k - ref).abs().max())
+    sliced = float((torch.cat(dens) - rho_single).abs().max())
+    outs = through_ranks(sim_sh, p, cs, lambda c, pl, csl: mdbc.mdbc_density_correction_sharded(
+        spec, grid, pl, csl, B, c.ctx, c.halo))
+    exchanged = float((torch.cat([on0(a) for a in outs]) - rho_single).abs().max())
+    rho_max = float(rho_single.abs().max())
+    res = {"phase": label, "slabs": N_SLABS, "halo": halo, "ghosts_per_slab": ghosts,
+           "window_vs_plain_moment_max_rel": worst,
+           "window_vs_plain_moment_max_abs": worst_abs,
+           "slabs_vs_single_rho_max_abs": sliced, "slabs_vs_single_bitwise": sliced == 0.0,
+           "exchange_vs_single_rho_max_abs": exchanged,
+           "exchange_vs_single_bitwise": exchanged == 0.0}
+    res["ok"] = (worst < REL_TOL and sliced <= SLAB_TOL * rho_max
+                 and exchanged <= SLAB_TOL * rho_max and sum(ghosts) == B)
+    emit(res)
+    if not res["ok"]:
+        fail(f"{label}: the moment kernel on the halo disagrees")
+    return res
+
+
+def sharded_rebuild_phase(sim_sh, simg, label="sharded_rebuild"):
+    """``rebuild_sharded`` on 4 slabs against the single-device ``rebuild``
+    after every fluid particle moved by less than h."""
+    kern, grid = simg.cfg.spec.kernel, simg.cfg.grid
+    p, _ = stirred_state(simg)
+    rng = np.random.default_rng(5)
+    step = rng.uniform(-1, 1, size=tuple(p.position.shape)) * (0.9 * kern.h / np.sqrt(p.dims))
+    step = torch.as_tensor(step, dtype=p.position.dtype).to(p.device)
+    moved = p.replace(position=p.position + step * p.motion_limiter[:, None])
+    ref, cs_ref, occ_ref = cl.rebuild(moved, kern.H_inv, grid)
+    outs = through_ranks(sim_sh, moved, simg.state.cell_start,
+                         lambda c, pl, csl: cl.rebuild_sharded(pl, kern.H_inv, grid, c.ctx,
+                                                               c.halo))
+    torch.cuda.synchronize()
+    migration = int(outs[0][3])
+    same = {f: bool(torch.equal(torch.cat([on0(getattr(o[0], f)) for o in outs]),
+                                getattr(ref, f)))
+            for f in ("id", "cell", "position", "density", "active")}
+    same["cell_start"] = all(bool(torch.equal(on0(o[1]), cs_ref)) for o in outs)
+    same["max_occupancy"] = all(int(o[2]) == int(occ_ref) for o in outs)
+    res = {"phase": label, "n": simg.n_live, "slabs": N_SLABS, "halo": sim_sh.cfg.halo,
+           "migration_need": migration, "bitwise_equal": same,
+           "rows_that_changed_place": int((ref.id != p.id).sum())}
+    res["ok"] = all(same.values()) and 0 < migration <= sim_sh.cfg.halo
+    emit(res)
+    if not res["ok"]:
+        fail(f"{label}: the distributed rebuild differs from the single-device one, "
+             "or nothing migrated")
+    return res
+
+
+def by_id(state, field):
+    """A field of the live particles in ID order, on the host, as float64."""
+    p = state.particles
+    ids = p.id.cpu()
+    order = torch.argsort(ids)
+    order = order[ids[order] > 0]
+    return getattr(p, field).cpu()[order].double().numpy()
+
+
+def end_summary(state):
+    """What a later sharded run of the same steps is held against."""
+    return {"pos": by_id(state, "position"), "vel": by_id(state, "velocity"),
+            "dens": by_id(state, "density"), "total_time": float(state.total_time),
+            "dt": float(state.current_dt), "rebuilds": state.rebuilds}
+
+
+def run_sharded_phase(sim, single_end, label, mdbc_on, sweep="block", falling=True,
+                      rho_band=0.02):
+    """``run_phase`` for 4 slabs: the same 10 + 200 steps through
+    ``make_sharded_fixed_steps_fn``, its physics gates on the gathered end
+    state, the windowed launch counts (2 per step per slab of the chosen
+    sweep, none of the other, none of a single-device entry), the halo guard,
+    the ranks' rebuild counts, and the end state against the single-device
+    run's (``single_end``) within the bands of tests/test_trajectory.py:64-70."""
+    sim_sh = shard_simulation(sim, make_mesh(N_SLABS))
+    cfg, halo = sim_sh.cfg, sim_sh.cfg.halo
+    if cfg.sweep_kernel != sweep:
+        fail(f"{label}: shard_simulation chose the {cfg.sweep_kernel} sweep, not {sweep}")
+    g0 = gather_state(sim_sh.state, "cuda:0")
+    ids0, pos0 = g0.particles.id.clone(), g0.particles.position.clone()
+    fixed0 = g0.particles.ptype == int(T.ParticleType.FIXED)
+    del g0
+    states = make_sharded_fixed_steps_fn(cfg, sim_sh.mesh, WARM_STEPS)(sim_sh.state)
+    torch.cuda.synchronize()
+    rebuilds0 = [s.rebuilds for s in states]
+    torch.cuda.reset_peak_memory_stats()
+    bs.launches = bs.window_launches = 0
+    cw.launches = cw.window_launches = 0
+    mm.launches = 0
+    t0 = time.perf_counter()
+    states = make_sharded_fixed_steps_fn(cfg, sim_sh.mesh, STEPS)(states)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {"block": bs.window_launches, "cell": cw.window_launches}
+    single_entry = bs.launches + cw.launches
+    sweep_launches, mdbc_launches = counts[sweep], mm.launches
+    other_launches = sum(v for k, v in counts.items() if k != sweep)
+    rebuilds = [s.rebuilds - r0 for s, r0 in zip(states, rebuilds0)]
+    scalars_agree = all(
+        float(s.total_time) == float(states[0].total_time)
+        and int(s.iteration) == int(states[0].iteration)
+        and int(s.max_halo) == int(states[0].max_halo)
+        and bool(torch.equal(on0(s.cell_start), on0(states[0].cell_start)))
+        for s in states)
+    state = gather_state(states, "cuda:0")
+    p = state.particles
+    n = sim.n_live
+    finite = all(bool(torch.isfinite(getattr(p, f)).all()) for f in
+                 ("position", "velocity", "acceleration", "density", "pressure"))
+    fluid = p.ptype == int(T.ParticleType.FLUID)
+    rho0 = cfg.spec.constants.rho0
+    rho_f = p.density[fluid]
+    order_now, order0 = torch.argsort(p.id), torch.argsort(ids0)
+    walls_still = bool(torch.equal(p.position[order_now][fixed0[order0]],
+                                   pos0[order0][fixed0[order0]]))
+    rho_b = p.density[(p.ptype == int(T.ParticleType.FIXED)) & p.active]
+    end = end_summary(state)
+    scale = float(np.abs(single_end["pos"]).max())
+    diffs = {k: float(np.abs(end[k] - single_end[k]).max()) for k in ("pos", "vel", "dens")}
+    # tests/test_trajectory.py:64-70
+    in_bands = bool(
+        abs(end["total_time"] - single_end["total_time"]) <= 1e-12 * abs(single_end["total_time"])
+        and abs(end["dt"] - single_end["dt"]) <= 1e-12 * abs(single_end["dt"])
+        and np.allclose(end["pos"], single_end["pos"], rtol=1e-9, atol=1e-9 * scale)
+        and np.allclose(end["vel"], single_end["vel"], rtol=1e-7, atol=1e-8)
+        and np.allclose(end["dens"], single_end["dens"], rtol=1e-9, atol=1e-6))
+    C = p.capacity // N_SLABS
+    run = {
+        "phase": label, "n": n, "slabs": N_SLABS, "cards": torch.cuda.device_count(),
+        "slab_devices": [str(d) for d in sim_sh.mesh.devices],
+        "slab_rows": C, "halo": halo, "window_rows": C + 2 * halo if halo else p.capacity,
+        "max_halo": int(state.max_halo), "steps": STEPS, "wall_s": wall,
+        "particle_steps_per_s": n * STEPS / wall, "ms_per_step": 1e3 * wall / STEPS,
+        "rebuilds_per_rank": rebuilds,
+        "rebuilds_total_per_rank": [s.rebuilds for s in states],
+        "rebuilds_total_single_device": single_end["rebuilds"],
+        "ranks_agree_on_scalars": scalars_agree,
+        "sim_time_s": end["total_time"], "dt": end["dt"],
+        "fluid_rho_min": float(rho_f.min()), "fluid_rho_max": float(rho_f.max()),
+        "fluid_vz_min": float(p.velocity[fluid][:, -1].min()),
+        "boundary_rows_off_rho0": int((rho_b != rho0).sum()),
+        "sweep_kernel": sweep, "launches": sweep_launches,
+        "launches_per_step_per_slab": sweep_launches / STEPS / N_SLABS,
+        "block_window_launches": counts["block"], "cell_window_launches": counts["cell"],
+        "single_device_entry_launches": single_entry, "mdbc_launches": mdbc_launches,
+        "finite": finite, "walls_still": walls_still,
+        "grid_escapes": int(state.grid_escapes),
+        "vs_single_device_max_abs": diffs,
+        "vs_single_device_bitwise": all(v == 0.0 for v in diffs.values()),
+        "vs_single_device_in_bands": in_bands,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
+    }
+    emit(run)
+    if not finite:
+        fail(f"{label}: non-finite fields after the run")
+    if not (abs(run["fluid_rho_min"] / rho0 - 1) <= rho_band
+            and abs(run["fluid_rho_max"] / rho0 - 1) <= rho_band):
+        fail(f"{label}: fluid density left rho0 +- {100 * rho_band:g}%")
+    if falling and not run["fluid_vz_min"] < 0:
+        fail(f"{label}: the fluid column is not falling")
+    if not walls_still:
+        fail(f"{label}: fixed boundary particles moved")
+    if (sweep_launches != 2 * STEPS * N_SLABS or other_launches != 0 or single_entry != 0):
+        fail(f"{label}: windowed {sweep}-sweep launches {sweep_launches} != 2 x {STEPS} "
+             f"steps x {N_SLABS} slabs, or another sweep entry was launched "
+             f"({other_launches}, {single_entry})")
+    if mdbc_launches != (STEPS * N_SLABS if mdbc_on else 0):
+        fail(f"{label}: mDBC launches {mdbc_launches} in {STEPS} steps on {N_SLABS} slabs")
+    if run["grid_escapes"] != 0:
+        fail(f"{label}: particles escaped the static grid")
+    if mdbc_on and run["boundary_rows_off_rho0"] == 0:
+        fail(f"{label}: no boundary density moved off rho0 - mDBC did not fire")
+    if not 0 < run["max_halo"] <= halo:
+        fail(f"{label}: max_halo {run['max_halo']} outside (0, halo = {halo}]")
+    if (len(set(rebuilds)) != 1 or not scalars_agree
+            or states[0].rebuilds != single_end["rebuilds"]):
+        fail(f"{label}: the ranks took different branches: rebuilds {rebuilds} "
+             f"(single device: {single_end['rebuilds']} in all)")
+    if not in_bands:
+        fail(f"{label}: the sharded end state left the trajectory bands of the "
+             f"single-device run: {diffs}")
+    return sim_sh, states, state, run
+
+
+def exchange_phase(sim_sh, states, label="exchange", reps=50):
+    """One halo exchange of the packed rows (``ops.halo.extend``: H rows each
+    way, the two neighbours' rows copied device to device, the window
+    concatenated), on all slabs at once: CUDA-event time on each rank's
+    stream and host time per exchange, and the bytes one slab sends."""
+    halo = sim_sh.cfg.halo
+
+    def make(c):
+        def fn(st):
+            p = st.particles
+            pack = bs.pack_fields(p.position, p.velocity, p.density, p.pressure,
+                                  p.motion_limiter)
+            halo_mod.extend(c.ctx, pack, c.halo)
+            t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            h0 = time.perf_counter()
+            t0.record()
+            for _ in range(reps):
+                ext, _, _ = halo_mod.extend(c.ctx, pack, c.halo)
+            t1.record()
+            t1.synchronize()
+            host_ms = 1e3 * (time.perf_counter() - h0) / reps
+            # the rendezvous alone: the two barrier waits of one collective,
+            # and one reduction of a scalar (as stages 00 and 01 make three)
+            h1 = time.perf_counter()
+            for _ in range(reps):
+                c.ctx.group.wait(c.ctx.rank())
+                c.ctx.group.wait(c.ctx.rank())
+            h2 = time.perf_counter()
+            for _ in range(reps):
+                c.ctx.pmax(st.total_time)
+            h3 = time.perf_counter()
+            return (t0.elapsed_time(t1) / reps, host_ms,
+                    pack.shape[1] * pack.element_size(), ext.shape[0],
+                    1e3 * (h2 - h1) / reps, 1e3 * (h3 - h2) / reps)
+        return fn
+
+    outs = make_sharded_fn(sim_sh.cfg, sim_sh.mesh, make)[0](states)
+    row_bytes = outs[0][2]
+    res = {"phase": label, "slabs": N_SLABS, "halo_rows": halo, "row_bytes": row_bytes,
+           "bytes_sent_per_slab_per_sweep": 2 * halo * row_bytes,
+           "bytes_sent_each_way": halo * row_bytes, "window_rows": outs[0][3],
+           "exchange_ms_device_per_rank": [o[0] for o in outs],
+           "exchange_ms_host_per_rank": [o[1] for o in outs],
+           "two_barrier_waits_ms_host": max(o[4] for o in outs),
+           "scalar_pmax_ms_host": max(o[5] for o in outs)}
+    emit(res)
+    return res
+
+
+def window_numbers(simg, p, cs, mod, halo, r=1, plain_reps=2, op_costs=None):
+    """A windowed sweep kernel on slab ``r``'s window of the global state: the
+    wrapper's and the plain version's time per call, the slab's own work
+    (``sweep_work`` restricted to its selves) and the bound it gives."""
+    C = p.capacity // N_SLABS
+    pl, cs_ext, f, self_off = slab_window(p, cs, r, halo)
+    n_cand, n_pair, n_appr, _, ops = sweep_work(simg, p, cs, reads_cell=mod is bs,
+                                                lo=r * C, hi=(r + 1) * C,
+                                                op_costs=op_costs)
+    ne, d = f["position"].shape
+    # the window's fields read once, the slab's cell / active, cell_start, and
+    # the slab's [C, 1+D] f32 output
+    nbytes = (ne * (2 * d + 3) * p.position.element_size() + C
+              + (C * d * 4 if mod is bs else 0) + cs.numel() * 4 + C * (1 + d) * 4)
+    window, plain = ((bs.block_sweep_window, bs.block_sweep_plain) if mod is bs
+                     else (cw.cell_sweep_window, cw.cell_sweep_plain))
+    args = (simg.cfg.spec, simg.cfg.grid, pl, cs_ext, f["position"], f["density"],
+            f["pressure"], f["velocity"])
+    call = lambda: window(*args, f["motion_limiter"], self_off)  # noqa: E731
+    ms = time_cuda(call, 20)
+    name = "block_sweep" if mod is bs else "cell_sweep"
+    plain_ms = time_cuda(lambda: plain(*args, block_size=4096,
+                                       motion_limiter=f["motion_limiter"],
+                                       self_off=self_off), plain_reps)
+    t_bytes, t_ops = nbytes / PEAK_BYTES, ops / PEAK_F32
+    return {"ms": ms, "ms_per_launch": ms, "kernel_only_ms": kernel_only_ms(call, name),
+            "plain_ms": plain_ms, "bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes > t_ops else "operations",
+            "library_ms": None, "slab": r, "slab_rows": C, "window_rows": ne,
+            "candidates": n_cand, "pairs": n_pair, "approaching_pairs": n_appr,
+            "bytes": nbytes, "ops": ops}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device - this script runs on the card only",
@@ -771,7 +1234,44 @@ def main():
         **{k: nums[k] for k in ("candidates", "pairs", "approaching_pairs",
                                 "bytes", "ops")},
     }
-    del sim3, state, pf, csf
+    # 16 - the sharded main path: the same deck and steps on 4 slabs
+    single_end = end_summary(state)
+    del state, pf, csf
+    sim_sh, states_sh, state_sh, run_sh = run_sharded_phase(
+        sim3, single_end, "run_sharded", mdbc_on=False)
+    halo3 = sim_sh.cfg.halo
+    simg = unsharded(sim_sh)
+    sharded_rebuild_phase(sim_sh, simg)
+    pg, csg = stirred_state(simg)
+    parw_block = compare_window(sim_sh, simg, pg, csg, "sharded_parity_block", bs,
+                                halos=(halo3, 0))
+    parw_cell3 = compare_window(sim_sh, simg, pg, csg, "sharded_parity_cell_3d", cw,
+                                halos=(halo3, 0))
+    del pg, csg
+    pe, cse = state_sh.particles, state_sh.cell_start
+    parw_block_after = compare_window(sim_sh, simg, pe, cse,
+                                      "sharded_parity_block_after_run", bs)
+    exch = exchange_phase(sim_sh, states_sh)
+    window_entry = {
+        "name": "block_sweep_sharded", "route": "cuda",
+        "source": "sphexample_tpu_torch/csrc/block_sweep.cu",
+        "replaces": "sphexample_tpu/ops/pallas_block_sweep.py:992 "
+                    "(pallas_block_sweep_sharded)",
+        "launches": run_sh["launches"],
+        "launches_per_step_per_slab": run_sh["launches_per_step_per_slab"],
+        "slabs": N_SLABS, "halo_rows": halo3,
+        "max_abs_err": parw_block_after[f"halo_{halo3}_window_vs_plain_max_abs"],
+        "slabs_vs_single_max_abs": parw_block_after[f"halo_{halo3}_slabs_vs_single_max_abs"],
+        "max_rel_err": max(parw_block[f"halo_{halo3}_window_vs_plain_max_rel"],
+                           parw_block["halo_0_window_vs_plain_max_rel"],
+                           parw_block_after[f"halo_{halo3}_window_vs_plain_max_rel"]),
+        "slabs_vs_single_bitwise": parw_block_after[f"halo_{halo3}_slabs_vs_single_bitwise"],
+        **window_numbers(simg, pe, cse, bs, halo3),
+        "bytes_sent_per_slab_per_sweep": exch["bytes_sent_per_slab_per_sweep"],
+        "exchange_ms_device": max(exch["exchange_ms_device_per_rank"]),
+        "exchange_ms_host": max(exch["exchange_ms_host_per_rank"]),
+    }
+    del sim3, sim_sh, states_sh, state_sh, simg, pe, cse
     torch.cuda.empty_cache()
 
     # 7 - moment-kernel parity on the initial mDBC lattices
@@ -828,7 +1328,55 @@ def main():
         kernel_only_ms_mdbc_path=brkm.get("block_sweep_kernel_only_ms",
                                           "not measured"),
         **{f"{k}_mdbc_path": v for k, v in nums.items()})
-    del simm, state, pf, csf, margs
+    # 16 - the sharded mDBC path: the block sweep and the moments on the halo
+    single_end = end_summary(state)
+    del state, pf, csf, margs
+    sim_sh, states_sh, state_sh, run_shm = run_sharded_phase(
+        simm, single_end, "run_sharded_mdbc", mdbc_on=True)
+    simg = unsharded(sim_sh)
+    pg, csg = perturbed_state(simg)
+    parw_m = compare_window_mdbc(sim_sh, simg, pg, csg, "sharded_parity_mdbc")
+    del pg, csg
+    pe, cse = state_sh.particles, state_sh.cell_start
+    parw_m_after = compare_window_mdbc(sim_sh, simg, pe, cse,
+                                       "sharded_parity_mdbc_after_run")
+    # the moment kernel on slab 1's window of the end state
+    pl, cs_ext, f, _ = slab_window(pe, cse, 1, sim_sh.cfg.halo)
+    bidx, bvalid = mdbc.compact_ghosts(pl, simg.cfg.boundary_capacity)
+    wargs = (simg.cfg.spec, simg.cfg.grid, pl.ghost_points[bidx], bvalid,
+             f["position"], f["density"], f["motion_limiter"], cs_ext)
+    w_cand, w_pair, w_bytes, w_ops = mdbc_work(simg, wargs)
+    t_bytes, t_ops = w_bytes / PEAK_BYTES, w_ops / PEAK_F32
+    # the same with the slab's own ghost rows in place of the B global slots
+    w_rows = int((torch.any(pl.ghost_points != 0, dim=-1) & pl.active).sum())
+    own_bytes = mdbc_work(simg, wargs, ghost_rows=w_rows)[2]
+    t_own = own_bytes / PEAK_BYTES
+    mdbc_entry.update(
+        launches_sharded_path=run_shm["mdbc_launches"],
+        launches_per_step_per_slab_sharded_path=run_shm["mdbc_launches"] / STEPS / N_SLABS,
+        halo_rows_sharded_path=sim_sh.cfg.halo,
+        window_rows_sharded_path=int(f["position"].shape[0]),
+        ghost_rows_sharded_path=w_rows, ghost_slots_sharded_path=int(wargs[2].shape[0]),
+        max_abs_err_sharded_path=parw_m_after["window_vs_plain_moment_max_abs"],
+        max_rel_err_sharded_path=max(parw_m["window_vs_plain_moment_max_rel"],
+                                     parw_m_after["window_vs_plain_moment_max_rel"]),
+        slabs_vs_single_bitwise_sharded_path=parw_m_after["slabs_vs_single_bitwise"],
+        ms_sharded_path=time_cuda(lambda: mm.mdbc_moments(*wargs), 20),
+        kernel_only_ms_sharded_path=kernel_only_ms(lambda: mm.mdbc_moments(*wargs),
+                                                   "mdbc_moments"),
+        plain_ms_sharded_path=time_cuda(lambda: mm.mdbc_moments_plain(*wargs), 2),
+        bound_ms_sharded_path=1e3 * max(t_bytes, t_ops),
+        bound_by_sharded_path="bytes" if t_bytes > t_ops else "operations",
+        bound_ms_own_ghost_rows_sharded_path=1e3 * max(t_own, t_ops),
+        bound_by_own_ghost_rows_sharded_path="bytes" if t_own > t_ops else "operations",
+        bytes_own_ghost_rows_sharded_path=own_bytes,
+        candidates_sharded_path=w_cand, pairs_sharded_path=w_pair,
+        bytes_sharded_path=w_bytes, ops_sharded_path=w_ops)
+    window_entry.update(
+        launches_mdbc_path=run_shm["launches"], halo_rows_mdbc_path=sim_sh.cfg.halo,
+        **{f"{k}_mdbc_path": v for k, v in
+           window_numbers(simg, pe, cse, bs, sim_sh.cfg.halo).items()})
+    del simm, sim_sh, states_sh, state_sh, simg, pe, cse, pl, f, wargs
     torch.cuda.empty_cache()
 
     # 12-13 - the large-capacity path: the capacity rule picks the cell sweep
@@ -913,8 +1461,42 @@ def main():
         plain_ms_moving_square_path=time_cuda(
             lambda: cw.cell_sweep_plain(*argq, block_size=4096), 2))
 
+    # 16 - the sharded moving square: the cell sweep on the halo, all extras
+    single_end = end_summary(state)
+    del state, pf, csf, argq, outq
+    sim_sh, states_sh, state_sh, run_shq = run_sharded_phase(
+        simq, single_end, "run_sharded_square", mdbc_on=False, sweep="cell",
+        falling=False, rho_band=1.5 * SQUARE_SPEED / case_sq[3].c0)
+    haloq = sim_sh.cfg.halo
+    simg = unsharded(sim_sh)
+    pe, cse = state_sh.particles, state_sh.cell_start
+    parw_cell2 = compare_window(sim_sh, simg, pe, cse, "sharded_parity_cell_2d", cw)
+    if simg.cfg.spec.viscosity is not T.ViscosityModel.LAMINAR_SPS:
+        fail("sharded_parity_cell_2d: not the all-extras instance")
+    outq = cw.cell_sweep(simg.cfg.spec, simg.cfg.grid, pe, cse, pe.position, pe.density,
+                         pe.pressure, pe.velocity)
+    moving_square_checks(simq, case_sq, state_sh, outq, "run_sharded_square",
+                         WARM_STEPS + STEPS)
+    cell_window_entry = {
+        "name": "cell_sweep_sharded", "route": "cuda",
+        "source": "sphexample_tpu_torch/csrc/cell_sweep.cu",
+        "replaces": "sphexample_tpu/ops/pallas_sweep.py:1013 (pallas_pair_sweep_sharded)",
+        "launches": run_shq["launches"],
+        "launches_per_step_per_slab": run_shq["launches_per_step_per_slab"],
+        "slabs": N_SLABS, "halo_rows": haloq,
+        "max_abs_err": parw_cell2[f"halo_{haloq}_window_vs_plain_max_abs"],
+        "slabs_vs_single_max_abs": parw_cell2[f"halo_{haloq}_slabs_vs_single_max_abs"],
+        "max_rel_err": max(parw_cell2[f"halo_{haloq}_window_vs_plain_max_rel"],
+                           parw_cell3[f"halo_{halo3}_window_vs_plain_max_rel"],
+                           parw_cell3["halo_0_window_vs_plain_max_rel"]),
+        "slabs_vs_single_bitwise": parw_cell2[f"halo_{haloq}_slabs_vs_single_bitwise"],
+        **window_numbers(simg, pe, cse, cw, haloq, op_costs=OPS_2D_ALL_EXTRAS),
+        "grid_cells": simg.cfg.grid.ncells,
+    }
+
     # 15 - the kernel line
-    emit({"kernels": [sweep_entry, mdbc_entry, cell_entry]})
+    emit({"kernels": [sweep_entry, window_entry, cell_entry, cell_window_entry,
+                      mdbc_entry]})
     print(smi)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

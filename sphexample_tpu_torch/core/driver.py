@@ -1,14 +1,20 @@
 """Host driver: build the simulation, run output intervals (port of
-``sphexample_tpu/core/driver.py``, single-device part).
+``sphexample_tpu/core/driver.py``).
 
 Entry points run on the card: ``device=None`` resolves to ``"cuda"`` and
 raises when no GPU is present.  Only an explicit ``device="cpu"`` runs on
 the CPU (the plain versions of the kernels).  ``assemble_simulation`` builds
 the motion table from ``geometries`` and chooses the sweep kernel
-(:func:`choose_sweep_kernel`).  Still missing: re-grid and replay of an
-interval on grid escapes, output and the asynchronous saver, checkpoints;
-the port's kernels have no capacity windows, so grid escapes are the only
-overflow left to guard.
+(:func:`choose_sweep_kernel`).  A simulation sharded by
+``parallel.mesh.shard_simulation`` carries the tuple of its slab states;
+``run_simulation`` steps it through the same loop, reads the replicated
+scalars from rank 0's state and raises when a stencil window or a row
+migration reached past the halo (``max_halo > cfg.halo``);
+:func:`gather_state` gives the one global state.  Still missing: re-grid and
+replay of an interval on grid escapes (and, sharded, re-sharding with a
+larger halo), output and the asynchronous saver, checkpoints; the port's
+kernels have no capacity windows, so grid escapes and the halo are the only
+overflows left to guard.
 """
 
 from __future__ import annotations
@@ -34,7 +40,7 @@ from ..models import equations as eq
 from ..ops import cell_list as cl
 from ..ops.block_sweep import BLOCK_CAP_LIMIT
 from ..ops.interactions import PhysicsSpec
-from ..state import SimulationState, allocate_particles
+from ..state import SimulationState, allocate_particles, gather_state  # noqa: F401
 from .motion import build_motion_table
 from .step import StepConfig, make_interval_fn
 
@@ -62,13 +68,15 @@ def choose_sweep_kernel(block_sweep: bool, capacity: int) -> str:
 
 @dataclass
 class Simulation:
-    """A ready-to-run simulation: static config + device state."""
+    """A ready-to-run simulation: static config + device state (sharded:
+    the tuple of slab states, and the mesh they live on)."""
 
     cfg: StepConfig
     state: SimulationState
     meta: SimulationMetaData
     n_live: int
     interval_fn: Callable = None
+    mesh: object = None
 
     def __post_init__(self):
         if self.interval_fn is None:
@@ -152,6 +160,7 @@ def assemble_simulation(
         occupied_cells=scalar(torch.int32),
         position_half=torch.zeros_like(particles.position),
         grid_escapes=scalar(torch.int32),
+        max_halo=scalar(torch.int32),
     )
     return Simulation(cfg=cfg, state=state, meta=meta, n_live=n)
 
@@ -192,17 +201,22 @@ def run_simulation(
     """Outer host loop over output intervals (reference SPHCellList.jl:881-929).
 
     Raises when particles escaped the static grid during an interval (they
-    were clamped into edge cells: wrong physics); re-gridding and replaying
-    the interval is a later slice of the port."""
+    were clamped into edge cells: wrong physics), or, in a sharded run, when
+    a stencil window or a row migration reached past the halo (the clamped
+    window dropped pairs); re-gridding or re-sharding and replaying the
+    interval is a later slice of the port."""
     meta = sim.meta
     state = sim.state
+    sharded = isinstance(state, tuple)
     counter = 1
     intervals = 0
     t_wall0 = time.perf_counter()
     while True:
         t_out = meta.output_time_for(counter)
-        prev_iter = int(state.iteration)
-        state = sim.interval_fn(state, t_out)
+        prev_iter = int(_replicated(state).iteration)
+        states = sim.interval_fn(state, t_out)
+        state = _replicated(states)
+        check_halo(sim.cfg, state)
         esc = int(state.grid_escapes)
         if esc > 0:
             raise RuntimeError(
@@ -226,5 +240,24 @@ def run_simulation(
             break
         if max_intervals is not None and intervals >= max_intervals:
             break
-    sim.state = state
+        state = states
+    sim.state = states
     return sim
+
+
+def _replicated(state) -> SimulationState:
+    """The state whose scalars speak for the run: rank 0's slab state of a
+    sharded run (the scalars are replicated), else the state itself."""
+    return state[0] if isinstance(state, tuple) else state
+
+
+def check_halo(cfg: StepConfig, state) -> None:
+    """The halo guard of a sharded run: a window that the clamp cut dropped
+    pairs without a sign, so an interval whose ``max_halo`` passed the halo
+    is not to be believed."""
+    state = _replicated(state)
+    if cfg.halo and int(state.max_halo) > cfg.halo:
+        raise RuntimeError(
+            f"stencil windows reached {int(state.max_halo)} sorted rows past "
+            f"a slab boundary, exceeding the halo capacity {cfg.halo}; "
+            f"re-shard with a larger halo")

@@ -1,5 +1,6 @@
 """The 12-stage symplectic predictor-corrector step (port of
-``sphexample_tpu/core/step.py``, single-device part).
+``sphexample_tpu/core/step.py``), on one device or on one slab of a sharded
+run.
 
 Stage numbering mirrors the reference's timer taxonomy (SURVEY.md 3.2):
 
@@ -19,9 +20,16 @@ Stage numbering mirrors the reference's timer taxonomy (SURVEY.md 3.2):
   12  time/iteration bookkeeping          (:800)
 
 Prescribed motion (``core/motion.py``) is applied once per half step, before
-stage 03 and after stage 07; PLANAR shifting is part of stage 11.  Still
-missing: the sharded step (communication context, halo exchange, distributed
-rebuild), which comes with the multi-GPU slice.
+stage 03 and after stage 07; PLANAR shifting is part of stage 11.
+
+The sharded step (``cfg.ctx`` sharded, ``parallel/``): every rank runs this
+same function on its slab of the global cell-sorted order.  The reductions of
+stages 00 and 01 go over all slabs, the rebuild is distributed
+(``cell_list.rebuild_sharded``: local sort + 1-hop row migration; with
+``cfg.halo == 0`` the replicated argsort of ``cell_list.rebuild``), the two
+sweeps and the mDBC moments read a halo-extended window (``ops/halo.py``),
+and the rebuild records in ``max_halo`` how far any window or migration
+reached past a slab: the driver raises when that passes ``cfg.halo``.
 
 The two sweeps go through ``cfg.sweep_kernel``: ``"block"``
 (``ops/block_sweep.py``, one thread per self; ZERO / ARTIFICIAL viscosity and
@@ -32,7 +40,9 @@ model set that the chosen kernel does not compute - it raises.
 The lazy rebuild is a host ``if`` on the displacement accumulator: one
 device-to-host sync per step (the JAX package decides it on the device with
 ``lax.cond``).  The rule itself is unchanged - rebuilding every step would
-change the sort order, the stale-cell stencil and so the physics.
+change the sort order, the stale-cell stencil and so the physics.  In a
+sharded run every rank takes the same branch: the accumulator is built from
+the ``pmax`` of stage 00 alone, so all ranks hold the same value.
 """
 
 from __future__ import annotations
@@ -45,11 +55,12 @@ import torch
 from ..config import MDBCMode, ShiftingMode, SimulationMetaData
 from ..models import equations as eq
 from ..ops import cell_list as cl
-from ..ops.block_sweep import block_sweep
-from ..ops.cell_sweep import cell_sweep
+from ..ops.block_sweep import block_sweep, block_sweep_sharded
+from ..ops.cell_sweep import cell_sweep, cell_sweep_sharded
 from ..ops.interactions import PhysicsSpec
-from ..ops.mdbc import mdbc_density_correction
+from ..ops.mdbc import mdbc_density_correction, mdbc_density_correction_sharded
 from ..ops.timestep import adaptive_dt
+from ..parallel.context import SINGLE, CommContext
 from ..state import SimulationState
 from .motion import MotionTable, progress_motion
 
@@ -65,19 +76,54 @@ class StepConfig:
     motion: MotionTable
     boundary_capacity: int  # number of mDBC ghost-carrying particles (static)
     sweep_kernel: str       # "block" or "cell" (core/driver.py chooses)
+    ctx: CommContext = SINGLE  # sharded communication context (one rank's)
+    # sharded: rows exchanged with each slab neighbour per sweep; 0 = the
+    # window is the whole gathered array (parallel/mesh.py sizes it)
+    halo: int = 0
 
 
 _SWEEPS = {"block": block_sweep, "cell": cell_sweep}
+_SWEEPS_SHARDED = {"block": block_sweep_sharded, "cell": cell_sweep_sharded}
 
 
 def _sweep(cfg: StepConfig, p, cell_start, position, density, pressure, velocity):
     """One neighbor sweep through the chosen wrapper: its CUDA kernel on the
-    card, its plain version for CPU tensors."""
-    sweep = _SWEEPS.get(cfg.sweep_kernel)
+    card, its plain version for CPU tensors.  Sharded: the same kernel on
+    the slab's halo-extended window."""
+    sweeps = _SWEEPS_SHARDED if cfg.ctx.is_sharded else _SWEEPS
+    sweep = sweeps.get(cfg.sweep_kernel)
     if sweep is None:
         raise ValueError(f"unknown sweep kernel {cfg.sweep_kernel!r}")
+    if cfg.ctx.is_sharded:
+        return sweep(cfg.spec, cfg.grid, cfg.halo, p, cell_start, position,
+                     density, pressure, velocity, cfg.ctx, cfg.block_size)
     return sweep(cfg.spec, cfg.grid, p, cell_start, position, density,
                  pressure, velocity, cfg.block_size)
+
+
+def _halo_need(cfg: StepConfig, p, cell_start, base: int, migration):
+    """Halo telemetry of a rebuild: the furthest sorted-row reach of any live
+    local stencil window past the slab's boundaries (empty segments have
+    start == end == 0 and do not count), of the ghost windows under mDBC (a
+    ghost sits up to about a cell from its particle), and the rebuild's
+    migration count; the maximum over all slabs."""
+    cap = p.capacity
+    zero = torch.zeros((), dtype=torch.int32, device=p.device)
+
+    def reach(coords, live):
+        starts, ends = cl.row_segments(coords, cfg.grid, cell_start)
+        live_seg = live[:, None] & (ends > starts)
+        left = torch.max(torch.where(live_seg, base - starts, zero))
+        right = torch.max(torch.where(live_seg, ends - (base + cap), zero))
+        return torch.maximum(left, right)
+
+    need = torch.maximum(reach(p.cell, p.active), zero)
+    if cfg.meta.mdbc is MDBCMode.SIMPLE:
+        has_g = torch.any(p.ghost_points != 0, dim=-1) & p.active
+        g_coords = cl.clamp_coords(
+            cl.cell_coords(p.ghost_points, cfg.spec.kernel.H_inv), cfg.grid)
+        need = torch.maximum(need, reach(g_coords, has_g))
+    return cfg.ctx.pmax(torch.maximum(need, migration)).to(torch.int32)
 
 
 def _gravity_acc(cfg: StepConfig, particles, acc):
@@ -94,32 +140,42 @@ def sph_step(cfg: StepConfig, state: SimulationState, dx_acc):
     spec = cfg.spec
     c = spec.constants
     kern = spec.kernel
+    ctx = cfg.ctx
     p = state.particles
 
     # 00 - displacement accumulator: dx += 4 * max |pos_half - pos|
     disp2 = torch.sum((state.position_half - p.position) ** 2, dim=-1)
-    dx_acc = dx_acc + 4.0 * torch.sqrt(torch.max(disp2))
+    dx_acc = dx_acc + 4.0 * torch.sqrt(ctx.pmax(torch.max(disp2)))
 
     # 01 - adaptive dt
-    dt = adaptive_dt(p.position, p.velocity, p.acceleration, c, kern)
+    dt = adaptive_dt(p.position, p.velocity, p.acceleration, c, kern, ctx)
     dt2 = dt * 0.5
 
     # 02 - lazy rebuild when dx >= h (host decision: one sync per step)
     cell_start = state.cell_start
     occ, seg, ncc = state.max_occupancy, state.max_segment, state.occupied_cells
     escapes = state.grid_escapes
+    halo_need = state.max_halo
     rebuilds = state.rebuilds
     if float(dx_acc) >= kern.h:
         # grid-escape telemetry: active particles whose UNCLAMPED cell coords
         # fall outside the static grid would be clamped into edge cells
         raw = cl.cell_coords(p.position, kern.H_inv)
-        esc = torch.sum(
+        esc = ctx.psum(torch.sum(
             torch.any(raw != cl.clamp_coords(raw, cfg.grid), dim=-1) & p.active
-        ).to(torch.int32)
-        p, cell_start, occ_new = cl.rebuild(p, kern.H_inv, cfg.grid)
+        ).to(torch.int32))
+        if ctx.is_sharded and cfg.halo > 0:
+            p, cell_start, occ_new, migration = cl.rebuild_sharded(
+                p, kern.H_inv, cfg.grid, ctx, cfg.halo)
+        else:
+            p, cell_start, occ_new = cl.rebuild(p, kern.H_inv, cfg.grid, ctx)
         cap = p.capacity
-        p = p.replace(chunk_id=torch.arange(cap, dtype=torch.int32,
-                                            device=p.device) // cfg.block_size)
+        base = ctx.rank() * cap
+        p = p.replace(chunk_id=(base + torch.arange(cap, dtype=torch.int32,
+                                                    device=p.device)) // cfg.block_size)
+        if ctx.is_sharded and cfg.halo > 0:
+            halo_need = torch.maximum(
+                _halo_need(cfg, p, cell_start, base, migration), halo_need)
         counts = cell_start[1 : cfg.grid.ncells + 1] - cell_start[: cfg.grid.ncells]
         occ = torch.maximum(occ_new, occ)
         seg = torch.maximum(cl.max_row_segment(cell_start, cfg.grid), seg)
@@ -139,7 +195,10 @@ def sph_step(cfg: StepConfig, state: SimulationState, dx_acc):
 
     # 04 - mDBC: the CUDA moment kernel on the card, its plain version for
     # CPU tensors (``ops.mdbc_moments.mdbc_moments``); no host sync
-    if cfg.meta.mdbc is MDBCMode.SIMPLE:
+    if cfg.meta.mdbc is MDBCMode.SIMPLE and ctx.is_sharded:
+        p = p.replace(density=mdbc_density_correction_sharded(
+            spec, cfg.grid, p, cell_start, cfg.boundary_capacity, ctx, cfg.halo))
+    elif cfg.meta.mdbc is MDBCMode.SIMPLE:
         p = p.replace(density=mdbc_density_correction(
             spec, cfg.grid, p, cell_start, cfg.boundary_capacity))
 
@@ -211,6 +270,7 @@ def sph_step(cfg: StepConfig, state: SimulationState, dx_acc):
         occupied_cells=ncc,
         position_half=pos_half,
         grid_escapes=escapes,
+        max_halo=halo_need,
         rebuilds=rebuilds,
     )
     return new_state, dx_acc

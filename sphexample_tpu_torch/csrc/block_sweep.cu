@@ -32,6 +32,21 @@
 // division.  Summation order differs from the plain version, so results
 // agree to f32 rounding, not bit for bit.
 //
+// The self window (the sharded path; replaces
+// sphexample_tpu/ops/pallas_block_sweep.py::pallas_block_sweep_sharded, the
+// same TPU kernel on a halo-extended pack): the pack may hold more rows than
+// there are selves.  Selves are the pack rows [self_off, self_off + n) - a
+// slab of the global sorted order between its left and right halo rows, or
+// inside the whole gathered array; ``cell`` and ``active`` hold the n self
+// rows only, the output is [n, 1+D], and cell_start arrives rebased to the
+// pack's rows and clamped to them.  A rigid shift keeps the order of two
+// sorted indices, so the role rule compares pack rows and no global index
+// rides the exchange (the TPU kernel packs it as f32, whence its 2^24-row
+// bound); the per-self candidate order is that of the single-device launch,
+// so a slab's rows come out bit for bit as that launch gives them.  A stencil
+// that reaches past the halo is cut by the clamp without a sign: the step's
+// max_halo telemetry guards that.  Single device: self_off = 0.
+//
 // Specialised by template on dims (2, 3), kernel family (Wendland C2, cubic
 // spline), viscosity (ZERO, ARTIFICIAL) and density diffusion (ZERO,
 // LINEAR).  The wrapper raises NotImplementedError for any other model.
@@ -59,7 +74,8 @@
 extern "C" {
 
 struct SweepParams {
-    int n;            // rows (particle capacity)
+    int n;            // self rows
+    int self_off;     // pack row of self row 0 (0 on a single device)
     int cmin[3];
     int shape[3];
     int strides[3];
@@ -89,10 +105,11 @@ block_sweep_kernel(const SweepParams P,
                    const int* __restrict__ cell_start,
                    const unsigned char* __restrict__ active,
                    float* __restrict__ out) {
-    const int i = blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= P.n) return;
-    float* o = out + (size_t)i * (D + 1);
-    if (!active[i]) {
+    const int r = blockIdx.x * blockDim.x + threadIdx.x;   // self row
+    if (r >= P.n) return;
+    const int i = P.self_off + r;                          // its pack row
+    float* o = out + (size_t)r * (D + 1);
+    if (!active[r]) {
 #pragma unroll
         for (int k = 0; k <= D; ++k) o[k] = 0.0f;
         return;
@@ -103,7 +120,7 @@ block_sweep_kernel(const SweepParams P,
     int key = 0;
 #pragma unroll
     for (int d = 0; d < D; ++d) {
-        rel[d] = cell[(size_t)i * D + d] - P.cmin[d];
+        rel[d] = cell[(size_t)r * D + d] - P.cmin[d];
         const int rc = min(max(rel[d], 0), P.shape[d] - 1);
         key += rc * P.strides[d];
     }

@@ -33,6 +33,20 @@
 // parked past the last cell) are never written: the wrapper zero-fills the
 // output and masks with ``active``.
 //
+// The self window (the sharded path; replaces
+// sphexample_tpu/ops/pallas_sweep.py::pallas_pair_sweep_sharded, the same TPU
+// kernel on halo-extended arrays): the pack may hold more rows than there
+// are selves.  Selves are the pack rows [self_off, self_off + n) - a slab of
+// the global sorted order between its two halos, or inside the whole gathered
+// array - and cell_start arrives rebased to the pack's rows and clamped to
+// them.  A block takes the part of its cell's rows that lies in the self
+// range and returns when there is none (on P slabs about (P-1)/P of the
+// blocks of a launch); a cell that straddles a slab edge is swept by both
+// slabs, each writing its own rows.  The role rule and the own-cell test use
+// the cell's whole range [cs, ce).  Tiles start at the stencil row's first
+// candidate whatever the self range, so a slab's rows come out bit for bit
+// as the single-device launch gives them.  Single device: self_off = 0.
+//
 // Pair math: the plain form of ops/interactions.py and models/*.py (grad W
 // as a scalar factor times x_ij; pair geometry elementwise, never through
 // |xi|^2 - 2 xi.xj + |xj|^2; m0 explicit in every term), with 1/rho read
@@ -81,7 +95,8 @@ enum { VISC_ZERO = 0, VISC_ARTIFICIAL = 1, VISC_LAMINAR = 2, VISC_LAMINAR_SPS = 
 enum { DIFF_ZERO = 0, DIFF_ZERO_GRAVITY_LINEAR = 1, DIFF_LINEAR = 2, DIFF_COMPLEX = 3 };
 
 struct CellSweepParams {
-    int n;            // rows (particle capacity)
+    int n;            // self rows
+    int self_off;     // pack row of self row 0 (0 on a single device)
     int ncells;
     int shape[3];
     int strides[3];
@@ -156,7 +171,9 @@ cell_sweep_kernel(const CellSweepParams P,
     const int c = blockIdx.x;
     const int cs = cell_start[c];
     const int ce = cell_start[c + 1];
-    if (cs >= ce) return;                               // empty cell
+    const int lo = max(cs, P.self_off);                 // the cell's selves
+    const int hi = min(ce, P.self_off + P.n);
+    if (lo >= hi) return;                               // empty, or another slab's
 
     int rel[3];
     rel[0] = c % P.shape[0];
@@ -167,10 +184,10 @@ cell_sweep_kernel(const CellSweepParams P,
     const int x_hi = min(rel[0] + 1, P.shape[0] - 1);
     const bool cubic = P.family == CUBIC;
 
-    for (int base = cs; base < ce; base += blockDim.x) {
+    for (int base = lo; base < hi; base += blockDim.x) {
         const int i = base + threadIdx.x;
-        const bool has = i < ce;
-        const Row s = load_row<D>(pack, has ? i : cs);
+        const bool has = i < hi;
+        const Row s = load_row<D>(pack, has ? i : lo);
         float acc[K];
 #pragma unroll
         for (int k = 0; k < K; ++k) acc[k] = 0.0f;
@@ -309,7 +326,7 @@ cell_sweep_kernel(const CellSweepParams P,
             }
         }
         if (has) {
-            float* o = out + (size_t)i * K;
+            float* o = out + (size_t)(i - P.self_off) * K;
 #pragma unroll
             for (int k = 0; k < K; ++k) o[k] = acc[k];
         }

@@ -14,6 +14,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Dict, Iterable, Optional
@@ -25,6 +26,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _libs: Dict[str, ctypes.CDLL] = {}
+_load_lock = threading.Lock()   # slabs of a sharded run are threads
 # ptxas report (registers, spills) of each library built by this process
 build_logs: Dict[str, str] = {}
 
@@ -84,11 +86,22 @@ def load_library(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built first if needed."""
     lib = _libs.get(name)
     if lib is None:
-        build_all([name])
-        lib = ctypes.CDLL(str(_target(name)))
-        _declare(name, lib)
-        _libs[name] = lib
+        with _load_lock:
+            lib = _libs.get(name)
+            if lib is None:
+                build_all([name])
+                lib = ctypes.CDLL(str(_target(name)))
+                _declare(name, lib)
+                _libs[name] = lib
     return lib
+
+
+def load_all() -> None:
+    """Build (side by side) and load every library: what a sharded run does
+    before its ranks start, so that no rank builds at first use."""
+    build_all()
+    for name in sources():
+        load_library(name)
 
 
 def _declare(name: str, lib: ctypes.CDLL) -> None:

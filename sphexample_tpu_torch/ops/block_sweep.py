@@ -5,7 +5,15 @@ version (the counterpart of ``sphexample_tpu/ops/pallas_block_sweep.py``).
 tensors and the plain PyTorch sweep (``interactions.pair_sweep``, the same
 math on the same inputs) only for CPU tensors.  A CUDA tensor launches the
 kernel or raises: there is no fallback.  ``launches`` counts the kernel
-launches of this process.
+launches of this process through :func:`block_sweep`.
+
+:func:`block_sweep_window` is the same kernel on a self window of a longer
+candidate array, and :func:`block_sweep_sharded` the sweep of one slab of a
+sharded run (the counterpart of ``pallas_block_sweep_sharded``): it packs
+the slab's rows, extends the pack by the two halos (``ops/halo.py``: one
+1-hop exchange of ``halo`` packed rows each way, or the all-gather when
+``halo`` is 0) and launches the kernel on the window.  Their launches are
+counted in ``window_launches``.
 
 Outputs are in cell-sorted order, masked by ``active`` and cast to the state
 dtype (the counterpart of the JAX package's ``_collect``).
@@ -14,6 +22,7 @@ dtype (the counterpart of the JAX package's ``_collect``).
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -23,10 +32,15 @@ from ..models.density_diffusion import linear_hydrostatic_constant
 from ..models.kernels import W
 from ..state import Particles
 from .cell_list import Grid
+from .halo import extend, rebase
 from .interactions import PhysicsSpec, SweepOut, pair_sweep
 
-# kernel launches in this process (chip_smoke.py resets and reads it)
+# kernel launches in this process (chip_smoke.py resets and reads them): the
+# single-device entry, and the windowed entries of the sharded path.  Slabs
+# run as threads, so the counts are kept under a lock.
 launches = 0
+window_launches = 0
+_count_lock = threading.Lock()
 # The largest particle capacity ``assemble_simulation`` gives to this sweep; above it a
 # deck takes the cell sweep (ops/cell_sweep.py), as it does in the JAX
 # package, whose block kernel encodes row offsets in 21 bits.  The CUDA
@@ -39,6 +53,7 @@ class SweepParams(ctypes.Structure):
 
     _fields_ = [
         ("n", ctypes.c_int),
+        ("self_off", ctypes.c_int),
         ("cmin", ctypes.c_int * 3),
         ("shape", ctypes.c_int * 3),
         ("strides", ctypes.c_int * 3),
@@ -83,12 +98,12 @@ def kernel_variant(spec: PhysicsSpec, dims: int) -> int:
             | (spec.diffusion is DensityDiffusionModel.LINEAR))
 
 
-def sweep_params(spec: PhysicsSpec, grid: Grid, n: int) -> SweepParams:
+def sweep_params(spec: PhysicsSpec, grid: Grid, n: int, self_off: int = 0) -> SweepParams:
     kern, c = spec.kernel, spec.constants
     pad = lambda v: (ctypes.c_int * 3)(*(list(v) + [0] * (3 - len(v))))  # noqa: E731
     w_dx = float(W(kern, torch.tensor(c.dx, dtype=torch.float64)))
     return SweepParams(
-        n=n, cmin=pad(grid.cmin), shape=pad(grid.shape),
+        n=n, self_off=self_off, cmin=pad(grid.cmin), shape=pad(grid.shape),
         strides=pad(grid.strides),
         H2=kern.H2, h=kern.h, h_inv=kern.h_inv, eta2=kern.eta2,
         alpha_d=kern.alpha_d,
@@ -136,16 +151,26 @@ def collect(out, active, dtype, dims, spec: PhysicsSpec = None) -> SweepOut:
 
 
 def check_inputs(grid: Grid, particles: Particles, cell_start, position, density,
-                 pressure, velocity, reads_cell: bool) -> None:
+                 pressure, velocity, reads_cell: bool, motion_limiter=None,
+                 self_off: int = 0, window: bool = False) -> None:
     """Raise on what a sweep kernel does not take: a field on another device,
-    of another shape or of another type than the kernel reads."""
-    n, dims = position.shape
+    of another shape or of another type than the kernel reads.  The fields
+    have ``Ne`` rows, ``particles`` the ``N`` self rows ``[self_off,
+    self_off + N)`` of them; without ``window`` the two are the same rows."""
+    ne, dims = position.shape
+    n = particles.capacity
     if dims != grid.dims:
         raise ValueError(f"positions are {dims}D, the grid {grid.dims}D")
+    if not window and (n != ne or self_off != 0):
+        raise ValueError(f"particles have shape ({n},), the fields ({ne},)")
+    if self_off < 0 or self_off + n > ne:
+        raise ValueError(f"self rows [{self_off}, {self_off + n}) outside the "
+                         f"fields' {ne} rows")
     dev = position.device
-    fields = [("velocity", velocity, (n, dims)), ("density", density, (n,)),
-              ("pressure", pressure, (n,)), ("active", particles.active, (n,)),
-              ("motion_limiter", particles.motion_limiter, (n,)),
+    ml = particles.motion_limiter if motion_limiter is None else motion_limiter
+    fields = [("velocity", velocity, (ne, dims)), ("density", density, (ne,)),
+              ("pressure", pressure, (ne,)), ("active", particles.active, (n,)),
+              ("motion_limiter", ml, (ne,)),
               ("cell_start", cell_start, (grid.ncells + 2,))]
     if reads_cell:
         fields.append(("cell", particles.cell, (n, dims)))
@@ -165,12 +190,39 @@ def check_inputs(grid: Grid, particles: Particles, cell_start, position, density
 
 def block_sweep_plain(spec: PhysicsSpec, grid: Grid, particles: Particles,
                       cell_start, position, density, pressure, velocity,
-                      block_size: int = 1024) -> SweepOut:
+                      block_size: int = 1024, motion_limiter=None,
+                      self_off: int = 0) -> SweepOut:
     """The plain version: ``pair_sweep`` on the same inputs (its inactive
     rows are zero and it computes in the state dtype, like the kernel's
-    collected output)."""
+    collected output); with ``motion_limiter`` / ``self_off`` on a window."""
     return pair_sweep(spec, grid, block_size, particles, cell_start,
-                      position, density, pressure, velocity)
+                      position, density, pressure, velocity,
+                      motion_limiter=motion_limiter, self_off=self_off)
+
+
+def sweep_fields(variant_of, launch, reads_cell: bool, window: bool,
+                 spec: PhysicsSpec, grid: Grid, particles: Particles, cell_start,
+                 position, density, pressure, velocity, motion_limiter,
+                 self_off: int, block_size: int) -> SweepOut:
+    """The entry of either sweep kernel (``variant_of`` / ``launch``: its
+    instance check and its pack launcher) on unpacked fields: the selves are
+    the rows ``[self_off, self_off + N)`` of the fields, N the rows of
+    ``particles``.  CPU tensors: the plain version.  CUDA tensors: pack and
+    launch the kernel, or raise."""
+    if position.device.type == "cpu":
+        return pair_sweep(spec, grid, block_size, particles, cell_start, position,
+                          density, pressure, velocity, motion_limiter=motion_limiter,
+                          self_off=self_off)
+    if position.device.type != "cuda":
+        raise ValueError(f"unsupported device {position.device}")
+    variant_of(spec, position.shape[1])
+    check_inputs(grid, particles, cell_start, position, density, pressure,
+                 velocity, reads_cell=reads_cell, motion_limiter=motion_limiter,
+                 self_off=self_off, window=window)
+    ml = particles.motion_limiter if motion_limiter is None else motion_limiter
+    pack = pack_fields(position, velocity, density, pressure, ml)
+    return launch(spec, grid, particles, cell_start, pack, self_off,
+                  position.dtype, window=window)
 
 
 def block_sweep(spec: PhysicsSpec, grid: Grid, particles: Particles,
@@ -178,34 +230,87 @@ def block_sweep(spec: PhysicsSpec, grid: Grid, particles: Particles,
                 block_size: int = 1024) -> SweepOut:
     """One full neighbor sweep.  CPU tensors: the plain version.  CUDA
     tensors: the kernel, or an exception."""
+    return sweep_fields(kernel_variant, launch_pack, True, False, spec, grid,
+                        particles, cell_start, position, density, pressure,
+                        velocity, None, 0, block_size)
+
+
+def block_sweep_window(spec: PhysicsSpec, grid: Grid, particles: Particles,
+                       cell_start, position, density, pressure, velocity,
+                       motion_limiter, self_off: int,
+                       block_size: int = 1024) -> SweepOut:
+    """The sweep of the self rows ``[self_off, self_off + N)`` of extended
+    fields (``Ne`` rows; ``particles`` holds the N self rows, ``cell_start``
+    is rebased to the fields' rows).  CPU tensors: the plain version.  CUDA
+    tensors: the kernel on the window, or an exception."""
+    return sweep_fields(kernel_variant, launch_pack, True, True, spec, grid,
+                        particles, cell_start, position, density, pressure,
+                        velocity, motion_limiter, self_off, block_size)
+
+
+def sweep_sharded(variant_of, launch, reads_cell: bool, spec: PhysicsSpec,
+                  grid: Grid, halo: int, particles: Particles, cell_start,
+                  position, density, pressure, velocity, ctx,
+                  block_size: int = 1024) -> SweepOut:
+    """One slab's sweep in a sharded run, for either sweep kernel
+    (``variant_of`` / ``launch``: its instance check and its pack launcher).
+    ``particles`` and the fields are the slab's C rows, ``cell_start`` indexes
+    global sorted rows.  The window comes from ``ops/halo.py``.  CUDA
+    tensors: the f32 pack of the slab's rows is what travels (``halo`` packed
+    rows each way), and the kernel runs on the extended pack.  CPU tensors:
+    the fields travel in the state dtype and the plain version runs."""
+    C, dims = position.shape
+    ml = particles.motion_limiter
     if position.device.type == "cpu":
-        return block_sweep_plain(spec, grid, particles, cell_start, position,
-                                 density, pressure, velocity, block_size)
+        cols = torch.cat([position, velocity, density[:, None], pressure[:, None],
+                          ml[:, None]], dim=1)
+        ext, self_off, ext_off = extend(ctx, cols, halo)
+        cs_ext = rebase(cell_start, ext_off, ext.shape[0])
+        return pair_sweep(spec, grid, block_size, particles, cs_ext,
+                          ext[:, :dims], ext[:, 2 * dims], ext[:, 2 * dims + 1],
+                          ext[:, dims:2 * dims], motion_limiter=ext[:, 2 * dims + 2],
+                          self_off=self_off)
     if position.device.type != "cuda":
         raise ValueError(f"unsupported device {position.device}")
-    return _launch(spec, grid, particles, cell_start, position, density,
-                   pressure, velocity)
-
-
-def _launch(spec, grid, particles, cell_start, position, density, pressure,
-            velocity) -> SweepOut:
-    global launches
-    n, dims = position.shape
-    variant = kernel_variant(spec, dims)
+    variant_of(spec, dims)
     check_inputs(grid, particles, cell_start, position, density, pressure,
-                 velocity, reads_cell=True)
-    dev = position.device
+                 velocity, reads_cell=reads_cell)
+    pack = pack_fields(position, velocity, density, pressure, ml)
+    pack_ext, self_off, ext_off = extend(ctx, pack, halo)
+    cs_ext = rebase(cell_start, ext_off, pack_ext.shape[0])
+    return launch(spec, grid, particles, cs_ext, pack_ext, self_off,
+                  position.dtype, window=True)
+
+
+def block_sweep_sharded(spec: PhysicsSpec, grid: Grid, halo: int,
+                        particles: Particles, cell_start, position, density,
+                        pressure, velocity, ctx, block_size: int = 1024) -> SweepOut:
+    """One slab's sweep through the block kernel (:func:`sweep_sharded`)."""
+    return sweep_sharded(kernel_variant, launch_pack, True, spec, grid, halo,
+                         particles, cell_start, position, density, pressure,
+                         velocity, ctx, block_size)
+
+
+def launch_pack(spec, grid, particles, cell_start, pack, self_off: int, dtype,
+                window: bool) -> SweepOut:
+    """Launch the kernel on a ready pack: selves are its rows ``[self_off,
+    self_off + N)``, N the rows of ``particles`` (cell, active)."""
+    global launches, window_launches
+    n, dims = particles.capacity, grid.dims
+    variant = kernel_variant(spec, dims)
+    if self_off < 0 or self_off + n > pack.shape[0]:
+        raise ValueError(f"self rows [{self_off}, {self_off + n}) outside the "
+                         f"pack's {pack.shape[0]} rows")
+    dev = pack.device
 
     from ._build import load_library
 
     lib = load_library("block_sweep")
-    pack = pack_fields(position, velocity, density, pressure,
-                       particles.motion_limiter)
     cell = particles.cell.contiguous()
     cs = cell_start.contiguous()
     act = particles.active.contiguous()
     out = torch.empty((n, dims + 1), dtype=torch.float32, device=dev)
-    params = sweep_params(spec, grid, n)
+    params = sweep_params(spec, grid, n, self_off)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.sph_block_sweep(
@@ -214,5 +319,9 @@ def _launch(spec, grid, particles, cell_start, position, density, pressure,
     if err != 0:
         raise RuntimeError(
             f"block_sweep launch failed: {lib.sph_error_string(err).decode()}")
-    launches += 1
-    return collect(out, particles.active, position.dtype, dims)
+    with _count_lock:
+        if window:
+            window_launches += 1
+        else:
+            launches += 1
+    return collect(out, particles.active, dtype, dims)

@@ -10,7 +10,10 @@ with:
     box and linearized with the x-axis fastest, so the three x-adjacent cells
     of any stencil row occupy one contiguous key range,
   * a stable ``argsort`` over linear keys + a gather-permute of all fields,
-  * segment starts from a ``bincount`` histogram + ``cumsum``.
+  * segment starts from a ``bincount`` histogram + ``cumsum``,
+  * for P slabs of the global sorted order: :func:`rebuild` over gathered
+    keys (replicated argsort), or :func:`rebuild_sharded` - a local sort and
+    a 1-hop row migration.
 
 Between lazy rebuilds the stored cell coords are stale by design (the
 reference's displacement-accumulator rule, SPHCellList.jl:706-724).  Inactive
@@ -26,6 +29,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from ..parallel.context import SINGLE
 from ..state import Particles
 
 
@@ -98,6 +102,15 @@ def grid_from_positions(
                 shape=tuple(int(v) for v in (cmax - cmin + 1)))
 
 
+def host_cell_keys(positions: np.ndarray, inv_cutoff: float, grid: Grid) -> np.ndarray:
+    """Host-side (numpy) clamped linear cell keys: the mirror of
+    ``linearize(clamp_coords(cell_coords(...)))`` for the host sizers."""
+    c = (np.sign(positions) * np.trunc(np.abs(positions) * inv_cutoff + 0.5)).astype(np.int64)
+    lo = np.asarray(grid.cmin)
+    c = np.clip(c, lo, lo + np.asarray(grid.shape) - 1)
+    return ((c - lo) * np.asarray(grid.strides)).sum(axis=1)
+
+
 def segment_starts(keys, ncells: int):
     """``cell_start[k] = number of keys < k`` as ``[ncells + 2]`` int32, from
     a histogram + cumsum (integer-exact, independent of input order)."""
@@ -124,7 +137,7 @@ def sort_keys(particles: Particles, inv_cutoff, grid: Grid):
     return keys, coords
 
 
-def rebuild(particles: Particles, inv_cutoff, grid: Grid):
+def rebuild(particles: Particles, inv_cutoff, grid: Grid, ctx=None):
     """Assign cells, stable-sort all particle fields by linear key, build
     segment starts.  Returns (sorted particles, cell_start, max_occupancy).
 
@@ -133,14 +146,105 @@ def rebuild(particles: Particles, inv_cutoff, grid: Grid):
     is key ``ncells``.  Ties keep their order (stable sort), so rows of one
     cell stay in their previous relative order - the sorted index, and with
     it the density-diffusion role, depends on it.
+
+    Under a sharded ``ctx`` the keys are gathered, every rank computes the
+    identical *global* permutation (replicated argsort) and takes its
+    contiguous slab of the globally sorted order from the gathered fields;
+    ``cell_start`` indexes global sorted positions.
     """
+    ctx = ctx or SINGLE
     keys, coords = sort_keys(particles, inv_cutoff, grid)
-    perm = torch.argsort(keys, stable=True)
-    sorted_keys = keys.index_select(0, perm)
-    sorted_parts = particles.permute(perm).replace(cell=coords.index_select(0, perm))
+    keys_g = ctx.gather(keys)
+    perm = torch.argsort(keys_g, stable=True)
+    sorted_keys = keys_g.index_select(0, perm)
+    if ctx.is_sharded:
+        cap = particles.capacity
+        slab = perm[ctx.rank() * cap:(ctx.rank() + 1) * cap]
+        sorted_parts = particles.map(lambda a: ctx.gather(a).index_select(0, slab))
+        sorted_parts = sorted_parts.replace(cell=ctx.gather(coords).index_select(0, slab))
+    else:
+        sorted_parts = particles.permute(perm).replace(cell=coords.index_select(0, perm))
     cell_start = segment_starts(sorted_keys, grid.ncells)
     occ = cell_start[1 : grid.ncells + 1] - cell_start[: grid.ncells]
     return sorted_parts, cell_start, torch.max(occ).to(torch.int32)
+
+
+def rebuild_sharded(particles: Particles, inv_cutoff, grid: Grid, ctx, halo: int):
+    """Distributed rebuild of one slab: local stable sort + 1-hop row
+    migration, with no global gather of the fields and no replicated argsort
+    (port of ``sphexample_tpu/ops/cell_list.py:rebuild_sharded``).
+
+    Between lazy rebuilds a particle moves less than ``h``, so its key
+    changes to at most a neighboring cell and its global sorted position by
+    less than the sorted-row reach that bounds the sweep's halo.  The new
+    global position of every locally held row needs no gather of rows:
+
+        g = cell_start[key] + prefix[key] + local_rank
+
+    because the previous slabs are disjoint ordered ranges, so the stable
+    tie-break orders rows of equal key by rank first; ``prefix`` is the
+    exclusive over-ranks prefix of the per-key counts (one gather of the
+    count vector).  ``g`` increases along the local sorted order, so the rows
+    that migrate are a head slice (to rank - 1) and a tail slice (to
+    rank + 1): one exchange of ``halo``-row packs, ``g`` encoded ``+ 1`` so
+    that the zero fill at the end ranks decodes as invalid.
+
+    Returns (slab particles in global cell-sorted order, global
+    ``cell_start``, max occupancy, migration_need): the largest head or tail
+    slice any rank needed, which must stay <= ``halo``.
+    """
+    C = particles.capacity
+    ncells = grid.ncells
+    rank, ndev = ctx.rank(), ctx.num_devices
+    base = rank * C
+    dev = particles.device
+    i32 = torch.int32
+
+    keys, coords = sort_keys(particles, inv_cutoff, grid)
+    order = torch.argsort(keys, stable=True)
+    skeys = keys.index_select(0, order).long()
+
+    local_start = segment_starts(skeys, ncells)
+    counts_loc = local_start[1:] - local_start[:-1]                 # [ncells+1]
+    counts_all = ctx.gather(counts_loc[None])                       # [ndev, ncells+1]
+    prefix = torch.sum(counts_all[:rank], dim=0, dtype=i32)
+    counts_glob = torch.sum(counts_all, dim=0, dtype=i32)
+    cell_start = torch.cat([torch.zeros(1, dtype=i32, device=dev),
+                            torch.cumsum(counts_glob, 0).to(i32)])  # [ncells+2]
+
+    # global sorted position of every locally sorted row (increasing)
+    lrank = torch.arange(C, dtype=i32, device=dev) - local_start[skeys]
+    g = cell_start[skeys] + prefix[skeys] + lrank
+
+    sorted_parts = particles.permute(order).replace(cell=coords.index_select(0, order))
+
+    n_left = torch.sum(g < base).to(i32)
+    n_right = torch.sum(g >= base + C).to(i32)
+    migration_need = ctx.pmax(torch.maximum(n_left, n_right))
+
+    H = halo
+    idx = torch.arange(H, dtype=i32, device=dev)
+    zero = torch.zeros((), dtype=i32, device=dev)
+    head_g = torch.where(idx < n_left, g[:H] + 1, zero)
+    tail_g = torch.where(idx >= H - n_right, g[C - H:] + 1, zero)
+    fields = sorted_parts.tensors()
+    from_l, from_r = ctx.exchange(tuple(a[:H] for a in fields) + (head_g,),
+                                  tuple(a[C - H:] for a in fields) + (tail_g,))
+
+    big = torch.full((), 2 ** 30, dtype=i32, device=dev)
+    g_mine = torch.where((g >= base) & (g < base + C), g, big)
+    g_from_l = torch.where(from_l[-1] > 0, from_l[-1] - 1, big)
+    g_from_r = torch.where(from_r[-1] > 0, from_r[-1] - 1, big)
+    g_cat = torch.cat([g_mine, g_from_l, g_from_r])                 # [C + 2H]
+    # exactly C rows carry g in [base, base + C): the global positions
+    # partition; everything else sorts past them
+    take = torch.argsort(g_cat, stable=True)[:C]
+    merged = Particles.from_tensors(
+        torch.cat([a, bl, br], dim=0).index_select(0, take)
+        for a, bl, br in zip(fields, from_l[:-1], from_r[:-1]))
+
+    occ = cell_start[1 : ncells + 1] - cell_start[:ncells]
+    return merged, cell_start, torch.max(occ).to(i32), migration_need
 
 
 def stencil_rows(dims: int) -> np.ndarray:

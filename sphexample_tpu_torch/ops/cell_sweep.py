@@ -8,7 +8,11 @@ for CUDA tensors - one thread block per grid cell, the candidates of a cell
 staged in shared memory for all its selves - and the plain PyTorch sweep
 (``interactions.pair_sweep``, the same math on the same inputs) only for CPU
 tensors.  A CUDA tensor launches the kernel or raises: there is no fallback.
-``launches`` counts the kernel launches of this process.
+``launches`` counts the kernel launches of this process through
+:func:`cell_sweep`; :func:`cell_sweep_window` (a self window of a longer
+candidate array) and :func:`cell_sweep_sharded` (one slab of a sharded run,
+the counterpart of ``pallas_pair_sweep_sharded``) count in
+``window_launches``.
 
 ``assemble_simulation`` takes this sweep when ``meta.block_sweep`` is False or the particle
 capacity exceeds ``block_sweep.BLOCK_CAP_LIMIT`` (``core/driver.py``); it is
@@ -19,6 +23,7 @@ ZERO_GRAVITY_LINEAR, COMPLEX, PLANAR shifting and STORE on the card.
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -27,12 +32,16 @@ from ..config import (DensityDiffusionModel, KernelFamily, KernelOutputMode,
 from ..models.density_diffusion import linear_hydrostatic_constant
 from ..models.kernels import W
 from ..state import Particles
-from .block_sweep import check_inputs, collect, pack_fields
+from .block_sweep import collect, sweep_fields, sweep_sharded
 from .cell_list import Grid
 from .interactions import PhysicsSpec, SweepOut, pair_sweep
 
-# kernel launches in this process (chip_smoke.py resets and reads it)
+# kernel launches in this process (chip_smoke.py resets and reads them): the
+# single-device entry, and the windowed entries of the sharded path; under a
+# lock, since slabs run as threads
 launches = 0
+window_launches = 0
+_count_lock = threading.Lock()
 
 # the enum values of csrc/cell_sweep.cu and csrc/sph_kernel_functions.cuh
 _FAMILY = {KernelFamily.WENDLAND_C2: 0, KernelFamily.CUBIC_SPLINE: 1}
@@ -48,6 +57,7 @@ class CellSweepParams(ctypes.Structure):
 
     _fields_ = [
         ("n", ctypes.c_int),
+        ("self_off", ctypes.c_int),
         ("ncells", ctypes.c_int),
         ("shape", ctypes.c_int * 3),
         ("strides", ctypes.c_int * 3),
@@ -93,12 +103,12 @@ def kernel_variant(spec: PhysicsSpec, dims: int) -> int:
             | (spec.shifting is ShiftingMode.PLANAR))
 
 
-def sweep_params(spec: PhysicsSpec, grid: Grid, n: int) -> CellSweepParams:
+def sweep_params(spec: PhysicsSpec, grid: Grid, n: int, self_off: int = 0) -> CellSweepParams:
     kern, c = spec.kernel, spec.constants
     pad = lambda v: (ctypes.c_int * 3)(*(list(v) + [1] * (3 - len(v))))  # noqa: E731
     w_dx = float(W(kern, torch.tensor(c.dx, dtype=torch.float64)))
     return CellSweepParams(
-        n=n, ncells=grid.ncells, shape=pad(grid.shape), strides=pad(grid.strides),
+        n=n, self_off=self_off, ncells=grid.ncells, shape=pad(grid.shape), strides=pad(grid.strides),
         family=_FAMILY[kern.family], viscosity=_VISCOSITY[spec.viscosity],
         diffusion=_DIFFUSION[spec.diffusion],
         H2=kern.H2, h=kern.h, h_inv=kern.h_inv, eta2=kern.eta2,
@@ -118,12 +128,15 @@ def sweep_params(spec: PhysicsSpec, grid: Grid, n: int) -> CellSweepParams:
 
 def cell_sweep_plain(spec: PhysicsSpec, grid: Grid, particles: Particles,
                      cell_start, position, density, pressure, velocity,
-                     block_size: int = 1024) -> SweepOut:
+                     block_size: int = 1024, motion_limiter=None,
+                     self_off: int = 0) -> SweepOut:
     """The plain version: ``pair_sweep`` on the same inputs, every mode (its
     inactive rows are zero and it computes in the state dtype, like the
-    kernel's collected output)."""
+    kernel's collected output); with ``motion_limiter`` / ``self_off`` on a
+    window."""
     return pair_sweep(spec, grid, block_size, particles, cell_start,
-                      position, density, pressure, velocity)
+                      position, density, pressure, velocity,
+                      motion_limiter=motion_limiter, self_off=self_off)
 
 
 def cell_sweep(spec: PhysicsSpec, grid: Grid, particles: Particles,
@@ -131,34 +144,54 @@ def cell_sweep(spec: PhysicsSpec, grid: Grid, particles: Particles,
                block_size: int = 1024) -> SweepOut:
     """One full neighbor sweep.  CPU tensors: the plain version.  CUDA
     tensors: the kernel, or an exception."""
-    if position.device.type == "cpu":
-        return cell_sweep_plain(spec, grid, particles, cell_start, position,
-                                density, pressure, velocity, block_size)
-    if position.device.type != "cuda":
-        raise ValueError(f"unsupported device {position.device}")
-    return _launch(spec, grid, particles, cell_start, position, density,
-                   pressure, velocity)
+    return sweep_fields(kernel_variant, launch_pack, False, False, spec, grid,
+                        particles, cell_start, position, density, pressure,
+                        velocity, None, 0, block_size)
 
 
-def _launch(spec, grid, particles, cell_start, position, density, pressure,
-            velocity) -> SweepOut:
-    global launches
-    n, dims = position.shape
+def cell_sweep_window(spec: PhysicsSpec, grid: Grid, particles: Particles,
+                      cell_start, position, density, pressure, velocity,
+                      motion_limiter, self_off: int,
+                      block_size: int = 1024) -> SweepOut:
+    """The sweep of the self rows ``[self_off, self_off + N)`` of extended
+    fields (``Ne`` rows; ``particles`` holds the N self rows, ``cell_start``
+    is rebased to the fields' rows).  CPU tensors: the plain version.  CUDA
+    tensors: the kernel on the window, or an exception."""
+    return sweep_fields(kernel_variant, launch_pack, False, True, spec, grid,
+                        particles, cell_start, position, density, pressure,
+                        velocity, motion_limiter, self_off, block_size)
+
+
+def cell_sweep_sharded(spec: PhysicsSpec, grid: Grid, halo: int,
+                       particles: Particles, cell_start, position, density,
+                       pressure, velocity, ctx, block_size: int = 1024) -> SweepOut:
+    """One slab's sweep through the cell kernel
+    (``ops.block_sweep.sweep_sharded``)."""
+    return sweep_sharded(kernel_variant, launch_pack, False, spec, grid, halo,
+                         particles, cell_start, position, density, pressure,
+                         velocity, ctx, block_size)
+
+
+def launch_pack(spec, grid, particles, cell_start, pack, self_off: int, dtype,
+                window: bool) -> SweepOut:
+    """Launch the kernel on a ready pack: selves are its rows ``[self_off,
+    self_off + N)``, N the rows of ``particles`` (active)."""
+    global launches, window_launches
+    n, dims = particles.capacity, grid.dims
     variant = kernel_variant(spec, dims)
-    check_inputs(grid, particles, cell_start, position, density, pressure,
-                 velocity, reads_cell=False)
-    dev = position.device
+    if self_off < 0 or self_off + n > pack.shape[0]:
+        raise ValueError(f"self rows [{self_off}, {self_off + n}) outside the "
+                         f"pack's {pack.shape[0]} rows")
+    dev = pack.device
 
     from ._build import load_library
 
     lib = load_library("cell_sweep")
-    pack = pack_fields(position, velocity, density, pressure,
-                       particles.motion_limiter)
     cs = cell_start.contiguous()
     # zero-filled: a row outside every cell range (inactive padding, or any
     # row while cell_start is still unbuilt) gets no block and stays zero
     out = torch.zeros((n, n_sums(spec, dims)), dtype=torch.float32, device=dev)
-    params = sweep_params(spec, grid, n)
+    params = sweep_params(spec, grid, n, self_off)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.sph_cell_sweep(ctypes.addressof(params), variant, pack.data_ptr(),
@@ -166,5 +199,9 @@ def _launch(spec, grid, particles, cell_start, position, density, pressure,
     if err != 0:
         raise RuntimeError("cell_sweep launch failed: "
                            f"{lib.sph_cell_sweep_error_string(err).decode()}")
-    launches += 1
-    return collect(out, particles.active, position.dtype, dims, spec)
+    with _count_lock:
+        if window:
+            window_launches += 1
+        else:
+            launches += 1
+    return collect(out, particles.active, dtype, dims, spec)

@@ -9,8 +9,13 @@ is processed in chunks of ``block_size`` rows to bound the gather footprint,
 and a chunk's candidate list is exact (no fixed-capacity window, so no
 candidate is ever cut off and none is padding).
 
-This is the sweep for CPU tensors and the oracle the CUDA kernel
-(``ops/block_sweep.py``) is held against.
+This is the sweep for CPU tensors and the oracle the CUDA kernels
+(``ops/block_sweep.py``, ``ops/cell_sweep.py``) are held against.  With
+``self_off`` / ``motion_limiter`` it sweeps a self range of a longer
+("extended") candidate array - a slab of the global sorted order between its
+two halos, or inside the whole gathered array - which is the plain version of
+the windowed kernels and the CPU path of the sharded step (the JAX package's
+``global_*`` / ``local_*`` / ``idx_base`` form).
 Physics per pair matches ``ComputeInteractions!`` (reference
 SPHCellList.jl:268-317) including the density-diffusion role-order quirk.
 """
@@ -84,19 +89,28 @@ def pair_sweep(
     spec: PhysicsSpec,
     grid: Grid,
     block_size: int,
-    particles: Particles,   # sorted Particles (cell / motion_limiter / active)
-    cell_start,             # [ncells+2] int32
-    position,               # [N, D] sweep field set (state or half-step)
-    density,                # [N]
-    pressure,               # [N]
-    velocity,               # [N, D]
+    particles: Particles,   # sorted self rows (cell / motion_limiter / active)
+    cell_start,             # [ncells+2] int32, indexing rows of ``position``
+    position,               # [Ne, D] sweep field set (state or half-step)
+    density,                # [Ne]
+    pressure,               # [Ne]
+    velocity,               # [Ne, D]
+    motion_limiter=None,    # [Ne]; default: ``particles.motion_limiter``
+    self_off: int = 0,      # row of ``position`` that self row 0 is
 ) -> SweepOut:
-    """One full neighbor sweep over all particle rows (sorted order)."""
+    """One full neighbor sweep over the self rows (sorted order).
+
+    Single device: the fields have the selves' N rows and ``self_off`` is 0.
+    A window: the fields are an extended array of Ne >= N rows, the selves
+    its rows [self_off, self_off + N), ``cell_start`` is rebased to it and
+    clamped to [0, Ne]; a rigid shift keeps the order of two sorted indices,
+    so the density-diffusion role compares extended indices.
+    """
     kern = spec.kernel
     c = spec.constants
-    n, dims = position.shape
+    n, dims = particles.capacity, position.shape[1]
     dev = position.device
-    ml = particles.motion_limiter
+    ml = particles.motion_limiter if motion_limiter is None else motion_limiter
     want_kernel = spec.kernel_output is KernelOutputMode.STORE
     want_shift = spec.shifting is ShiftingMode.PLANAR
 
@@ -114,13 +128,14 @@ def pair_sweep(
 
     for b0 in range(0, n, block_size):
         b1 = min(b0 + block_size, n)
-        i, j = candidates(starts, ends, b0, b1)
+        r, j = candidates(starts, ends, b0, b1)      # self row, candidate
+        i = r + self_off                             # the self in the fields
         xij = position[i] - position[j]
         d2 = _dot(xij, xij)
         # support cutoff, self-exclusion, active selves only (candidates in
         # stencil rows are always active: padding is parked past every row)
-        keep = (d2 <= kern.H2) & (j != i) & particles.active[i]
-        i, j, xij, d2 = i[keep], j[keep], xij[keep], d2[keep]
+        keep = (d2 <= kern.H2) & (j != i) & particles.active[r]
+        r, i, j, xij, d2 = r[keep], i[keep], j[keep], xij[keep], d2[keep]
 
         rho_i, rho_j = density[i], density[j]
         p_i, p_j = pressure[i], pressure[j]
@@ -138,7 +153,7 @@ def pair_sweep(
         # density diffusion (reference :293-296), cell-centric role order:
         # intra-cell pairs give the i role to the lower sorted index,
         # cross-cell pairs to the particle in the later cell (= higher index)
-        same_cell = (j >= s_cell[i]) & (j < e_cell[i])
+        same_cell = (j >= s_cell[r]) & (j < e_cell[r])
         i_is_role_i = torch.where(same_cell, i < j, i > j)
         drho = drho + dd.compute_density_diffusion(
             spec.diffusion, kern, c, xij, grad_w, d2,
@@ -153,18 +168,18 @@ def pair_sweep(
             spec.viscosity, kern, c, xij, vij, grad_w, d2, rho_i, rho_j
         )
 
-        outs["drhodt"].index_add_(0, i, drho)
-        outs["acc"].index_add_(0, i, dvdt)
+        outs["drhodt"].index_add_(0, r, drho)
+        outs["acc"].index_add_(0, r, dvdt)
         if want_kernel:
             # KernelOutput! (reference SPHCellList.jl:106-116)
-            outs["kernel_w"].index_add_(0, i, K.W(kern, q))
-            outs["kernel_grad"].index_add_(0, i, grad_w)
+            outs["kernel_w"].index_add_(0, r, K.W(kern, q))
+            outs["kernel_grad"].index_add_(0, r, grad_w)
         if want_shift:
             # add_shifting_terms! (reference SPHCellList.jl:73-88): grad_C
             # uses the self density, div_r the neighbor's
-            outs["grad_c"].index_add_(0, i, (c.m0 / rho_i)[:, None] * grad_w)
+            outs["grad_c"].index_add_(0, r, (c.m0 / rho_i)[:, None] * grad_w)
             outs["div_r"].index_add_(
-                0, i, (c.m0 / rho_j) * _dot(-xij, grad_w) * (ml_i * ml_j))
+                0, r, (c.m0 / rho_j) * _dot(-xij, grad_w) * (ml_i * ml_j))
 
     return SweepOut(
         drhodt=outs["drhodt"],

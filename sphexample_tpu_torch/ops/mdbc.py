@@ -12,7 +12,8 @@ Reference path: ``src/SPHCellList.jl:219-266`` ghost neighbor loop,
   * solve all (D+1)x(D+1) systems at once in closed form (Cramer's rule,
     plain elementwise tensor code) and apply the reference's decision tree.
 
-The sharded variant comes with the multi-GPU slice.
+:func:`mdbc_density_correction_sharded` is the same for one slab of a sharded
+run: the slab's own ghosts against its halo-extended window.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ import functools
 import torch
 
 from .cell_list import Grid
+from .halo import extend, rebase
 from .interactions import PhysicsSpec
 from .mdbc_moments import mdbc_moments
 
@@ -142,5 +144,30 @@ def mdbc_density_correction(spec: PhysicsSpec, grid: Grid, particles, cell_start
     bvec, Amat = mdbc_moments(spec, grid, gpoint, bvalid, particles.position,
                               particles.density, particles.motion_limiter,
                               cell_start)
+    density, _ = _mdbc_apply(spec, particles, bidx, bvalid, gpoint, bvec, Amat)
+    return density
+
+
+def mdbc_density_correction_sharded(spec: PhysicsSpec, grid: Grid, particles,
+                                    cell_start, boundary_capacity: int, ctx,
+                                    halo: int):
+    """The corrected density of one slab in a sharded run (port of
+    ``sphexample_tpu/ops/mdbc.py:mdbc_density_correction_sharded``).
+
+    Ghost-carrying boundary particles are slab-resident and their ghost
+    points sit within about a cell of them, so every candidate range of a
+    ghost's stencil lies in the window the sweeps already use (the rebuild
+    telemetry of ``core/step.py`` counts the ghost windows' reach).  The three
+    fields the moments read - position, density, motion limiter - are
+    extended by the two halos (one 1-hop exchange; with ``halo = 0`` the
+    all-gather), ``cell_start`` (global sorted rows) is rebased to the window,
+    and the unchanged moment wrapper runs on the slab's own ghosts: the CUDA
+    kernel for CUDA tensors, its plain version for CPU tensors."""
+    bidx, bvalid = compact_ghosts(particles, boundary_capacity)
+    gpoint = particles.ghost_points[bidx]                  # [B, D]
+    (pos, rho, ml), _, ext_off = extend(
+        ctx, (particles.position, particles.density, particles.motion_limiter), halo)
+    cs_ext = rebase(cell_start, ext_off, pos.shape[0])
+    bvec, Amat = mdbc_moments(spec, grid, gpoint, bvalid, pos, rho, ml, cs_ext)
     density, _ = _mdbc_apply(spec, particles, bidx, bvalid, gpoint, bvec, Amat)
     return density

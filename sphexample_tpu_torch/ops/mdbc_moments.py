@@ -11,7 +11,10 @@ with x_gj = g - x_j.  Candidates are the 3^(D-1) stencil rows x 3 x-adjacent
 cells around the ghost's cell, read from the stale ``cell_start`` of the last
 rebuild; the ghost's cell is computed fresh from the ghost point and clamped
 into the grid.  The closed-form solve and the decision tree stay outside
-(``ops/mdbc.py``).
+(``ops/mdbc.py``).  The candidate arrays may be a slab's halo-extended window
+(``ops/halo.py``) with ``cell_start`` rebased to it: the ghost's cell comes
+from the ghost point and the global grid, so only the row ranges shift, and
+neither version needs to know.
 
 :func:`mdbc_moments` takes the kernel ``csrc/mdbc_moments.cu`` for CUDA
 tensors and the plain PyTorch version only for CPU tensors.  A CUDA tensor
@@ -25,6 +28,7 @@ moments are cast to the state dtype before the solve.
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -33,8 +37,10 @@ from ..models import kernels as K
 from .cell_list import Grid, cell_coords, clamp_coords, row_segments
 from .interactions import PhysicsSpec, candidates
 
-# kernel launches in this process (chip_smoke.py resets and reads it)
+# kernel launches in this process (chip_smoke.py resets and reads it); under
+# a lock, since the slabs of a sharded run are threads
 launches = 0
+_count_lock = threading.Lock()
 # ghosts per gather of the plain version: bounds its transient footprint
 GHOST_CHUNK = 4096
 
@@ -184,7 +190,8 @@ def _launch(spec, grid, gpoint, gvalid, position, density, motion_limiter,
         if err != 0:
             raise RuntimeError("mdbc_moments launch failed: "
                                f"{lib.sph_mdbc_error_string(err).decode()}")
-        launches += 1
+        with _count_lock:
+            launches += 1
     vals = out.to(position.dtype)
     dp = dims + 1
     return vals[:, :dp], vals[:, dp:].reshape(B, dp, dp)

@@ -9,6 +9,11 @@ contiguous row segments of the arrays.
 The JAX package's Pallas table fields (``PallasTables``, ``BlockTables`` and
 their telemetry) have no counterpart: the port's CUDA sweep reads only
 ``cell_start``, the stale cell coordinates and the sorted order.
+
+A sharded simulation's state is a tuple of P slab states, one per rank
+(:func:`split_state`, :func:`gather_state`): the per-particle arrays are cut
+into P contiguous slabs of the global sorted order, each on its rank's
+device; ``cell_start`` and the scalars are replicated.
 """
 
 from __future__ import annotations
@@ -63,13 +68,23 @@ class Particles:
     def replace(self, **kwargs) -> "Particles":
         return dataclasses.replace(self, **kwargs)
 
+    def tensors(self) -> tuple:
+        """Every field, in declaration order."""
+        return tuple(getattr(self, f.name) for f in dataclasses.fields(self))
+
+    @classmethod
+    def from_tensors(cls, tensors) -> "Particles":
+        """The inverse of :meth:`tensors`."""
+        return cls(*tensors)
+
+    def map(self, fn) -> "Particles":
+        """``fn`` applied to every per-particle field."""
+        return Particles.from_tensors(fn(a) for a in self.tensors())
+
     def permute(self, perm: torch.Tensor) -> "Particles":
         """Reorder every per-particle field by ``perm`` (the reference's full
         17-field StructArray sort, SPHCellList.jl:142)."""
-        return Particles(**{
-            f.name: getattr(self, f.name).index_select(0, perm)
-            for f in dataclasses.fields(self)
-        })
+        return self.map(lambda a: a.index_select(0, perm))
 
 
 def _torch_dtype(dtype) -> torch.dtype:
@@ -173,6 +188,11 @@ class SimulationState:
     # grid at any rebuild (they are clamped into edge cells: wrong physics);
     # run_simulation raises when it is nonzero.
     grid_escapes: torch.Tensor    # scalar int32
+    # Sharded runs: the furthest sorted-row reach of any stencil window (and
+    # of the rebuild's row migration) past its slab's boundaries, the maximum
+    # over every rebuild.  It must stay <= the halo (``StepConfig.halo``);
+    # ``run_simulation`` raises when it does not.  0 on a single device.
+    max_halo: torch.Tensor        # scalar int32
     # Host-side count of lazy rebuilds taken (the rebuild decision is made
     # on the host in the port).  Not part of the JAX state.
     rebuilds: int = 0
@@ -184,25 +204,89 @@ class SimulationState:
 _PARTICLE_FIELDS = tuple(f.name for f in dataclasses.fields(Particles))
 _STATE_TENSORS = ("cell_start", "total_time", "current_dt", "iteration",
                   "max_occupancy", "max_segment", "occupied_cells",
-                  "position_half", "grid_escapes")
+                  "position_half", "grid_escapes", "max_halo")
+# what is cut into slabs (beside the particle fields) / replicated
+_SLAB_TENSORS = ("position_half",)
 
 
-def state_from_numpy(leaves: Dict[str, np.ndarray], device) -> SimulationState:
+def pad_capacity(state: SimulationState, new_capacity: int) -> SimulationState:
+    """Grow the particle capacity with inactive padding rows (id -1)."""
+    old = state.particles.capacity
+    if new_capacity == old:
+        return state
+    if new_capacity < old:
+        raise ValueError("cannot shrink capacity")
+    extra = new_capacity - old
+
+    def pad(a):
+        return torch.cat([a, torch.zeros((extra,) + tuple(a.shape[1:]), dtype=a.dtype,
+                                         device=a.device)], dim=0)
+
+    parts = state.particles.map(pad)
+    parts.id[old:] = -1
+    return state.replace(particles=parts, position_half=pad(state.position_half))
+
+
+def split_state(state: SimulationState, devices) -> tuple:
+    """Cut one (globally cell-sorted) state into ``len(devices)`` slab states:
+    equal contiguous slabs of the per-particle arrays, everything else
+    replicated, slab r on ``devices[r]``."""
+    n = len(devices)
+    cap = state.particles.capacity
+    if cap % n:
+        raise ValueError(f"capacity {cap} is not a multiple of {n} slabs")
+    C = cap // n
+    slabs = []
+    for r, dev in enumerate(devices):
+        cut = lambda a: a[r * C:(r + 1) * C].to(dev, copy=True)  # noqa: E731
+        slabs.append(dataclasses.replace(
+            state, particles=state.particles.map(cut),
+            **{k: cut(getattr(state, k)) for k in _SLAB_TENSORS},
+            **{k: getattr(state, k).to(dev, copy=True) for k in _STATE_TENSORS
+               if k not in _SLAB_TENSORS}))
+    return tuple(slabs)
+
+
+def gather_state(states, device=None) -> SimulationState:
+    """The inverse of :func:`split_state`: one global state on ``device``
+    (default: rank 0's), the replicated leaves taken from rank 0."""
+    if isinstance(states, SimulationState):
+        return states
+    dev = states[0].particles.device if device is None else torch.device(device)
+    cat = lambda get: torch.cat([get(s).to(dev) for s in states], dim=0)  # noqa: E731
+    fields = dataclasses.fields(Particles)
+    particles = Particles(**{f.name: cat(lambda s, k=f.name: getattr(s.particles, k))
+                             for f in fields})
+    first = states[0]
+    return dataclasses.replace(
+        first, particles=particles,
+        **{k: cat(lambda s, k=k: getattr(s, k)) for k in _SLAB_TENSORS},
+        **{k: getattr(first, k).to(dev) for k in _STATE_TENSORS
+           if k not in _SLAB_TENSORS})
+
+
+def state_from_numpy(leaves: Dict[str, np.ndarray], device, devices=None):
     """Build the port's state from a flat dict of numpy leaves, named like
     the JAX ``SimulationState``'s fields (``"particles.position"``,
     ``"cell_start"``, ``"total_time"``, ...).  Keys the port has no field
     for (the JAX package's Pallas tables and telemetry) are ignored; a
-    missing key raises ``KeyError``.  Dtypes are kept as given."""
+    missing key raises ``KeyError``.  Dtypes are kept as given.
+
+    With ``devices`` (one per slab, e.g. a mesh's) the leaves are a sharded
+    JAX state's global arrays and the result is the tuple of slab states."""
     def t(key):
         return torch.tensor(np.asarray(leaves[key]), device=device)
 
     particles = Particles(**{f: t(f"particles.{f}") for f in _PARTICLE_FIELDS})
-    return SimulationState(particles=particles,
-                           **{k: t(k) for k in _STATE_TENSORS})
+    state = SimulationState(particles=particles,
+                            **{k: t(k) for k in _STATE_TENSORS})
+    return state if devices is None else split_state(state, devices)
 
 
-def state_to_numpy(state: SimulationState) -> Dict[str, np.ndarray]:
-    """The inverse of :func:`state_from_numpy`: a flat dict of numpy leaves."""
+def state_to_numpy(state) -> Dict[str, np.ndarray]:
+    """The inverse of :func:`state_from_numpy`: a flat dict of numpy leaves
+    (of the gathered global state when given a tuple of slab states)."""
+    state = gather_state(state)
     out = {f"particles.{f}": getattr(state.particles, f).cpu().numpy()
            for f in _PARTICLE_FIELDS}
     out.update({k: getattr(state, k).cpu().numpy() for k in _STATE_TENSORS})

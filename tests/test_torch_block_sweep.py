@@ -177,6 +177,8 @@ def test_sweep_params_layout():
     prm = bs.sweep_params(spec, grid, 159712)
     import ctypes
 
-    assert ctypes.sizeof(prm) == 10 * 4 + 12 * 4
+    # 11 ints (n, self_off, cmin, shape, strides), then 12 floats
+    assert ctypes.sizeof(prm) == 11 * 4 + 12 * 4
+    assert prm.self_off == 0 and bs.sweep_params(spec, grid, 39936, 33664).self_off == 33664
     assert list(prm.strides) == [1, 67, 67 * 36] and prm.n == 159712
     assert prm.alpha_c0 == pytest.approx(0.1 * 33.14)

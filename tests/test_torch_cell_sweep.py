@@ -172,10 +172,12 @@ def test_params_struct_layout():
     spec = _spec(3, "LAMINAR_SPS", "COMPLEX")
     grid = tcl.Grid(cmin=(-6, -6, -6), shape=(148, 69, 51))
     prm = cw.sweep_params(spec, grid, 2215035)
-    # 11 ints, then 18 floats, in the order of struct CellSweepParams
-    assert ctypes.sizeof(prm) == 11 * 4 + 18 * 4
-    assert [f[0] for f in prm._fields_[:7]] == ["n", "ncells", "shape", "strides",
-                                                "family", "viscosity", "diffusion"]
+    # 12 ints, then 18 floats, in the order of struct CellSweepParams
+    assert ctypes.sizeof(prm) == 12 * 4 + 18 * 4
+    assert [f[0] for f in prm._fields_[:8]] == ["n", "self_off", "ncells", "shape",
+                                                "strides", "family", "viscosity",
+                                                "diffusion"]
+    assert prm.self_off == 0 and cw.sweep_params(spec, grid, 512, 128).self_off == 128
     assert prm.n == 2215035 and prm.ncells == 148 * 69 * 51
     assert list(prm.shape) == [148, 69, 51] and list(prm.strides) == [1, 148, 148 * 69]
     c, k = spec.constants, spec.kernel

@@ -6,7 +6,11 @@ and kernel output, every template instance, crowded, sparse and edge cells,
 its input checks, and a short moving-square run.  The mDBC moment kernel:
 every template instance of ``csrc/mdbc_moments.cu`` against its plain version
 in f64, crowded and edge-clamped cells included, its input checks, and a
-short mDBC run.  A CUDA kernel has no CPU mode, so
+short mDBC run.  The sharded path: the three kernels on the halo-extended
+windows of 3 slabs (cells straddling the slab edges, the whole-array window)
+against their plain versions and against the single-device kernels, the
+window entries' input checks, and 4-slab runs as thread ranks on the cards
+visible.  A CUDA kernel has no CPU mode, so
 these tests are marked ``gpu`` and skip without a card.  They import no JAX,
 so they also run where JAX is absent:
 
@@ -27,10 +31,14 @@ from sphexample_tpu_torch.models import equations as eq
 from sphexample_tpu_torch.ops import block_sweep as bs
 from sphexample_tpu_torch.ops import cell_list as cl
 from sphexample_tpu_torch.ops import cell_sweep as cw
+from sphexample_tpu_torch.ops import halo as halo_mod
 from sphexample_tpu_torch.ops import mdbc
 from sphexample_tpu_torch.ops import mdbc_moments as mm
 from sphexample_tpu_torch.ops.interactions import PhysicsSpec
-from sphexample_tpu_torch.state import Particles, allocate_particles
+from sphexample_tpu_torch.parallel.context import SINGLE
+from sphexample_tpu_torch.parallel.mesh import (make_mesh, make_sharded_fixed_steps_fn,
+                                                shard_simulation)
+from sphexample_tpu_torch.state import Particles, allocate_particles, gather_state
 
 pytestmark = pytest.mark.gpu
 torch.set_num_threads(1)
@@ -533,3 +541,256 @@ def test_block_rule_takes_the_cell_kernel_when_asked(cuda):
                                 T.DensityDiffusionModel.LINEAR, device=cuda)
     with pytest.raises(NotImplementedError, match="block_sweep=False"):
         make_fixed_steps_fn(sim.cfg, 1)(sim.state)
+
+
+# --- the sharded path: the kernels on halo-extended windows ----------------------
+
+N_SLABS = 3
+
+
+def _window(p, cs, r, halo, n_slabs=N_SLABS):
+    """Slab r's window of the sorted state (p, cs), built by slicing: (slab
+    particles, rebased cell_start, extended fields, self_off).  ``halo = 0``:
+    the whole array.  Rows past the global ends are zeros."""
+    N = p.capacity
+    C = N // n_slabs
+    base = r * C
+    lo, hi, self_off = (0, N, base) if halo == 0 else (base - halo, base + C + halo, halo)
+
+    def ext(a):
+        zl = a.new_zeros((max(0, -lo),) + tuple(a.shape[1:]))
+        zr = a.new_zeros((max(0, hi - N),) + tuple(a.shape[1:]))
+        return torch.cat([zl, a[max(lo, 0):min(hi, N)], zr])
+
+    f = {k: ext(getattr(p, k)) for k in
+         ("position", "density", "pressure", "velocity", "motion_limiter")}
+    return p.map(lambda a: a[base:base + C]), halo_mod.rebase(cs, lo, hi - lo), f, self_off
+
+
+def _straddles(cs, base):
+    """Whether a cell's rows lie on both sides of sorted row ``base``."""
+    inner = cs[(cs > 0) & (cs < cs[-1])]
+    return bool(base > 0 and not (inner == base).any())
+
+
+def _hold_window(cuda, mod, spec, grid, p64, cs, n, halos):
+    """The windowed kernel of ``mod`` on the f32 copy of every slab's window
+    against the plain f64 sweep on the same window; the slabs' outputs
+    concatenated against the single-device kernel, bit for bit."""
+    window, plain, single = ((bs.block_sweep_window, bs.block_sweep_plain, bs.block_sweep)
+                             if mod is bs else
+                             (cw.cell_sweep_window, cw.cell_sweep_plain, cw.cell_sweep))
+    p32, cs_g = _on(p64, cuda, torch.float32), cs.to(cuda)
+    whole = single(*_args(spec, grid, p32, cs_g))
+    C = p64.capacity // N_SLABS
+    assert any(_straddles(cs, r * C) for r in range(1, N_SLABS))
+    for halo in halos:
+        outs = []
+        for r in range(N_SLABS):
+            pl64, cs_ext, f64, off = _window(p64, cs, r, halo)
+            ref = plain(spec, grid, pl64, cs_ext, f64["position"], f64["density"],
+                        f64["pressure"], f64["velocity"],
+                        motion_limiter=f64["motion_limiter"], self_off=off)
+            pl, cs_e, f, _ = _window(p32, cs_g, r, halo)
+            before = mod.window_launches, mod.launches
+            out = window(spec, grid, pl, cs_e, f["position"], f["density"], f["pressure"],
+                         f["velocity"], f["motion_limiter"], off)
+            torch.cuda.synchronize()
+            assert (mod.window_launches, mod.launches) == (before[0] + 1, before[1])
+            for name in FIELDS:
+                a, b = getattr(out, name), getattr(ref, name)
+                assert (a is None) == (b is None), name
+                if a is None:
+                    continue
+                a = a.double().cpu()
+                assert a.shape[0] == C and torch.isfinite(a).all(), name
+                scale = float(getattr(plain(*_args(spec, grid, p64, cs)), name).abs().max())
+                assert float((a - b).abs().max()) <= REL_TOL * scale, (name, r, halo)
+            outs.append(out)
+        for name in FIELDS:
+            if getattr(whole, name) is not None:
+                got = torch.cat([getattr(o, name) for o in outs])
+                assert torch.equal(got, getattr(whole, name)), (name, halo)
+    assert not outs[-1].drhodt[C - (p64.capacity - n):].any()   # padding rows: zero
+
+
+@pytest.mark.parametrize("dims", [2, 3])
+@pytest.mark.parametrize("family", ["WENDLAND_C2", "CUBIC_SPLINE"])
+@pytest.mark.parametrize("visc", ["ZERO", "ARTIFICIAL"])
+@pytest.mark.parametrize("diff", ["ZERO", "LINEAR"])
+def test_block_window_kernel_matches_plain_and_single(cuda, dims, family, visc, diff):
+    n, cap = (300, 321) if dims == 2 else (500, 531)
+    const, kern, grid, p64, cs = _sorted_state(dims, family, n, cap)
+    spec = PhysicsSpec(constants=const, kernel=kern, viscosity=T.ViscosityModel[visc],
+                       diffusion=T.DensityDiffusionModel[diff])
+    # 3D: a slab of this small cube is thinner than the stencil reach, so the
+    # window takes two slabs' rows each way (zeros past the ends)
+    _hold_window(cuda, bs, spec, grid, p64, cs, n,
+                 halos=((dims - 1) * (cap // N_SLABS), 0))
+
+
+@pytest.mark.parametrize("dims", [2, 3])
+@pytest.mark.parametrize("visc", ["ARTIFICIAL", "LAMINAR_SPS"])
+@pytest.mark.parametrize("store", [False, True])
+@pytest.mark.parametrize("shift", [False, True])
+def test_cell_window_kernel_matches_plain_and_single(cuda, dims, visc, store, shift):
+    n, cap = (300, 321) if dims == 2 else (500, 531)
+    const, kern, grid, p64, cs = _sorted_state(dims, "WENDLAND_C2", n, cap)
+    spec = _full_spec(const, kern, visc, "COMPLEX" if store else "LINEAR", store, shift)
+    _hold_window(cuda, cw, spec, grid, p64, cs, n,
+                 halos=((dims - 1) * (cap // N_SLABS), 0))
+
+
+def test_window_cut_by_the_clamp_drops_pairs(cuda):
+    """A halo thinner than the stencil reach: the rebased cell_start clamps,
+    the kernel and the plain version drop the same pairs (they still agree),
+    and the slabs no longer add up to the single-device sweep - what the
+    ``max_halo`` guard of the driver exists for."""
+    const, kern, grid, p64, cs = _sorted_state(3, "WENDLAND_C2", 500, 531)
+    spec = _full_spec(const, kern, "ARTIFICIAL", "LINEAR", False, False)
+    p32, cs_g = _on(p64, cuda, torch.float32), cs.to(cuda)
+    whole = cw.cell_sweep(*_args(spec, grid, p32, cs_g))
+    C = 531 // N_SLABS
+    pl64, cs_ext, f64, off = _window(p64, cs, 1, 8)
+    ref = cw.cell_sweep_plain(spec, grid, pl64, cs_ext, f64["position"], f64["density"],
+                              f64["pressure"], f64["velocity"],
+                              motion_limiter=f64["motion_limiter"], self_off=off)
+    pl, cs_e, f, _ = _window(p32, cs_g, 1, 8)
+    for mod, window in ((cw, cw.cell_sweep_window), (bs, bs.block_sweep_window)):
+        out = window(spec, grid, pl, cs_e, f["position"], f["density"], f["pressure"],
+                     f["velocity"], f["motion_limiter"], off)
+        scale = float(ref.drhodt.abs().max())
+        assert float((out.drhodt.double().cpu() - ref.drhodt).abs().max()) <= REL_TOL * scale
+        assert not torch.equal(out.drhodt, whole.drhodt[C:2 * C])
+
+
+@pytest.mark.parametrize("dims", [2, 3])
+@pytest.mark.parametrize("family", ["WENDLAND_C2", "CUBIC_SPLINE"])
+def test_mdbc_kernel_on_the_halo_matches_plain_and_single(cuda, dims, family):
+    spec, grid, p64, cs, n_b = _ghost_state(dims, family)
+    cap = p64.capacity - p64.capacity % N_SLABS           # a multiple of the slabs
+    p64 = p64.map(lambda a: a[:cap])                      # (drops padding rows only)
+    p32, cs_g = _on(p64, cuda, torch.float32), cs.to(cuda)
+    whole = mdbc.mdbc_density_correction(spec, grid, p32, cs_g, n_b)
+    bw, Aw = mm.mdbc_moments_plain(*_moment_args(spec, grid, p64, cs, n_b, n_b))
+    C = cap // N_SLABS
+    dens, seen = [], 0
+    for r in range(N_SLABS):
+        pl64, cs_ext, f64, _ = _window(p64, cs, r, (dims - 1) * C)
+        bidx, bvalid = mdbc.compact_ghosts(pl64, n_b)
+        ref = mm.mdbc_moments_plain(spec, grid, pl64.ghost_points[bidx], bvalid,
+                                    f64["position"], f64["density"],
+                                    f64["motion_limiter"], cs_ext)
+        pl, cs_e, f, _ = _window(p32, cs_g, r, (dims - 1) * C)
+        bidx, bvalid = mdbc.compact_ghosts(pl, n_b)
+        before = mm.launches
+        bk, Ak = mm.mdbc_moments(spec, grid, pl.ghost_points[bidx], bvalid, f["position"],
+                                 f["density"], f["motion_limiter"], cs_e)
+        torch.cuda.synchronize()
+        assert mm.launches == before + 1
+        for a, b, full in ((bk, ref[0], bw), (Ak, ref[1], Aw)):
+            a, b = a.double().cpu().reshape(n_b, -1), b.reshape(n_b, -1)
+            scale = full.reshape(n_b, -1).abs().amax(dim=0)   # per column, all ghosts
+            assert ((a - b).abs().amax(dim=0) <= REL_TOL * scale).all()
+        seen += int((torch.any(pl.ghost_points != 0, dim=-1) & pl.active).sum())
+        dens.append(mdbc._mdbc_apply(spec, pl, bidx, bvalid, pl.ghost_points[bidx],
+                                     bk, Ak)[0])
+    assert seen == n_b
+    assert torch.equal(torch.cat(dens), whole)
+
+
+def test_window_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    const, kern, grid, p64, cs = _sorted_state(3, "WENDLAND_C2", 200, 201)
+    spec = _full_spec(const, kern, "ARTIFICIAL", "LINEAR", False, False)
+    p, cs_g = _on(p64, cuda, torch.float32), cs.to(cuda)
+    pl, cs_e, f, off = _window(p, cs_g, 1, 20)
+    args = (spec, grid, pl, cs_e, f["position"], f["density"], f["pressure"], f["velocity"])
+    for mod, window in ((bs, bs.block_sweep_window), (cw, cw.cell_sweep_window)):
+        before = mod.window_launches
+        with pytest.raises(ValueError, match="cell_start"):
+            window(spec, grid, pl, cs_e.cpu(), *args[4:], f["motion_limiter"], off)
+        with pytest.raises(ValueError, match="motion_limiter"):
+            window(*args, pl.motion_limiter, off)         # the slab's, not the window's
+        with pytest.raises(ValueError, match="motion_limiter"):
+            window(*args, f["motion_limiter"].cpu(), off)
+        with pytest.raises(ValueError, match="outside"):
+            window(*args, f["motion_limiter"], f["position"].shape[0] - 3)
+        with pytest.raises(ValueError, match="outside"):
+            window(*args, f["motion_limiter"], -1)
+        with pytest.raises(TypeError, match="int32"):
+            window(spec, grid, pl, cs_e.long(), *args[4:], f["motion_limiter"], off)
+        assert mod.window_launches == before
+        # the single-device entry takes no window
+        with pytest.raises(ValueError, match="shape"):
+            (bs.block_sweep if mod is bs else cw.cell_sweep)(*args)
+    with pytest.raises(ValueError, match="exceeds"):
+        halo_mod.extend(SINGLE, pl.position, pl.capacity + 1)
+
+
+def _tall_column(device, mdbc_on, block=True):
+    """A tall 2D water column between walls (f32): thin in x, long in z, so
+    that 4 slabs of the sorted order are thicker than one stencil reach."""
+    const = T.SimulationConstants(dx=0.02, c0=40.0, cfl=0.3)
+    kern = T.make_kernel(T.KernelFamily.WENDLAND_C2, 2, dx=const.dx)
+    dx, nx, nz = const.dx, 6, 220
+    xs, zs = np.meshgrid(np.arange(nx), np.arange(nz), indexing="ij")
+    fluid = np.stack([xs.ravel() * dx, zs.ravel() * dx + dx], axis=-1)
+    fx = np.arange(-3, nx + 3) * dx
+    floor = np.stack([fx, np.zeros_like(fx)], axis=-1)
+    wz = np.arange(0, nz + 6) * dx
+    lw = np.stack([np.full_like(wz, -dx), wz], axis=-1)
+    rw = np.stack([np.full_like(wz, nx * dx), wz], axis=-1)
+    bound = np.concatenate([floor, lw, rw])
+    pos = np.concatenate([bound, fluid]) + 0.0037
+    nb, n = len(bound), len(bound) + len(fluid)
+    ptype = np.concatenate([np.full(nb, 2), np.full(n - nb, 1)]).astype(np.int32)
+    gn = np.concatenate([np.tile([[0.0, dx]], (len(floor), 1)),
+                         np.tile([[dx, 0.0]], (len(lw), 1)),
+                         np.tile([[-dx, 0.0]], (len(rw), 1))])
+    meta = T.SimulationMetaData("gpu_column", ".", dims=2, block_size=32,
+                                grid_margin_cells=4, block_sweep=block,
+                                mdbc=T.MDBCMode.SIMPLE if mdbc_on else T.MDBCMode.NONE)
+    return T.assemble_simulation(
+        pos, np.full(n, 1000.0), ptype, np.ones(n, np.int32), np.arange(1, n + 1), meta,
+        const, kern, T.ViscosityModel.ARTIFICIAL, T.DensityDiffusionModel.LINEAR,
+        ghost_points=(bound + 0.0037 + gn) if mdbc_on else None,
+        ghost_normals=gn if mdbc_on else None, device=device)
+
+
+@pytest.mark.parametrize("mdbc_on,block", [(False, True), (True, True), (False, False)])
+def test_four_slab_run_on_the_card(cuda, mdbc_on, block):
+    """12 steps of the tall column on 4 slabs (thread ranks on the cards
+    visible) and on one device: two windowed sweep launches per step per
+    slab, one mDBC launch, no single-device entry, ``0 < max_halo <= halo``,
+    and - each slab's rows being the single-device kernel's bit for bit - the
+    same end state bit for bit."""
+    steps = 12
+    single = _tall_column(cuda, mdbc_on, block)
+    sharded = shard_simulation(_tall_column(cuda, mdbc_on, block), make_mesh(4))
+    cfg = sharded.cfg
+    assert cfg.halo > 0 and cfg.sweep_kernel == ("block" if block else "cell")
+    assert [d.index for d in sharded.mesh.devices] == [
+        r % torch.cuda.device_count() for r in range(4)]
+    one = make_fixed_steps_fn(single.cfg, steps)(single.state)
+    mod, other = (bs, cw) if block else (cw, bs)
+    w0, s0, o0, m0 = mod.window_launches, mod.launches, other.window_launches, mm.launches
+    states = make_sharded_fixed_steps_fn(cfg, sharded.mesh, steps)(sharded.state)
+    torch.cuda.synchronize()
+    assert mod.window_launches == w0 + 2 * steps * 4
+    assert mod.launches == s0 and other.window_launches == o0
+    assert mm.launches == m0 + (steps * 4 if mdbc_on else 0)
+    assert len({s.rebuilds for s in states}) == 1 and states[0].rebuilds == one.rebuilds
+    four = gather_state(states, cuda)
+    assert 0 < int(four.max_halo) <= cfg.halo
+    assert float(four.total_time) == float(one.total_time)
+
+    def by_id(state, field):
+        p = state.particles
+        order = torch.argsort(p.id)
+        return getattr(p, field)[order][p.id[order] > 0]
+
+    for field in ("position", "velocity", "density", "pressure", "acceleration"):
+        assert torch.equal(by_id(four, field), by_id(one, field)), field
+    if mdbc_on:
+        walls = by_id(four, "ptype") == 2
+        assert float((by_id(four, "density")[walls] - 1000.0).abs().max()) > 1e-3

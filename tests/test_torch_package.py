@@ -70,6 +70,20 @@ def test_imports_with_jax_blocked():
     assert r.stdout.strip().endswith("ok")
 
 
+def test_sharded_modules_are_among_the_checked():
+    """The modules of the sharded path are part of what the two tests above
+    walk: they import with JAX blocked and import nothing of the JAX package."""
+    mods = _modules()
+    for name in ("parallel", "parallel.context", "parallel.mesh", "ops.halo"):
+        assert f"sphexample_tpu_torch.{name}" in mods
+    from sphexample_tpu_torch.ops import block_sweep, cell_sweep, mdbc_moments
+
+    # the launch counts chip_smoke.py gates on: plain integers, kept under a lock
+    for mod in (block_sweep, cell_sweep):
+        assert mod.launches == 0 and mod.window_launches == 0
+    assert mdbc_moments.launches == 0
+
+
 def _tiny():
     meta = T.SimulationMetaData("tiny", ".", dims=2, dtype="float64")
     const = T.SimulationConstants()
