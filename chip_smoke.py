@@ -44,10 +44,15 @@ Phases, each printing one JSON line (any failure exits non-zero):
 11. parity_cell_3d, parity_cell_2d (with phase 3) - the cell-sweep kernel
               against its plain version on the states of phase 3 and on stirred
               copies of them (seeded density and velocity noise);
-              parity_cell_modes_3d, parity_cell_modes_2d - every viscosity x
-              density diffusion x kernel family with PLANAR shifting and
-              kernel output STORE on the stirred states, all six fields below
-              1e-4 of the field's max;
+              parity_cell_modes_3d, parity_cell_modes_2d,
+              parity_block_modes_3d, parity_block_modes_2d - both sweep
+              kernels in every viscosity x density diffusion x kernel family
+              with PLANAR shifting and kernel output STORE on the stirred
+              states, all six fields below 1e-4 of the field's max against
+              the plain version, and the block kernel against the cell kernel
+              in the same mode below 1e-4 of the plain field's max (the two
+              share csrc/sph_pair_math.cuh; how many modes agree bit for bit
+              is printed);
 12. run_large - the 3D dam break at dx 0.0034 (2,215,035 particles) through
               ``assemble_simulation`` with its defaults: the capacity rule must
               pick the cell sweep on its own.  10 warm-up + 200 timed steps,
@@ -72,15 +77,24 @@ Phases, each printing one JSON line (any failure exits non-zero):
               positive on the fluid, 2 cell-sweep launches per step, no grid
               escapes, the kernel against its plain version on the end state
               (parity_cell_moving_square_after_run, all six fields);
+              run_moving_square_block - the same deck as the example runs it,
+              with the meta's default ``block_sweep=True``: the driver's rule
+              picks the block sweep (its 2D all-extras instance); the gates of
+              run_moving_square with 2 block-sweep launches per step and none
+              of the cell sweep, all six fields against the plain version on
+              the end state, and the end state within the bands of
+              tests/test_trajectory.py:64-70 of the cell-sweep run;
 15. kernels - one line, one entry per kernel: launches on the main path that
               runs it, time per call of the wrapper (CUDA events; pack +
               kernel + collect) and of the kernel alone (profiler), the plain
-              version's time, the bound.  The block sweep runs on two paths:
+              version's time, the bound.  The block sweep runs on three paths:
               its entry holds the dam-break path's numbers and, under keys
-              ending in ``_mdbc_path``, the mDBC path's own.  The cell sweep's
-              entry holds the large path's numbers, the block sweep's time on
-              that same state, and the moving-square path's under keys ending
-              in ``_moving_square_path``.
+              ending in ``_mdbc_path`` and ``_moving_square_path``, the other
+              paths' own (the moving square's bound by the 2D all-extras
+              operation count).  The cell sweep's entry holds the large path's
+              numbers, the block sweep's time on that same state, and the
+              moving-square path's under keys ending in
+              ``_moving_square_path``; the sharded entries likewise.
 
 16. the sharded path, P = 4 slabs of the global cell-sorted order on the
               cards visible (slab r on card r mod count; on one card they
@@ -106,8 +120,11 @@ Phases, each printing one JSON line (any failure exits non-zero):
               single-device run of phase 4 within the trajectory bands of
               tests/test_trajectory.py:64-70;
               run_sharded_mdbc (249,036 particles, block sweep + mDBC on the
-              halo) and run_sharded_square (262,276 particles, the cell sweep
-              on the halo) with the gates of their single-device phases;
+              halo), run_sharded_square (262,276 particles, the cell sweep
+              on the halo) and run_sharded_square_block (the same deck, the
+              block sweep on the halo in all extras; its end state bit for bit
+              that of run_moving_square_block) with the gates of their
+              single-device phases, sharded_parity_block_square;
               exchange - the bytes one slab sends per sweep and the time of
               one halo exchange.
               The kernel line then holds five entries: block_sweep,
@@ -120,6 +137,7 @@ and last ``{"ok": true, "device": {...}}``.
 
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -248,13 +266,14 @@ SQUARE_SPEED = 2.8       # m/s in +x (examples/moving_square_2d.py:54-56)
 
 
 def moving_square_case(dp=0.004, nx=640, nz=400, wall_layers=3,
-                       square=(100, 150, 175, 225)):
+                       square=(100, 150, 175, 225), block_sweep=True):
     """A procedural MovingSquare case (the deck's input CSVs are not in the
     repository): a closed box of ``wall_layers`` fixed lattice layers around
     ``nx`` x ``nz`` interior lattice sites at spacing ``dp``, filled with
     fluid except for a solid square of MOVING particles (interior site
     indices ``square`` = x0, x1, z0, z1) that translates at 2.8 m/s in +x.
-    Constants, kernel and modes of examples/moving_square_2d.py:39-41, 59-73.
+    Constants, kernel and modes of examples/moving_square_2d.py:39-41, 59-73;
+    ``block_sweep`` the meta's own default (True), as the example runs it.
     Group markers as in the deck (1 fixed, 2 fluid, 3 square); IDs from 1,
     square first.  Lattice sites sit at (i + 0.5) dp, a quarter of a cell
     off the nearest cell boundary (the cell pitch is 2 dp).  Returns (arrays, geometries, meta,
@@ -288,7 +307,7 @@ def moving_square_case(dp=0.004, nx=640, nz=400, wall_layers=3,
     meta = T.SimulationMetaData(
         simulation_name="chip_smoke_moving_square", save_location="out", dims=2,
         shifting=T.ShiftingMode.PLANAR, kernel_output=T.KernelOutputMode.STORE,
-        block_sweep=False)
+        block_sweep=block_sweep)
     return (arrays, geometries, meta, const, kern, T.ViscosityModel.LAMINAR_SPS,
             T.DensityDiffusionModel.LINEAR)
 
@@ -338,6 +357,31 @@ def moving_square_checks(sim, case, state, sweep_out, label, total_steps):
     if not res["ok"]:
         fail(f"{label}: square off its track, no shift applied, or kernel sums not positive")
     return res
+
+
+def ptxas_report(log):
+    """Registers and spill-store bytes of every kernel instance in nvcc's
+    ``-Xptxas -v`` output, keyed by the kernel's name and template arguments
+    (``block_sweep_kernel<3,0,1,2,0,0,0>``: dims, family, viscosity,
+    diffusion - -1 for a run-time choice - then SPS, STORE, PLANAR)."""
+    out, name, spill = {}, None, 0
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            k = re.search(r"([a-z][a-z_]*_kernel)I((?:L[ib]n?\d+E)+)E", m.group(1))
+            args = re.findall(r"L[ib](n?)(\d+)E", k.group(2)) if k else []
+            name = (f"{k.group(1)}<{','.join(('-' if neg else '') + v for neg, v in args)}>"
+                    if k else m.group(1))
+            spill = 0
+            continue
+        m = re.search(r"(\d+) bytes spill stores", ln)
+        if m and name:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and name:
+            out[name] = [int(m.group(1)), spill]
+            name = None
+    return out
 
 
 def kernel_only_ms(fn, name, reps=5):
@@ -410,9 +454,10 @@ SWEEP_FIELDS = (("drhodt", "drhodt"), ("acc", "acceleration"), ("kernel_w", "ker
                 ("kernel_grad", "kernel_grad"), ("grad_c", "grad_c"), ("div_r", "div_r"))
 
 
-def sweep_diff(k, ref, label):
+def sweep_diff(k, ref, label, scale=None):
     """Largest difference of every field the mode set has, absolute and
-    relative to the field's max; fails on a non-finite value."""
+    relative to the field's max in ``ref`` (or in ``scale``); fails on a
+    non-finite value."""
     res = {}
     for name, field in SWEEP_FIELDS:
         a, b = getattr(k, field), getattr(ref, field)
@@ -424,14 +469,15 @@ def sweep_diff(k, ref, label):
             fail(f"{label}: non-finite {name}")
         d = float((a - b).abs().max())
         res[f"{name}_max_abs"] = d
-        res[f"{name}_rel"] = d / max(float(b.abs().max()), 1e-30)
+        top = b if scale is None else getattr(scale, field)
+        res[f"{name}_rel"] = d / max(float(top.abs().max()), 1e-30)
     return res
 
 
-def compare(sim, p, cs, label, mod=bs, spec=None, quiet=False):
+def compare(sim, p, cs, label, mod=bs):
     """A sweep kernel (``mod``: the block or the cell sweep) against its plain
     version on the same inputs.  Returns the record and the kernel's output."""
-    args = (spec or sim.cfg.spec, sim.cfg.grid, p, cs, p.position, p.density,
+    args = (sim.cfg.spec, sim.cfg.grid, p, cs, p.position, p.density,
             p.pressure, p.velocity)
     sweep, plain = ((bs.block_sweep, bs.block_sweep_plain) if mod is bs
                     else (cw.cell_sweep, cw.cell_sweep_plain))
@@ -442,11 +488,8 @@ def compare(sim, p, cs, label, mod=bs, spec=None, quiet=False):
     res["max_rel"] = max(v for key, v in res.items() if key.endswith("_rel"))
     res["max_abs"] = max(v for key, v in res.items() if key.endswith("_max_abs"))
     res["ok"] = res["max_rel"] < REL_TOL
-    if not quiet:
-        emit(res)
+    emit(res)
     if not res["ok"]:
-        if quiet:
-            emit(res)
         fail(f"{label}: kernel and plain version disagree")
     return res, k
 
@@ -463,13 +506,18 @@ def stirred_state(sim, seed=1):
                      pressure=eq.pressure(p.density, sim.cfg.spec.constants)), cs
 
 
-def compare_cell_modes(sim, p, cs, label):
-    """The cell sweep against its plain version for every viscosity x density
-    diffusion x kernel family, PLANAR shifting and kernel output STORE on:
-    all six fields of all 32 mode sets."""
+def compare_modes(sim, p, cs, label_cell, label_block):
+    """Both sweep kernels against their plain version for every viscosity x
+    density diffusion x kernel family, PLANAR shifting and kernel output STORE
+    on: all six fields of all 32 mode sets, the plain version run once per
+    mode; and the block kernel against the cell kernel in the same mode (the
+    two share their pair physics).  Emits one line per kernel."""
     spec0 = sim.cfg.spec
     kern = spec0.kernel
-    worst, worst_mode, per_mode = 0.0, None, {}
+    args = (sim.cfg.grid, p, cs, p.position, p.density, p.pressure, p.velocity)
+    worst = {"cell": (0.0, None), "block": (0.0, None), "pair": (0.0, None)}
+    per_mode = {"cell": {}, "block": {}, "pair": {}}
+    bitwise = 0
     for family in T.KernelFamily:
         fam_kern = T.make_kernel(family, kern.dims, h=kern.h, k=kern.k)
         for visc in T.ViscosityModel:
@@ -479,18 +527,37 @@ def compare_cell_modes(sim, p, cs, label):
                     shifting=T.ShiftingMode.PLANAR,
                     kernel_output=T.KernelOutputMode.STORE)
                 mode = f"{family.name}/{visc.name}/{diff.name}"
-                res, _ = compare(sim, p, cs, f"{label}:{mode}", mod=cw, spec=spec,
-                                 quiet=True)
-                if sum(k.endswith("_rel") for k in res) != len(SWEEP_FIELDS) + 1:
-                    fail(f"{label}:{mode}: not all six fields compared")
-                per_mode[mode] = res["max_rel"]
-                if res["max_rel"] >= worst:
-                    worst, worst_mode = res["max_rel"], mode
-    out = {"phase": label, "n": int(p.active.sum()), "modes": len(per_mode),
-           "fields": len(SWEEP_FIELDS), "max_rel": worst, "worst_mode": worst_mode,
-           "max_rel_per_mode": per_mode, "ok": worst < REL_TOL}
-    emit(out)
-    return out
+                ref = bs.block_sweep_plain(spec, *args, block_size=4096)
+                outs = {"cell": cw.cell_sweep(spec, *args), "block": bs.block_sweep(spec, *args)}
+                torch.cuda.synchronize()
+                diffs = {name: sweep_diff(o, ref, f"{name}:{mode}") for name, o in outs.items()}
+                # the two kernels' difference relative to the plain field's max
+                pair = sweep_diff(outs["block"], outs["cell"], f"block-cell:{mode}",
+                                  scale=ref)
+                for name, d in diffs.items():
+                    if sum(k.endswith("_rel") for k in d) != len(SWEEP_FIELDS):
+                        fail(f"{name}:{mode}: not all six fields compared")
+                    per_mode[name][mode] = max(v for k, v in d.items() if k.endswith("_rel"))
+                per_mode["pair"][mode] = max(v for k, v in pair.items() if k.endswith("_rel"))
+                bitwise += all(v == 0.0 for k, v in pair.items() if k.endswith("_max_abs"))
+                for name in worst:
+                    if per_mode[name][mode] >= worst[name][0]:
+                        worst[name] = (per_mode[name][mode], mode)
+    n = int(p.active.sum())
+    cell = {"phase": label_cell, "n": n, "modes": len(per_mode["cell"]),
+            "fields": len(SWEEP_FIELDS), "max_rel": worst["cell"][0],
+            "worst_mode": worst["cell"][1], "max_rel_per_mode": per_mode["cell"],
+            "ok": worst["cell"][0] < REL_TOL}
+    block = {"phase": label_block, "n": n, "modes": len(per_mode["block"]),
+             "fields": len(SWEEP_FIELDS), "max_rel": worst["block"][0],
+             "worst_mode": worst["block"][1], "max_rel_per_mode": per_mode["block"],
+             "vs_cell_kernel_max_rel": worst["pair"][0],
+             "vs_cell_kernel_worst_mode": worst["pair"][1],
+             "modes_bitwise_equal_to_cell_kernel": bitwise,
+             "ok": worst["block"][0] < REL_TOL and worst["pair"][0] < REL_TOL}
+    emit(cell)
+    emit(block)
+    return cell, block
 
 
 def moment_args(sim, p, cs):
@@ -593,21 +660,22 @@ def sweep_work(sim, p, cs, reads_cell=True, lo=0, hi=None,
     n, d = p.position.shape
     # inputs read once (position, velocity, density, pressure, motion
     # limiter, active, cell_start; the block sweep reads the cell coordinates
-    # too) + the [N, 1+D] f32 output
+    # too) + the [N, K] f32 output (K = 1+D without STORE and PLANAR)
+    k_out = bs.n_sums(sim.cfg.spec, d)
     nbytes = (n * (2 * d + 3) * p.position.element_size() + n
-              + (n * d * 4 if reads_cell else 0) + cs.numel() * 4 + n * (1 + d) * 4)
+              + (n * d * 4 if reads_cell else 0) + cs.numel() * 4 + n * k_out * 4)
     c_cand, c_pair, c_appr = op_costs or (OPS_CANDIDATE, OPS_PAIR, OPS_APPROACH)
     ops = c_cand * n_cand + c_pair * n_pair + c_appr * n_appr
     return n_cand, n_pair, n_appr, nbytes, ops
 
 
-def sweep_numbers(sim, p, cs, mod=bs, plain_reps=2):
+def sweep_numbers(sim, p, cs, mod=bs, plain_reps=2, op_costs=None):
     """A sweep kernel (the block or the cell sweep) on this state: the
     wrapper's and the plain version's time per call (CUDA events), this
     state's work and the bound it gives.  The work count is that of the
-    ARTIFICIAL + LINEAR model set without extras, which every path that calls
-    this runs."""
-    n_cand, n_pair, n_appr, nbytes, ops = sweep_work(sim, p, cs, reads_cell=mod is bs)
+    ARTIFICIAL + LINEAR model set without extras, or ``op_costs``."""
+    n_cand, n_pair, n_appr, nbytes, ops = sweep_work(sim, p, cs, reads_cell=mod is bs,
+                                                     op_costs=op_costs)
     args = (sim.cfg.spec, sim.cfg.grid, p, cs, p.position, p.density,
             p.pressure, p.velocity)
     sweep, plain = ((bs.block_sweep, bs.block_sweep_plain) if mod is bs
@@ -968,6 +1036,19 @@ def end_summary(state):
             "dt": float(state.current_dt), "rebuilds": state.rebuilds}
 
 
+def in_trajectory_bands(end, ref):
+    """The bands of tests/test_trajectory.py:64-70; the largest differences."""
+    scale = float(np.abs(ref["pos"]).max())
+    diffs = {k: float(np.abs(end[k] - ref[k]).max()) for k in ("pos", "vel", "dens")}
+    ok = bool(
+        abs(end["total_time"] - ref["total_time"]) <= 1e-12 * abs(ref["total_time"])
+        and abs(end["dt"] - ref["dt"]) <= 1e-12 * abs(ref["dt"])
+        and np.allclose(end["pos"], ref["pos"], rtol=1e-9, atol=1e-9 * scale)
+        and np.allclose(end["vel"], ref["vel"], rtol=1e-7, atol=1e-8)
+        and np.allclose(end["dens"], ref["dens"], rtol=1e-9, atol=1e-6))
+    return ok, diffs
+
+
 def run_sharded_phase(sim, single_end, label, mdbc_on, sweep="block", falling=True,
                       rho_band=0.02):
     """``run_phase`` for 4 slabs: the same 10 + 200 steps through
@@ -1019,15 +1100,7 @@ def run_sharded_phase(sim, single_end, label, mdbc_on, sweep="block", falling=Tr
                                    pos0[order0][fixed0[order0]]))
     rho_b = p.density[(p.ptype == int(T.ParticleType.FIXED)) & p.active]
     end = end_summary(state)
-    scale = float(np.abs(single_end["pos"]).max())
-    diffs = {k: float(np.abs(end[k] - single_end[k]).max()) for k in ("pos", "vel", "dens")}
-    # tests/test_trajectory.py:64-70
-    in_bands = bool(
-        abs(end["total_time"] - single_end["total_time"]) <= 1e-12 * abs(single_end["total_time"])
-        and abs(end["dt"] - single_end["dt"]) <= 1e-12 * abs(single_end["dt"])
-        and np.allclose(end["pos"], single_end["pos"], rtol=1e-9, atol=1e-9 * scale)
-        and np.allclose(end["vel"], single_end["vel"], rtol=1e-7, atol=1e-8)
-        and np.allclose(end["dens"], single_end["dens"], rtol=1e-9, atol=1e-6))
+    in_bands, diffs = in_trajectory_bands(end, single_end)
     C = p.capacity // N_SLABS
     run = {
         "phase": label, "n": n, "slabs": N_SLABS, "cards": torch.cuda.device_count(),
@@ -1146,9 +1219,10 @@ def window_numbers(simg, p, cs, mod, halo, r=1, plain_reps=2, op_costs=None):
                                                 op_costs=op_costs)
     ne, d = f["position"].shape
     # the window's fields read once, the slab's cell / active, cell_start, and
-    # the slab's [C, 1+D] f32 output
+    # the slab's [C, K] f32 output
     nbytes = (ne * (2 * d + 3) * p.position.element_size() + C
-              + (C * d * 4 if mod is bs else 0) + cs.numel() * 4 + C * (1 + d) * 4)
+              + (C * d * 4 if mod is bs else 0) + cs.numel() * 4
+              + C * bs.n_sums(simg.cfg.spec, d) * 4)
     window, plain = ((bs.block_sweep_window, bs.block_sweep_plain) if mod is bs
                      else (cw.cell_sweep_window, cw.cell_sweep_plain))
     args = (simg.cfg.spec, simg.cfg.grid, pl, cs_ext, f["position"], f["density"],
@@ -1173,6 +1247,7 @@ def main():
         print("chip_smoke: no CUDA device - this script runs on the card only",
               file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     kind = torch.cuda.get_device_name(0)
@@ -1186,18 +1261,18 @@ def main():
     secs = _build.build_all()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "per_source": secs,
-          "ptxas": {k: [ln for ln in v.splitlines() if "registers" in ln or "spill" in ln][:8]
-                    for k, v in _build.build_logs.items()}})
+          "ptxas": {k: ptxas_report(v) for k, v in _build.build_logs.items()}})
 
     # 3 - block-sweep parity on the initial lattices; 11 - the cell sweep on
-    # the same states, on stirred copies, and in every mode
+    # the same states, on stirred copies, and both sweeps in every mode
     sim3 = assemble(case_3d())
     p3, cs3 = falling_state(sim3)
     par3, _ = compare(sim3, p3, cs3, "parity_3d")
     parc3, _ = compare(sim3, p3, cs3, "parity_cell_3d", mod=cw)
     p3, cs3 = stirred_state(sim3)
     parc3s, _ = compare(sim3, p3, cs3, "parity_cell_3d_stirred", mod=cw)
-    modes3 = compare_cell_modes(sim3, p3, cs3, "parity_cell_modes_3d")
+    modes3, bmodes3 = compare_modes(sim3, p3, cs3, "parity_cell_modes_3d",
+                                    "parity_block_modes_3d")
     del p3, cs3
     sim2 = assemble(case_2d())
     p2, cs2 = falling_state(sim2)
@@ -1205,10 +1280,14 @@ def main():
     compare(sim2, p2, cs2, "parity_cell_2d", mod=cw)
     p2, cs2 = stirred_state(sim2)
     compare(sim2, p2, cs2, "parity_cell_2d_stirred", mod=cw)
-    modes2 = compare_cell_modes(sim2, p2, cs2, "parity_cell_modes_2d")
+    modes2, bmodes2 = compare_modes(sim2, p2, cs2, "parity_cell_modes_2d",
+                                    "parity_block_modes_2d")
     del sim2, p2, cs2
     if not (modes3["ok"] and modes2["ok"]):
         fail("parity_cell_modes: kernel and plain version disagree")
+    if not (bmodes3["ok"] and bmodes2["ok"]):
+        fail("parity_block_modes: the block kernel disagrees with its plain version "
+             "or with the cell kernel")
 
     # 4-6 - the dam-break path: run, breakdown, parity on the end state
     state, run = run_phase(sim3, "run", mdbc_on=False)
@@ -1432,7 +1511,7 @@ def main():
     torch.cuda.empty_cache()
 
     # 14 - the moving-square path: motion, shifting, SPS, STORE, the cell sweep
-    case_sq = moving_square_case()
+    case_sq = moving_square_case(block_sweep=False)
     simq = assemble_moving_square(case_sq)
     if simq.n_live < 250000:
         fail(f"the moving-square case has only {simq.n_live} particles")
@@ -1449,21 +1528,18 @@ def main():
         fail("run_moving_square: not all six fields compared")
     moving_square_checks(simq, case_sq, state, outq, "run_moving_square",
                          WARM_STEPS + STEPS)
-    argq = (simq.cfg.spec, simq.cfg.grid, pf, csf, pf.position, pf.density,
-            pf.pressure, pf.velocity)
+    numq = sweep_numbers(simq, pf, csf, mod=cw, op_costs=OPS_2D_ALL_EXTRAS)
     cell_entry.update(
         launches_moving_square_path=runq["launches"],
         max_abs_err_moving_square_path=parq["max_abs"],
         max_rel_err_moving_square_path=parq["max_rel"],
-        ms_moving_square_path=time_cuda(lambda: cw.cell_sweep(*argq), 20),
         kernel_only_ms_moving_square_path=brkq.get("cell_sweep_kernel_only_ms",
                                                    "not measured"),
-        plain_ms_moving_square_path=time_cuda(
-            lambda: cw.cell_sweep_plain(*argq, block_size=4096), 2))
+        **{f"{k}_moving_square_path": v for k, v in numq.items()})
 
     # 16 - the sharded moving square: the cell sweep on the halo, all extras
     single_end = end_summary(state)
-    del state, pf, csf, argq, outq
+    del state, pf, csf, outq
     sim_sh, states_sh, state_sh, run_shq = run_sharded_phase(
         simq, single_end, "run_sharded_square", mdbc_on=False, sweep="cell",
         falling=False, rho_band=1.5 * SQUARE_SPEED / case_sq[3].c0)
@@ -1493,7 +1569,74 @@ def main():
         **window_numbers(simg, pe, cse, cw, haloq, op_costs=OPS_2D_ALL_EXTRAS),
         "grid_cells": simg.cfg.grid.ncells,
     }
+    del simq, sim_sh, states_sh, state_sh, simg, pe, cse, outq
+    torch.cuda.empty_cache()
 
+    # 17 - the moving square as the deck runs it: block_sweep=True, the rule
+    # picks the block sweep (its 2D all-extras instance); the end state held
+    # against the cell-sweep run of the same steps
+    case_b = moving_square_case()
+    simb = assemble_moving_square(case_b)
+    state, runb = run_phase(simb, "run_moving_square_block", mdbc_on=False,
+                            sweep="block", falling=False,
+                            rho_band=1.5 * SQUARE_SPEED / case_b[3].c0)
+    brkb = breakdown_phase(simb, state, runb, "breakdown_moving_square_block")
+    pf, csf = state.particles, state.cell_start
+    parb, outb = compare(simb, pf, csf, "parity_block_moving_square_after_run")
+    if sum(k.endswith("_rel") for k in parb) != len(SWEEP_FIELDS) + 1:
+        fail("run_moving_square_block: not all six fields compared")
+    moving_square_checks(simb, case_b, state, outb, "run_moving_square_block",
+                         WARM_STEPS + STEPS)
+    end_b = end_summary(state)
+    in_bands, diffs = in_trajectory_bands(end_b, single_end)
+    emit({"phase": "run_moving_square_block_vs_cell_run", "in_bands": in_bands,
+          "max_abs": diffs, "bitwise": all(v == 0.0 for v in diffs.values()),
+          "rebuilds": [end_b["rebuilds"], single_end["rebuilds"]]})
+    if not in_bands:
+        fail("run_moving_square_block: the end state left the trajectory bands "
+             "of the cell-sweep run")
+    numb = sweep_numbers(simb, pf, csf, op_costs=OPS_2D_ALL_EXTRAS)
+    sweep_entry.update(
+        launches_moving_square_path=runb["launches"],
+        max_abs_err_moving_square_path=parb["max_abs"],
+        max_rel_err_moving_square_path=parb["max_rel"],
+        max_rel_err_modes=max(bmodes3["max_rel"], bmodes2["max_rel"]),
+        max_rel_vs_cell_kernel_modes=max(bmodes3["vs_cell_kernel_max_rel"],
+                                         bmodes2["vs_cell_kernel_max_rel"]),
+        kernel_only_ms_moving_square_path=brkb.get("block_sweep_kernel_only_ms",
+                                                   "not measured"),
+        **{f"{k}_moving_square_path": v for k, v in numb.items()})
+    del state, pf, csf, outb
+
+    # 18 - the same deck on 4 slabs: the block sweep on the halo (B2), its
+    # all-extras 2D instance; bitwise the single-device block run
+    sim_sh, states_sh, state_sh, run_shb = run_sharded_phase(
+        simb, end_b, "run_sharded_square_block", mdbc_on=False, sweep="block",
+        falling=False, rho_band=1.5 * SQUARE_SPEED / case_b[3].c0)
+    if not run_shb["vs_single_device_bitwise"]:
+        fail("run_sharded_square_block: the sharded end state differs from the "
+             "single-device block run")
+    haloq = sim_sh.cfg.halo
+    simg = unsharded(sim_sh)
+    pe, cse = state_sh.particles, state_sh.cell_start
+    parw_blockq = compare_window(sim_sh, simg, pe, cse, "sharded_parity_block_square", bs)
+    outb = bs.block_sweep(simg.cfg.spec, simg.cfg.grid, pe, cse, pe.position, pe.density,
+                          pe.pressure, pe.velocity)
+    moving_square_checks(simb, case_b, state_sh, outb, "run_sharded_square_block",
+                         WARM_STEPS + STEPS)
+    window_entry.update(
+        launches_moving_square_path=run_shb["launches"],
+        launches_per_step_per_slab_moving_square_path=run_shb["launches_per_step_per_slab"],
+        halo_rows_moving_square_path=haloq,
+        slabs_vs_single_bitwise_moving_square_path=parw_blockq[
+            f"halo_{haloq}_slabs_vs_single_bitwise"],
+        end_state_vs_single_bitwise_moving_square_path=run_shb["vs_single_device_bitwise"],
+        max_rel_err_moving_square_path=parw_blockq[f"halo_{haloq}_window_vs_plain_max_rel"],
+        max_abs_err_moving_square_path=parw_blockq[f"halo_{haloq}_window_vs_plain_max_abs"],
+        **{f"{k}_moving_square_path": v for k, v in
+           window_numbers(simg, pe, cse, bs, haloq, op_costs=OPS_2D_ALL_EXTRAS).items()})
+
+    emit({"phase": "elapsed", "seconds": time.perf_counter() - t_start})
     # 15 - the kernel line
     emit({"kernels": [sweep_entry, window_entry, cell_entry, cell_window_entry,
                       mdbc_entry]})

@@ -60,9 +60,8 @@ def choose_sweep_kernel(block_sweep: bool, capacity: int) -> str:
     """The sweep kernel of a deck, by the JAX package's own rule
     (``sphexample_tpu/core/driver.py:149-169``): ``"block"`` when
     ``meta.block_sweep`` is set and the particle capacity is within
-    ``BLOCK_CAP_LIMIT``, else ``"cell"``.  The model set plays no part: one
-    that the block sweep does not compute raises there, naming
-    ``block_sweep=False``."""
+    ``BLOCK_CAP_LIMIT``, else ``"cell"``.  The model set plays no part: both
+    kernels compute every model and mode."""
     return "block" if block_sweep and capacity <= BLOCK_CAP_LIMIT else "cell"
 
 

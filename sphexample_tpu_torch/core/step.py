@@ -32,10 +32,9 @@ and the rebuild records in ``max_halo`` how far any window or migration
 reached past a slab: the driver raises when that passes ``cfg.halo``.
 
 The two sweeps go through ``cfg.sweep_kernel``: ``"block"``
-(``ops/block_sweep.py``, one thread per self; ZERO / ARTIFICIAL viscosity and
-ZERO / LINEAR diffusion only) or ``"cell"`` (``ops/cell_sweep.py``, one block
-per cell; every model and mode).  ``assemble_simulation`` chooses; nothing re-routes a
-model set that the chosen kernel does not compute - it raises.
+(``ops/block_sweep.py``, one thread per self) or ``"cell"``
+(``ops/cell_sweep.py``, one block per cell); both compute every model and
+mode.  ``assemble_simulation`` chooses by the JAX package's rule.
 
 The lazy rebuild is a host ``if`` on the displacement accumulator: one
 device-to-host sync per step (the JAX package decides it on the device with

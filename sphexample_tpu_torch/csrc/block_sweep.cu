@@ -14,9 +14,11 @@
 // For each of the 3^(D-1) stencil rows it takes the contiguous candidate
 // range [cell_start[key_lo], cell_start[key_hi + 1]) exactly as
 // ops/cell_list.py::row_segments computes it (x-range clamped to the grid
-// edge, rows outside the grid empty), loops over j, and accumulates drho and
-// acc in f32 registers.  One output row [drho, acc_0..acc_{D-1}] per self, in
-// sorted order.  Each pair is computed from both endpoints: no atomics.
+// edge, rows outside the grid empty), loops over j, and accumulates its K =
+// (1+D)(1 + STORE + PLANAR) sums in f32 registers: drho, dv/dt, then W,
+// grad W, then grad C, div r (the cell sweep's column order).  One output row
+// per self, in sorted order.  Each pair is computed from both endpoints: no
+// atomics.
 // Self is excluded (j != i), the support cutoff is d2 <= H2, and the
 // density-diffusion role is cell-centric: for a pair in the self's own cell
 // [s_i, e_i) the i role goes to the lower sorted index, across cells to the
@@ -26,11 +28,11 @@
 // Fields: the wrapper packs per row, in f32, position, velocity, the
 // GUARDED density (padding rows carry 1, never 0) with its reciprocal,
 // pressure and motion limiter (pack_fields in ops/block_sweep.py).  The pair
-// math is the plain form of ops/interactions.py (grad W as a scalar factor
-// times x_ij, computed per pair; pair geometry elementwise, never through
-// |xi|^2 - 2 xi.xj + |xj|^2), with 1/rho read from the pack instead of a
-// division.  Summation order differs from the plain version, so results
-// agree to f32 rounding, not bit for bit.
+// math is csrc/sph_pair_math.cuh (add_pair), shared with the cell sweep as
+// the TPU kernels share ::_pair_math; d2 is summed unfused there, so that in
+// 2D the cutoff is the plain version's bit for bit (the MovingSquare deck's
+// k = sqrt 2 cuts W where it is not yet zero).  Summation order differs from
+// the plain version, so results agree to f32 rounding, not bit for bit.
 //
 // The self window (the sharded path; replaces
 // sphexample_tpu/ops/pallas_block_sweep.py::pallas_block_sweep_sharded, the
@@ -38,7 +40,7 @@
 // there are selves.  Selves are the pack rows [self_off, self_off + n) - a
 // slab of the global sorted order between its left and right halo rows, or
 // inside the whole gathered array; ``cell`` and ``active`` hold the n self
-// rows only, the output is [n, 1+D], and cell_start arrives rebased to the
+// rows only, the output is [n, K], and cell_start arrives rebased to the
 // pack's rows and clamped to them.  A rigid shift keeps the order of two
 // sorted indices, so the role rule compares pack rows and no global index
 // rides the exchange (the TPU kernel packs it as f32, whence its 2^24-row
@@ -47,9 +49,13 @@
 // that reaches past the halo is cut by the clamp without a sign: the step's
 // max_halo telemetry guards that.  Single device: self_off = 0.
 //
-// Specialised by template on dims (2, 3), kernel family (Wendland C2, cubic
-// spline), viscosity (ZERO, ARTIFICIAL) and density diffusion (ZERO,
-// LINEAR).  The wrapper raises NotImplementedError for any other model.
+// Instances (32): the main path's models pinned by template - dims (2, 3),
+// kernel family (Wendland C2, cubic spline), viscosity (ZERO, ARTIFICIAL),
+// density diffusion (ZERO, LINEAR), no kernel output, no shifting: variants
+// 0-15 - and every other model set templated as the cell sweep is, on dims,
+// LAMINAR_SPS, STORE and PLANAR, with the kernel family, the other
+// viscosities and the density diffusion as grid-uniform run-time branches on
+// SweepParams: variants 16-31.
 //
 // What bounds it on the H100: the operation count.  A candidate costs about
 // 10 f32 operations to reject (difference, squared distance, compare) and an
@@ -69,7 +75,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "sph_kernel_functions.cuh"
+#include "sph_pair_math.cuh"
 
 extern "C" {
 
@@ -79,6 +85,9 @@ struct SweepParams {
     int cmin[3];
     int shape[3];
     int strides[3];
+    int family;       // WENDLAND / CUBIC
+    int viscosity;    // VISC_*
+    int diffusion;    // DIFF_*
     float H2;         // support radius squared
     float h;
     float h_inv;
@@ -89,6 +98,12 @@ struct SweepParams {
     float alpha_c0;      // alpha * c0 (artificial viscosity)
     float diff_fac;      // delta_sph * h * c0 (density diffusion)
     float C_lin;         // linear hydrostatic constant
+    float rho0;
+    float rho0_g;        // rho0 * g: P_h = rho0_g * x_ij[last]
+    float Cb_inv;
+    float lam_fac;       // 4 m0 nu0 (laminar viscosity)
+    float cs2_dx2;       // (smagorinsky_constant dx)^2
+    float blin_dx2;      // blin_constant dx^2
     float cubic_eps;
     float w_dx_inv;      // 1 / W(dx), cubic tensile correction
 };
@@ -97,7 +112,7 @@ struct SweepParams {
 
 namespace {
 
-template <int D, int FAM, bool VISC, bool DIFF>
+template <int D, int FAM, int VISC, int DIFF, bool SPS, bool STORE, bool SHIFT>
 __global__ void __launch_bounds__(128)
 block_sweep_kernel(const SweepParams P,
                    const float4* __restrict__ pack,
@@ -105,13 +120,14 @@ block_sweep_kernel(const SweepParams P,
                    const int* __restrict__ cell_start,
                    const unsigned char* __restrict__ active,
                    float* __restrict__ out) {
+    constexpr int K = n_sums<D, STORE, SHIFT>();
     const int r = blockIdx.x * blockDim.x + threadIdx.x;   // self row
     if (r >= P.n) return;
     const int i = P.self_off + r;                          // its pack row
-    float* o = out + (size_t)r * (D + 1);
+    float* o = out + (size_t)r * K;
     if (!active[r]) {
 #pragma unroll
-        for (int k = 0; k <= D; ++k) o[k] = 0.0f;
+        for (int k = 0; k < K; ++k) o[k] = 0.0f;
         return;
     }
 
@@ -129,10 +145,9 @@ block_sweep_kernel(const SweepParams P,
     const int x_lo = min(max(rel[0] - 1, 0), P.shape[0] - 1);
     const int x_hi = min(max(rel[0] + 1, 0), P.shape[0] - 1);
 
-    float drho = 0.0f;
-    float acc[D];
+    float acc[K];
 #pragma unroll
-    for (int d = 0; d < D; ++d) acc[d] = 0.0f;
+    for (int k = 0; k < K; ++k) acc[k] = 0.0f;
 
     constexpr int R2 = (D == 3) ? 1 : 0;
     for (int r2 = -R2; r2 <= R2; ++r2) {
@@ -150,69 +165,25 @@ block_sweep_kernel(const SweepParams P,
             for (int j = jb; j < je; ++j) {
                 const Row c = load_row<D>(pack, j);
                 float xij[D];
-                float d2 = 0.0f;
-#pragma unroll
-                for (int d = 0; d < D; ++d) {
-                    xij[d] = s.x[d] - c.x[d];
-                    d2 += xij[d] * xij[d];
-                }
+                const float d2 = pair_distance2<D>(s, c, xij);
                 if (d2 > P.H2 || j == i) continue;
-
-                const float dist = sqrtf(d2);
-                const float q = fminf(dist * P.h_inv, 2.0f);
-                const float fac = grad_factor<FAM>(P, q, dist);
-                float vdotx = 0.0f;
-#pragma unroll
-                for (int d = 0; d < D; ++d) vdotx += (s.v[d] - c.v[d]) * xij[d];
-
-                // continuity: -rho_i (m0/rho_j) (-v_ij . gradW)
-                float dr = s.rho * P.m0 * c.rcp * fac * vdotx;
-                if constexpr (DIFF) {
-                    const bool same_cell = (j >= s_i) && (j < e_i);
-                    const bool role_i = same_cell ? (i < j) : (i > j);
-                    const float rho_h = P.C_lin * xij[D - 1];
-                    // psi . gradW = 2 (rho_j - rho_i - rho_h)/(d2 + eta2) * (-fac d2)
-                    const float psi_gw = 2.0f * ((c.rho - s.rho) - rho_h) / (d2 + P.eta2)
-                                         * (-fac * d2);
-                    const float vol = P.m0 * (role_i ? c.rcp : s.rcp);
-                    dr += P.diff_fac * vol * psi_gw * (s.ml * c.ml);
-                }
-                drho += dr;
-
-                // momentum: -m0 ((p_i + p_j)/(rho_i rho_j) + f_ab) gradW
-                float pfac = (s.p + c.p) * (s.rcp * c.rcp);
-                if constexpr (FAM == CUBIC) {
-                    const float ratio = kernel_value<FAM>(P, q) * P.w_dx_inv;
-                    const float ratio2 = ratio * ratio;
-                    pfac += P.cubic_eps * (s.p * s.rcp * s.rcp + c.p * c.rcp * c.rcp)
-                            * (ratio2 * ratio2);
-                }
-                float A = -P.m0 * pfac;
-                if constexpr (VISC) {
-                    if (vdotx < 0.0f) {
-                        // Monaghan: m0 alpha c0 mu / rho_bar, mu = h v.x/(d2+eta2)
-                        const float mu = P.h * vdotx / (d2 + P.eta2);
-                        A += P.m0 * P.alpha_c0 * mu / (0.5f * (s.rho + c.rho));
-                    }
-                }
-                const float Af = A * fac;
-#pragma unroll
-                for (int d = 0; d < D; ++d) acc[d] += Af * xij[d];
+                const bool same_cell = (j >= s_i) && (j < e_i);
+                add_pair<D, SPS, STORE, SHIFT, FAM, VISC, DIFF>(
+                    P, s, c, xij, d2, same_cell ? (i < j) : (i > j), acc);
             }
         }
     }
-    o[0] = drho;
 #pragma unroll
-    for (int d = 0; d < D; ++d) o[1 + d] = acc[d];
+    for (int k = 0; k < K; ++k) o[k] = acc[k];
 }
 
-template <int D, int FAM, bool VISC, bool DIFF>
+template <int D, int FAM, int VISC, int DIFF, bool SPS, bool STORE, bool SHIFT>
 cudaError_t launch(const SweepParams& P, const float* pack, const int* cell,
                    const int* cell_start, const unsigned char* active,
                    float* out, cudaStream_t stream) {
     const int threads = 128;
     const int blocks = (P.n + threads - 1) / threads;
-    block_sweep_kernel<D, FAM, VISC, DIFF><<<blocks, threads, 0, stream>>>(
+    block_sweep_kernel<D, FAM, VISC, DIFF, SPS, STORE, SHIFT><<<blocks, threads, 0, stream>>>(
         P, reinterpret_cast<const float4*>(pack), cell, cell_start, active, out);
     return cudaGetLastError();
 }
@@ -221,40 +192,72 @@ cudaError_t launch(const SweepParams& P, const float* pack, const int* cell,
 
 extern "C" {
 
-// variant = dims3 << 3 | cubic << 2 | artificial << 1 | linear.
-// Returns 0, a cudaError_t code, or -1 for an unknown variant.
+// variant 0-15 = dims3 << 3 | cubic << 2 | artificial << 1 | linear (no
+// kernel output, no shifting; the params must name the same models);
+// variant 16-31 = 16 | dims3 << 3 | sps << 2 | store << 1 | shift.
+// Returns 0, a cudaError_t code, or -1 for an unknown variant or mode.
 int sph_block_sweep(const SweepParams* params, int variant, const float* pack,
                     const int* cell, const int* cell_start,
                     const unsigned char* active, float* out, void* stream) {
     const SweepParams P = *params;
     if (P.n <= 0) return 0;
+    if (P.family < WENDLAND || P.family > CUBIC || P.viscosity < VISC_ZERO
+        || P.viscosity > VISC_LAMINAR_SPS || P.diffusion < DIFF_ZERO
+        || P.diffusion > DIFF_COMPLEX)
+        return -1;
+    if (variant >= 0 && variant < 16
+        && (P.family != ((variant >> 2) & 1)
+            || P.viscosity != (((variant >> 1) & 1) ? VISC_ARTIFICIAL : VISC_ZERO)
+            || P.diffusion != ((variant & 1) ? DIFF_LINEAR : DIFF_ZERO)))
+        return -1;
+    if (variant >= 16 && ((variant >> 2) & 1) != (P.viscosity == VISC_LAMINAR_SPS))
+        return -1;
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define SPH_CASE(V, D, F, VI, DI) \
-    case V: return static_cast<int>(launch<D, F, VI, DI>(P, pack, cell, cell_start, active, out, st));
+    constexpr int W = WENDLAND, C = CUBIC, V0 = VISC_ZERO, VA = VISC_ARTIFICIAL;
+    constexpr int D0 = DIFF_ZERO, DL = DIFF_LINEAR, RT = AT_RUN_TIME;
+#define SPH_CASE(V, D, F, VI, DI, SPS, STORE, SHIFT) \
+    case V: return static_cast<int>(launch<D, F, VI, DI, SPS, STORE, SHIFT>( \
+        P, pack, cell, cell_start, active, out, st));
     switch (variant) {
-        SPH_CASE(0, 2, WENDLAND, false, false)
-        SPH_CASE(1, 2, WENDLAND, false, true)
-        SPH_CASE(2, 2, WENDLAND, true, false)
-        SPH_CASE(3, 2, WENDLAND, true, true)
-        SPH_CASE(4, 2, CUBIC, false, false)
-        SPH_CASE(5, 2, CUBIC, false, true)
-        SPH_CASE(6, 2, CUBIC, true, false)
-        SPH_CASE(7, 2, CUBIC, true, true)
-        SPH_CASE(8, 3, WENDLAND, false, false)
-        SPH_CASE(9, 3, WENDLAND, false, true)
-        SPH_CASE(10, 3, WENDLAND, true, false)
-        SPH_CASE(11, 3, WENDLAND, true, true)
-        SPH_CASE(12, 3, CUBIC, false, false)
-        SPH_CASE(13, 3, CUBIC, false, true)
-        SPH_CASE(14, 3, CUBIC, true, false)
-        SPH_CASE(15, 3, CUBIC, true, true)
+        SPH_CASE(0, 2, W, V0, D0, false, false, false)
+        SPH_CASE(1, 2, W, V0, DL, false, false, false)
+        SPH_CASE(2, 2, W, VA, D0, false, false, false)
+        SPH_CASE(3, 2, W, VA, DL, false, false, false)
+        SPH_CASE(4, 2, C, V0, D0, false, false, false)
+        SPH_CASE(5, 2, C, V0, DL, false, false, false)
+        SPH_CASE(6, 2, C, VA, D0, false, false, false)
+        SPH_CASE(7, 2, C, VA, DL, false, false, false)
+        SPH_CASE(8, 3, W, V0, D0, false, false, false)
+        SPH_CASE(9, 3, W, V0, DL, false, false, false)
+        SPH_CASE(10, 3, W, VA, D0, false, false, false)
+        SPH_CASE(11, 3, W, VA, DL, false, false, false)
+        SPH_CASE(12, 3, C, V0, D0, false, false, false)
+        SPH_CASE(13, 3, C, V0, DL, false, false, false)
+        SPH_CASE(14, 3, C, VA, D0, false, false, false)
+        SPH_CASE(15, 3, C, VA, DL, false, false, false)
+        SPH_CASE(16, 2, RT, RT, RT, false, false, false)
+        SPH_CASE(17, 2, RT, RT, RT, false, false, true)
+        SPH_CASE(18, 2, RT, RT, RT, false, true, false)
+        SPH_CASE(19, 2, RT, RT, RT, false, true, true)
+        SPH_CASE(20, 2, RT, RT, RT, true, false, false)
+        SPH_CASE(21, 2, RT, RT, RT, true, false, true)
+        SPH_CASE(22, 2, RT, RT, RT, true, true, false)
+        SPH_CASE(23, 2, RT, RT, RT, true, true, true)
+        SPH_CASE(24, 3, RT, RT, RT, false, false, false)
+        SPH_CASE(25, 3, RT, RT, RT, false, false, true)
+        SPH_CASE(26, 3, RT, RT, RT, false, true, false)
+        SPH_CASE(27, 3, RT, RT, RT, false, true, true)
+        SPH_CASE(28, 3, RT, RT, RT, true, false, false)
+        SPH_CASE(29, 3, RT, RT, RT, true, false, true)
+        SPH_CASE(30, 3, RT, RT, RT, true, true, false)
+        SPH_CASE(31, 3, RT, RT, RT, true, true, true)
         default: return -1;
     }
 #undef SPH_CASE
 }
 
 const char* sph_error_string(int code) {
-    if (code == -1) return "unknown sweep variant";
+    if (code == -1) return "unknown sweep variant or mode";
     return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 

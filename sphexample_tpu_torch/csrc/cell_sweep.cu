@@ -47,21 +47,12 @@
 // candidate whatever the self range, so a slab's rows come out bit for bit
 // as the single-device launch gives them.  Single device: self_off = 0.
 //
-// Pair math: the plain form of ops/interactions.py and models/*.py (grad W
-// as a scalar factor times x_ij; pair geometry elementwise, never through
-// |xi|^2 - 2 xi.xj + |xj|^2; m0 explicit in every term), with 1/rho read
-// from the pack.  Self excluded by index, support cutoff d2 <= H2, the
-// density-diffusion role cell-centric: same_cell = cs <= j < ce of the
-// block's own cell, role_i = same_cell ? i < j : i > j.  COMPLEX diffusion
-// evaluates -inv_eos(-P_h) at the j-role endpoint (the inverse EOS is not
-// odd), LAMINAR keeps the reference's (rho_i + rho_j) + (d2 + eta2)
-// denominator, the cubic spline its tensile term with W at the raw q0 = dx,
-// ZERO_GRAVITY_LINEAR is not gated by the motion limiter.  The squared
-// distance is summed unfused, so that in 2D the cutoff takes the plain
-// version's decision bit for bit: a kernel with k != 2 (the MovingSquare
-// deck's sqrt 2) is cut where W is not yet zero, and lattice neighbours sit
-// exactly on that rim.  Summation order differs from the plain version:
-// agreement to f32 rounding, not bit for bit.
+// Pair math: csrc/sph_pair_math.cuh::add_pair, shared with the block sweep
+// as the TPU kernels share ::_pair_math.  Self excluded by index, support
+// cutoff d2 <= H2 on the unfused d2 of pair_distance2, the density-diffusion
+// role cell-centric: same_cell = cs <= j < ce of the block's own cell,
+// role_i = same_cell ? i < j : i > j.  Summation order differs from the
+// plain version: agreement to f32 rounding, not bit for bit.
 //
 // Instances: templates on what changes the registers a thread holds - dims
 // (2, 3), the sub-particle-scale stress (LAMINAR_SPS), STORE and PLANAR
@@ -87,12 +78,9 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "sph_kernel_functions.cuh"
+#include "sph_pair_math.cuh"
 
 extern "C" {
-
-enum { VISC_ZERO = 0, VISC_ARTIFICIAL = 1, VISC_LAMINAR = 2, VISC_LAMINAR_SPS = 3 };
-enum { DIFF_ZERO = 0, DIFF_ZERO_GRAVITY_LINEAR = 1, DIFF_LINEAR = 2, DIFF_COMPLEX = 3 };
 
 struct CellSweepParams {
     int n;            // self rows
@@ -129,33 +117,6 @@ namespace {
 
 constexpr int TILE = 128;   // candidate rows staged per barrier
 
-// rho = rho0 ((1 + P/Cb)^(1/7) - 1), odd root by copysign.  P/Cb is ~1e-4,
-// so root - 1 is taken as expm1(log1p(P/Cb) / 7): the same function without
-// the f32 cancellation of forming 1 + P/Cb first.
-__device__ __forceinline__ float inverse_hydrostatic_eos(const CellSweepParams& P, float Ph) {
-    const float y = Ph * P.Cb_inv;
-    if (y > -1.0f) return P.rho0 * expm1f(log1pf(y) * (1.0f / 7.0f));
-    return P.rho0 * (-powf(-(1.0f + y), 1.0f / 7.0f) - 1.0f);
-}
-
-// tau . gradW of the SPS stress built from S = s_fac dv (x) gw and rho_self
-// (models/viscosity.py::_laminar_sps): dev_fac dv |gw|^2 + iso gw
-template <int D>
-__device__ __forceinline__ void sps_tau_dot_gw(const CellSweepParams& P, float s_fac,
-                                               float rho_self, const float* dv,
-                                               const float* gw, float dv2, float gw2,
-                                               float dv_gw, float* t) {
-    const float norm_S2 = 2.0f * (s_fac * s_fac) * dv2 * gw2;
-    const float norm_S = sqrtf(norm_S2);
-    const float nu_t = P.cs2_dx2 * norm_S;
-    const float trace_S = s_fac * dv_gw;
-    const float iso = -(trace_S / 3.0f) * (2.0f * nu_t * rho_self)
-                      - (2.0f / 3.0f) * rho_self * P.blin_dx2 * norm_S2;
-    const float dev_fac = 2.0f * nu_t * rho_self * s_fac;
-#pragma unroll
-    for (int d = 0; d < D; ++d) t[d] += dev_fac * dv[d] * gw2 + iso * gw[d];
-}
-
 template <int D, bool SPS, bool STORE, bool SHIFT>
 __global__ void __launch_bounds__((D == 3) ? 64 : 32)
 cell_sweep_kernel(const CellSweepParams P,
@@ -163,9 +124,7 @@ cell_sweep_kernel(const CellSweepParams P,
                   const int* __restrict__ cell_start,
                   float* __restrict__ out) {
     constexpr int NV = (D == 3) ? 3 : 2;               // float4s per packed row
-    constexpr int K = (1 + D) * (1 + (STORE ? 1 : 0) + (SHIFT ? 1 : 0));
-    constexpr int K_W = 1 + D;                          // W, grad W
-    constexpr int K_C = (1 + D) * (1 + (STORE ? 1 : 0));  // grad C, div r
+    constexpr int K = n_sums<D, STORE, SHIFT>();
     __shared__ float4 tile[TILE * NV];
 
     const int c = blockIdx.x;
@@ -182,7 +141,6 @@ cell_sweep_kernel(const CellSweepParams P,
     rel[2] = (D == 3) ? t / P.shape[1] : 0;
     const int x_lo = max(rel[0] - 1, 0);
     const int x_hi = min(rel[0] + 1, P.shape[0] - 1);
-    const bool cubic = P.family == CUBIC;
 
     for (int base = lo; base < hi; base += blockDim.x) {
         const int i = base + threadIdx.x;
@@ -216,111 +174,11 @@ cell_sweep_kernel(const CellSweepParams P,
                         const int j = t0 + jj;
                         const Row n = load_row<D>(tile, jj);
                         float xij[D];
-                        float d2 = 0.0f;
-#pragma unroll
-                        for (int d = 0; d < D; ++d) {
-                            xij[d] = s.x[d] - n.x[d];
-                            // unfused: the cutoff decides on the plain
-                            // version's d2, bit for bit in 2D - with k != 2
-                            // the kernel is cut where W is not yet zero
-                            d2 = __fadd_rn(d2, __fmul_rn(xij[d], xij[d]));
-                        }
+                        const float d2 = pair_distance2<D>(s, n, xij);
                         if (d2 > P.H2 || j == i) continue;
-
-                        const float dist = sqrtf(d2);
-                        const float q = fminf(dist * P.h_inv, 2.0f);
-                        const float fac = cubic ? grad_factor<CUBIC>(P, q, dist)
-                                                : grad_factor<WENDLAND>(P, q, dist);
-                        float vij[D];
-                        float vdotx = 0.0f;
-#pragma unroll
-                        for (int d = 0; d < D; ++d) {
-                            vij[d] = s.v[d] - n.v[d];
-                            vdotx += vij[d] * xij[d];
-                        }
-                        const float fac_d2 = fac * d2;      // x_ij . gradW
-                        const float mlg = s.ml * n.ml;
-
-                        // continuity: -rho_i (m0/rho_j) (-v_ij . gradW)
-                        float dr = s.rho * P.m0 * n.rcp * fac * vdotx;
-                        if (P.diffusion != DIFF_ZERO) {
-                            const bool same_cell = (j >= cs) && (j < ce);
-                            const bool role_i = same_cell ? (i < j) : (i > j);
-                            float num = n.rho - s.rho;
-                            float gate = mlg;
-                            if (P.diffusion == DIFF_ZERO_GRAVITY_LINEAR) {
-                                gate = 1.0f;
-                            } else if (P.diffusion == DIFF_LINEAR) {
-                                num -= P.C_lin * xij[D - 1];
-                            } else {
-                                const float Ph = P.rho0_g * xij[D - 1];
-                                num -= role_i ? inverse_hydrostatic_eos(P, Ph)
-                                              : -inverse_hydrostatic_eos(P, -Ph);
-                            }
-                            // psi . gradW = 2 num / (d2 + eta2) * (-x_ij . gradW)
-                            const float psi_gw = 2.0f * num / (d2 + P.eta2) * (-fac_d2);
-                            const float vol = P.m0 * (role_i ? n.rcp : s.rcp);
-                            dr += P.diff_fac * vol * psi_gw * gate;
-                        }
-                        acc[0] += dr;
-
-                        // momentum: -m0 ((p_i + p_j)/(rho_i rho_j) + f_ab) gradW
-                        float pfac = (s.p + n.p) * (s.rcp * n.rcp);
-                        if (cubic) {
-                            const float ratio = kernel_value<CUBIC>(P, q) * P.w_dx_inv;
-                            const float ratio2 = ratio * ratio;
-                            pfac += P.cubic_eps * (s.p * s.rcp * s.rcp + n.p * n.rcp * n.rcp)
-                                    * (ratio2 * ratio2);
-                        }
-                        float A = -P.m0 * pfac;
-                        if (P.viscosity == VISC_ARTIFICIAL) {
-                            if (vdotx < 0.0f) {
-                                // Monaghan: m0 alpha c0 mu / rho_bar, mu = h v.x/(d2+eta2)
-                                const float mu = P.h * vdotx / (d2 + P.eta2);
-                                A += P.m0 * P.alpha_c0 * mu / (0.5f * (s.rho + n.rho));
-                            }
-                        }
-                        const float Af = A * fac;
-#pragma unroll
-                        for (int d = 0; d < D; ++d) acc[1 + d] += Af * xij[d];
-                        if (P.viscosity >= VISC_LAMINAR) {
-                            // 4 m0 nu0 (x.gradW) / ((rho_i + rho_j) + (d2 + eta2)) v_ij
-                            const float term = P.lam_fac * fac_d2
-                                               / ((s.rho + n.rho) + (d2 + P.eta2));
-#pragma unroll
-                            for (int d = 0; d < D; ++d) acc[1 + d] += term * vij[d];
-                        }
-                        if constexpr (SPS) {
-                            float dv[D], gw[D], tt[D];
-                            float dv2 = 0.0f, gw2 = 0.0f, dv_gw = 0.0f;
-#pragma unroll
-                            for (int d = 0; d < D; ++d) {
-                                dv[d] = -vij[d];
-                                gw[d] = fac * xij[d];
-                                dv2 += dv[d] * dv[d];
-                                gw2 += gw[d] * gw[d];
-                                dv_gw += dv[d] * gw[d];
-                                tt[d] = 0.0f;
-                            }
-                            sps_tau_dot_gw<D>(P, P.m0 * n.rcp, s.rho, dv, gw, dv2, gw2, dv_gw, tt);
-                            sps_tau_dot_gw<D>(P, P.m0 * s.rcp, n.rho, dv, gw, dv2, gw2, dv_gw, tt);
-                            const float tf = P.m0 * (s.rcp * n.rcp);
-#pragma unroll
-                            for (int d = 0; d < D; ++d) acc[1 + d] += tf * tt[d];
-                        }
-                        if constexpr (STORE) {
-                            acc[K_W] += cubic ? kernel_value<CUBIC>(P, q)
-                                              : kernel_value<WENDLAND>(P, q);
-#pragma unroll
-                            for (int d = 0; d < D; ++d) acc[K_W + 1 + d] += fac * xij[d];
-                        }
-                        if constexpr (SHIFT) {
-                            // grad C with the self density, div r with the neighbor's
-                            const float gcf = P.m0 * s.rcp * fac;
-#pragma unroll
-                            for (int d = 0; d < D; ++d) acc[K_C + d] += gcf * xij[d];
-                            acc[K_C + D] += P.m0 * n.rcp * (-fac_d2) * mlg;
-                        }
+                        const bool same_cell = (j >= cs) && (j < ce);
+                        add_pair<D, SPS, STORE, SHIFT, AT_RUN_TIME, AT_RUN_TIME, AT_RUN_TIME>(
+                            P, s, n, xij, d2, same_cell ? (i < j) : (i > j), acc);
                     }
                 }
             }

@@ -1,5 +1,6 @@
-"""The neighbor sweep of every step: the CUDA kernel's wrapper and its plain
-version (the counterpart of ``sphexample_tpu/ops/pallas_block_sweep.py``).
+"""The neighbor sweep of every step, every model and mode: the CUDA kernel's
+wrapper and its plain version (the counterpart of
+``sphexample_tpu/ops/pallas_block_sweep.py``).
 
 :func:`block_sweep` takes the kernel ``csrc/block_sweep.cu`` for CUDA
 tensors and the plain PyTorch sweep (``interactions.pair_sweep``, the same
@@ -47,6 +48,38 @@ _count_lock = threading.Lock()
 # kernel itself has no such limit (int32 indices).
 BLOCK_CAP_LIMIT = 1 << 21
 
+# the enum values of csrc/sph_pair_math.cuh and csrc/sph_kernel_functions.cuh
+_FAMILY = {KernelFamily.WENDLAND_C2: 0, KernelFamily.CUBIC_SPLINE: 1}
+_VISCOSITY = {ViscosityModel.ZERO: 0, ViscosityModel.ARTIFICIAL: 1,
+              ViscosityModel.LAMINAR: 2, ViscosityModel.LAMINAR_SPS: 3}
+_DIFFUSION = {DensityDiffusionModel.ZERO: 0,
+              DensityDiffusionModel.ZERO_GRAVITY_LINEAR: 1,
+              DensityDiffusionModel.LINEAR: 2, DensityDiffusionModel.COMPLEX: 3}
+# the model members both sweeps' params end with, in the order of their structs
+MODEL_FIELDS = [
+    ("family", ctypes.c_int),
+    ("viscosity", ctypes.c_int),
+    ("diffusion", ctypes.c_int),
+    ("H2", ctypes.c_float),
+    ("h", ctypes.c_float),
+    ("h_inv", ctypes.c_float),
+    ("eta2", ctypes.c_float),
+    ("alpha_d", ctypes.c_float),
+    ("wendland_fac", ctypes.c_float),
+    ("m0", ctypes.c_float),
+    ("alpha_c0", ctypes.c_float),
+    ("diff_fac", ctypes.c_float),
+    ("C_lin", ctypes.c_float),
+    ("rho0", ctypes.c_float),
+    ("rho0_g", ctypes.c_float),
+    ("Cb_inv", ctypes.c_float),
+    ("lam_fac", ctypes.c_float),
+    ("cs2_dx2", ctypes.c_float),
+    ("blin_dx2", ctypes.c_float),
+    ("cubic_eps", ctypes.c_float),
+    ("w_dx_inv", ctypes.c_float),
+]
+
 
 class SweepParams(ctypes.Structure):
     """Mirror of ``struct SweepParams`` in csrc/block_sweep.cu."""
@@ -57,63 +90,66 @@ class SweepParams(ctypes.Structure):
         ("cmin", ctypes.c_int * 3),
         ("shape", ctypes.c_int * 3),
         ("strides", ctypes.c_int * 3),
-        ("H2", ctypes.c_float),
-        ("h", ctypes.c_float),
-        ("h_inv", ctypes.c_float),
-        ("eta2", ctypes.c_float),
-        ("alpha_d", ctypes.c_float),
-        ("wendland_fac", ctypes.c_float),
-        ("m0", ctypes.c_float),
-        ("alpha_c0", ctypes.c_float),
-        ("diff_fac", ctypes.c_float),
-        ("C_lin", ctypes.c_float),
-        ("cubic_eps", ctypes.c_float),
-        ("w_dx_inv", ctypes.c_float),
-    ]
+    ] + MODEL_FIELDS
 
 
-def kernel_variant(spec: PhysicsSpec, dims: int) -> int:
-    """The kernel's template instance for this model set, or
-    ``NotImplementedError`` naming what the kernel does not compute."""
-    unsupported = []
-    if dims not in (2, 3):
-        unsupported.append(f"dims={dims}")
-    if spec.viscosity not in (ViscosityModel.ZERO, ViscosityModel.ARTIFICIAL):
-        unsupported.append(f"viscosity {spec.viscosity.name}")
-    if spec.diffusion not in (DensityDiffusionModel.ZERO,
-                              DensityDiffusionModel.LINEAR):
-        unsupported.append(f"density diffusion {spec.diffusion.name}")
-    if spec.shifting is not ShiftingMode.NONE:
-        unsupported.append(f"shifting {spec.shifting.name}")
-    if spec.kernel_output is not KernelOutputMode.NONE:
-        unsupported.append(f"kernel output {spec.kernel_output.name}")
-    if unsupported:
-        raise NotImplementedError(
-            "the CUDA block sweep does not compute " + ", ".join(unsupported)
-            + "; SimulationMetaData(block_sweep=False) takes the cell sweep, "
-            "which computes every model and mode")
-    return ((dims == 3) << 3
-            | (spec.kernel.family is KernelFamily.CUBIC_SPLINE) << 2
-            | (spec.viscosity is ViscosityModel.ARTIFICIAL) << 1
-            | (spec.diffusion is DensityDiffusionModel.LINEAR))
-
-
-def sweep_params(spec: PhysicsSpec, grid: Grid, n: int, self_off: int = 0) -> SweepParams:
+def model_params(spec: PhysicsSpec) -> dict:
+    """The values of ``MODEL_FIELDS`` for this model set."""
     kern, c = spec.kernel, spec.constants
-    pad = lambda v: (ctypes.c_int * 3)(*(list(v) + [0] * (3 - len(v))))  # noqa: E731
     w_dx = float(W(kern, torch.tensor(c.dx, dtype=torch.float64)))
-    return SweepParams(
-        n=n, self_off=self_off, cmin=pad(grid.cmin), shape=pad(grid.shape),
-        strides=pad(grid.strides),
+    return dict(
+        family=_FAMILY[kern.family], viscosity=_VISCOSITY[spec.viscosity],
+        diffusion=_DIFFUSION[spec.diffusion],
         H2=kern.H2, h=kern.h, h_inv=kern.h_inv, eta2=kern.eta2,
         alpha_d=kern.alpha_d,
         wendland_fac=kern.alpha_d * 5.0 / (8.0 * kern.h * kern.h),
         m0=c.m0, alpha_c0=c.alpha * c.c0,
         diff_fac=c.delta_sph * kern.h * c.c0,
         C_lin=linear_hydrostatic_constant(c),
+        rho0=c.rho0, rho0_g=c.rho0 * c.g, Cb_inv=c.Cb_inv,
+        lam_fac=4.0 * c.m0 * c.nu0,
+        cs2_dx2=(c.smagorinsky_constant * c.dx) ** 2,
+        blin_dx2=c.blin_constant * c.dx * c.dx,
         cubic_eps=kern.cubic_eps,
         w_dx_inv=(1.0 / w_dx) if w_dx != 0.0 else 0.0,
     )
+
+
+def n_sums(spec: PhysicsSpec, dims: int) -> int:
+    """K = (1+D)(1 + STORE + PLANAR) f32 sums per self: drho, dv/dt, then
+    W, grad W, then grad C, div r."""
+    return (1 + dims) * (1 + (spec.kernel_output is KernelOutputMode.STORE)
+                         + (spec.shifting is ShiftingMode.PLANAR))
+
+
+def kernel_variant(spec: PhysicsSpec, dims: int) -> int:
+    """The kernel's template instance for this model set: every model and
+    mode has one, only ``dims`` outside (2, 3) raises
+    ``NotImplementedError``.  0-15: the main path's models pinned at compile
+    time (ZERO / ARTIFICIAL viscosity, ZERO / LINEAR diffusion, no kernel
+    output, no shifting); 16-31: the rest, templated on LAMINAR_SPS, STORE
+    and PLANAR, the other choices made at run time."""
+    if dims not in (2, 3):
+        raise NotImplementedError(f"the CUDA block sweep does not compute dims={dims}")
+    store = spec.kernel_output is KernelOutputMode.STORE
+    shift = spec.shifting is ShiftingMode.PLANAR
+    if (spec.viscosity in (ViscosityModel.ZERO, ViscosityModel.ARTIFICIAL)
+            and spec.diffusion in (DensityDiffusionModel.ZERO, DensityDiffusionModel.LINEAR)
+            and not store and not shift):
+        return ((dims == 3) << 3
+                | (spec.kernel.family is KernelFamily.CUBIC_SPLINE) << 2
+                | (spec.viscosity is ViscosityModel.ARTIFICIAL) << 1
+                | (spec.diffusion is DensityDiffusionModel.LINEAR))
+    return (16 | (dims == 3) << 3
+            | (spec.viscosity is ViscosityModel.LAMINAR_SPS) << 2
+            | store << 1 | shift)
+
+
+def sweep_params(spec: PhysicsSpec, grid: Grid, n: int, self_off: int = 0) -> SweepParams:
+    pad = lambda v: (ctypes.c_int * 3)(*(list(v) + [0] * (3 - len(v))))  # noqa: E731
+    return SweepParams(
+        n=n, self_off=self_off, cmin=pad(grid.cmin), shape=pad(grid.shape),
+        strides=pad(grid.strides), **model_params(spec))
 
 
 def pack_fields(position, velocity, density, pressure, ml):
@@ -136,7 +172,7 @@ def pack_fields(position, velocity, density, pressure, ml):
 def collect(out, active, dtype, dims, spec: PhysicsSpec = None) -> SweepOut:
     """[N, K] kernel rows -> SweepOut, masked by ``active``, in ``dtype``.
     Columns: drho, dv/dt, then (STORE) W, grad W, then (PLANAR) grad C, div r;
-    without ``spec`` only the first 1+D.  The mask is a select, never a
+    without ``spec`` only the first 1+D are read.  The mask is a select, never a
     product: rows that no thread wrote may hold anything."""
     vals = torch.where(active[:, None], out, torch.zeros_like(out)).to(dtype)
     k = 1 + dims
@@ -309,7 +345,7 @@ def launch_pack(spec, grid, particles, cell_start, pack, self_off: int, dtype,
     cell = particles.cell.contiguous()
     cs = cell_start.contiguous()
     act = particles.active.contiguous()
-    out = torch.empty((n, dims + 1), dtype=torch.float32, device=dev)
+    out = torch.empty((n, n_sums(spec, dims)), dtype=torch.float32, device=dev)
     params = sweep_params(spec, grid, n, self_off)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -324,4 +360,4 @@ def launch_pack(spec, grid, particles, cell_start, pack, self_off: int, dtype,
             window_launches += 1
         else:
             launches += 1
-    return collect(out, particles.active, dtype, dims)
+    return collect(out, particles.active, dtype, dims, spec)

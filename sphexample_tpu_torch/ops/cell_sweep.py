@@ -15,9 +15,10 @@ the counterpart of ``pallas_pair_sweep_sharded``) count in
 ``window_launches``.
 
 ``assemble_simulation`` takes this sweep when ``meta.block_sweep`` is False or the particle
-capacity exceeds ``block_sweep.BLOCK_CAP_LIMIT`` (``core/driver.py``); it is
-the only one of the two that computes LAMINAR, LAMINAR_SPS,
-ZERO_GRAVITY_LINEAR, COMPLEX, PLANAR shifting and STORE on the card.
+capacity exceeds ``block_sweep.BLOCK_CAP_LIMIT`` (``core/driver.py``).  Both
+sweeps compute every model and mode, with the pair physics of
+``csrc/sph_pair_math.cuh``; the params' model members and the column order
+of the output are shared (``block_sweep.MODEL_FIELDS``, ``collect``).
 """
 
 from __future__ import annotations
@@ -27,12 +28,10 @@ import threading
 
 import torch
 
-from ..config import (DensityDiffusionModel, KernelFamily, KernelOutputMode,
-                      ShiftingMode, ViscosityModel)
-from ..models.density_diffusion import linear_hydrostatic_constant
-from ..models.kernels import W
+from ..config import KernelOutputMode, ShiftingMode, ViscosityModel
 from ..state import Particles
-from .block_sweep import collect, sweep_fields, sweep_sharded
+from .block_sweep import (MODEL_FIELDS, collect, model_params, n_sums, sweep_fields,
+                          sweep_sharded)
 from .cell_list import Grid
 from .interactions import PhysicsSpec, SweepOut, pair_sweep
 
@@ -42,14 +41,6 @@ from .interactions import PhysicsSpec, SweepOut, pair_sweep
 launches = 0
 window_launches = 0
 _count_lock = threading.Lock()
-
-# the enum values of csrc/cell_sweep.cu and csrc/sph_kernel_functions.cuh
-_FAMILY = {KernelFamily.WENDLAND_C2: 0, KernelFamily.CUBIC_SPLINE: 1}
-_VISCOSITY = {ViscosityModel.ZERO: 0, ViscosityModel.ARTIFICIAL: 1,
-              ViscosityModel.LAMINAR: 2, ViscosityModel.LAMINAR_SPS: 3}
-_DIFFUSION = {DensityDiffusionModel.ZERO: 0,
-              DensityDiffusionModel.ZERO_GRAVITY_LINEAR: 1,
-              DensityDiffusionModel.LINEAR: 2, DensityDiffusionModel.COMPLEX: 3}
 
 
 class CellSweepParams(ctypes.Structure):
@@ -61,35 +52,7 @@ class CellSweepParams(ctypes.Structure):
         ("ncells", ctypes.c_int),
         ("shape", ctypes.c_int * 3),
         ("strides", ctypes.c_int * 3),
-        ("family", ctypes.c_int),
-        ("viscosity", ctypes.c_int),
-        ("diffusion", ctypes.c_int),
-        ("H2", ctypes.c_float),
-        ("h", ctypes.c_float),
-        ("h_inv", ctypes.c_float),
-        ("eta2", ctypes.c_float),
-        ("alpha_d", ctypes.c_float),
-        ("wendland_fac", ctypes.c_float),
-        ("m0", ctypes.c_float),
-        ("alpha_c0", ctypes.c_float),
-        ("diff_fac", ctypes.c_float),
-        ("C_lin", ctypes.c_float),
-        ("rho0", ctypes.c_float),
-        ("rho0_g", ctypes.c_float),
-        ("Cb_inv", ctypes.c_float),
-        ("lam_fac", ctypes.c_float),
-        ("cs2_dx2", ctypes.c_float),
-        ("blin_dx2", ctypes.c_float),
-        ("cubic_eps", ctypes.c_float),
-        ("w_dx_inv", ctypes.c_float),
-    ]
-
-
-def n_sums(spec: PhysicsSpec, dims: int) -> int:
-    """K = (1+D)(1 + STORE + PLANAR) f32 sums per self: drho, dv/dt, then
-    W, grad W, then grad C, div r."""
-    return (1 + dims) * (1 + (spec.kernel_output is KernelOutputMode.STORE)
-                         + (spec.shifting is ShiftingMode.PLANAR))
+    ] + MODEL_FIELDS
 
 
 def kernel_variant(spec: PhysicsSpec, dims: int) -> int:
@@ -104,26 +67,10 @@ def kernel_variant(spec: PhysicsSpec, dims: int) -> int:
 
 
 def sweep_params(spec: PhysicsSpec, grid: Grid, n: int, self_off: int = 0) -> CellSweepParams:
-    kern, c = spec.kernel, spec.constants
     pad = lambda v: (ctypes.c_int * 3)(*(list(v) + [1] * (3 - len(v))))  # noqa: E731
-    w_dx = float(W(kern, torch.tensor(c.dx, dtype=torch.float64)))
     return CellSweepParams(
-        n=n, self_off=self_off, ncells=grid.ncells, shape=pad(grid.shape), strides=pad(grid.strides),
-        family=_FAMILY[kern.family], viscosity=_VISCOSITY[spec.viscosity],
-        diffusion=_DIFFUSION[spec.diffusion],
-        H2=kern.H2, h=kern.h, h_inv=kern.h_inv, eta2=kern.eta2,
-        alpha_d=kern.alpha_d,
-        wendland_fac=kern.alpha_d * 5.0 / (8.0 * kern.h * kern.h),
-        m0=c.m0, alpha_c0=c.alpha * c.c0,
-        diff_fac=c.delta_sph * kern.h * c.c0,
-        C_lin=linear_hydrostatic_constant(c),
-        rho0=c.rho0, rho0_g=c.rho0 * c.g, Cb_inv=c.Cb_inv,
-        lam_fac=4.0 * c.m0 * c.nu0,
-        cs2_dx2=(c.smagorinsky_constant * c.dx) ** 2,
-        blin_dx2=c.blin_constant * c.dx * c.dx,
-        cubic_eps=kern.cubic_eps,
-        w_dx_inv=(1.0 / w_dx) if w_dx != 0.0 else 0.0,
-    )
+        n=n, self_off=self_off, ncells=grid.ncells, shape=pad(grid.shape),
+        strides=pad(grid.strides), **model_params(spec))
 
 
 def cell_sweep_plain(spec: PhysicsSpec, grid: Grid, particles: Particles,

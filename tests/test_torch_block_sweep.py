@@ -1,8 +1,8 @@
 """The port's block-sweep module on the CPU: its plain version against the
 JAX package's TPU block sweep (``pallas_block_sweep`` in interpret mode) in
 f32 with the 2e-5 tolerances of test_pallas_block.py, and the wrapper's
-dispatch (CPU tensors -> plain version; unsupported models on the CUDA path
-raise, never fall back)."""
+dispatch (CPU tensors -> plain version; every model set has an instance,
+and what has none raises on the CUDA path, never falls back)."""
 
 import types
 
@@ -133,38 +133,41 @@ def test_pack_and_collect():
     ("ARTIFICIAL", "LINEAR", "WENDLAND_C2", 2, 3),
     ("ZERO", "ZERO", "CUBIC_SPLINE", 3, 12),
     ("ARTIFICIAL", "ZERO", "CUBIC_SPLINE", 2, 6),
-    ("LAMINAR", "LINEAR", "WENDLAND_C2", 3, None),
-    ("ARTIFICIAL", "COMPLEX", "WENDLAND_C2", 3, None),
-    ("LAMINAR_SPS", "ZERO_GRAVITY_LINEAR", "WENDLAND_C2", 2, None),
+    ("LAMINAR", "LINEAR", "WENDLAND_C2", 3, 24),
+    ("ARTIFICIAL", "COMPLEX", "WENDLAND_C2", 3, 24),
+    ("LAMINAR_SPS", "ZERO_GRAVITY_LINEAR", "WENDLAND_C2", 2, 20),
 ])
 def test_kernel_variants_and_unsupported_models(visc, diff, family, dims, ok):
+    """Every model set has an instance (16-31: the run-time models, SPS
+    pinned); only a dimension outside (2, 3) is refused, on the CUDA path
+    before touching data or building anything."""
     const = tc.SimulationConstants(dx=0.05)
     kern = tc.make_kernel(tc.KernelFamily[family], dims, dx=0.05)
     spec = TSpec(constants=const, kernel=kern, viscosity=tc.ViscosityModel[visc],
                  diffusion=tc.DensityDiffusionModel[diff])
-    # a stand-in for a CUDA tensor: the dispatch must reach the kernel path
-    # and refuse the model there, before touching data or building anything
-    fake = types.SimpleNamespace(device=torch.device("cuda"), shape=(64, dims))
-    if ok is None:
-        with pytest.raises(NotImplementedError, match=visc if visc != "ARTIFICIAL" else diff):
-            bs.kernel_variant(spec, dims)
-        with pytest.raises(NotImplementedError):
-            bs.block_sweep(spec, None, None, None, fake, None, None, None)
-    else:
-        assert bs.kernel_variant(spec, dims) == ok
+    assert bs.kernel_variant(spec, dims) == ok
+    # a stand-in for a CUDA tensor of another dimension
+    fake = types.SimpleNamespace(device=torch.device("cuda"), shape=(64, 4))
+    with pytest.raises(NotImplementedError, match="dims=4"):
+        bs.block_sweep(spec, None, None, None, fake, None, None, None)
 
 
 def test_modes_without_kernel_raise_on_cuda_path():
+    """PLANAR and STORE map to instances of their own (K = 8 and 12 sums in
+    3D); a dimension outside (2, 3) is what has no kernel, and raises."""
     const = tc.SimulationConstants(dx=0.05)
     kern = tc.make_kernel(tc.KernelFamily.WENDLAND_C2, 3, dx=0.05)
-    fake = types.SimpleNamespace(device=torch.device("cuda"), shape=(64, 3))
-    for extra in (dict(shifting=tc.ShiftingMode.PLANAR),
-                  dict(kernel_output=tc.KernelOutputMode.STORE)):
+    for extra, variant, k in ((dict(shifting=tc.ShiftingMode.PLANAR), 25, 8),
+                              (dict(kernel_output=tc.KernelOutputMode.STORE), 26, 8),
+                              (dict(shifting=tc.ShiftingMode.PLANAR,
+                                    kernel_output=tc.KernelOutputMode.STORE), 27, 12)):
         spec = TSpec(constants=const, kernel=kern,
                      viscosity=tc.ViscosityModel.ARTIFICIAL,
                      diffusion=tc.DensityDiffusionModel.LINEAR, **extra)
-        with pytest.raises(NotImplementedError):
-            bs.block_sweep(spec, None, None, None, fake, None, None, None)
+        assert bs.kernel_variant(spec, 3) == variant
+        assert bs.n_sums(spec, 3) == k
+        with pytest.raises(NotImplementedError, match="dims=1"):
+            bs.kernel_variant(spec, 1)
 
 
 def test_sweep_params_layout():
@@ -177,8 +180,10 @@ def test_sweep_params_layout():
     prm = bs.sweep_params(spec, grid, 159712)
     import ctypes
 
-    # 11 ints (n, self_off, cmin, shape, strides), then 12 floats
-    assert ctypes.sizeof(prm) == 11 * 4 + 12 * 4
+    # 14 ints (n, self_off, cmin, shape, strides, family, viscosity,
+    # diffusion), then 18 floats
+    assert ctypes.sizeof(prm) == 14 * 4 + 18 * 4
+    assert (prm.family, prm.viscosity, prm.diffusion) == (0, 1, 2)
     assert prm.self_off == 0 and bs.sweep_params(spec, grid, 39936, 33664).self_off == 33664
     assert list(prm.strides) == [1, 67, 67 * 36] and prm.n == 159712
     assert prm.alpha_c0 == pytest.approx(0.1 * 33.14)

@@ -1,6 +1,7 @@
 """The CUDA kernels on the card.  The block sweep: every template instance
-of ``csrc/block_sweep.cu`` against the plain sweep in f64, the wrapper's
-input checks, and a short run of the main path.  The cell sweep: every
+of ``csrc/block_sweep.cu`` and every model and mode against the plain sweep
+in f64 and against the cell sweep, the wrapper's input checks, a short run
+of the main path and of a moving square.  The cell sweep: every
 viscosity x diffusion x kernel family of ``csrc/cell_sweep.cu`` with shifting
 and kernel output, every template instance, crowded, sparse and edge cells,
 its input checks, and a short moving-square run.  The mDBC moment kernel:
@@ -123,9 +124,10 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
                        viscosity=T.ViscosityModel.ARTIFICIAL,
                        diffusion=T.DensityDiffusionModel.LINEAR)
     before = bs.launches
-    laminar = dataclasses.replace(spec, viscosity=T.ViscosityModel.LAMINAR)
-    with pytest.raises(NotImplementedError, match="LAMINAR"):
-        bs.block_sweep(*_args(laminar, grid, p, cs))
+    # every model set has an instance; a dimension outside (2, 3) has none
+    with pytest.raises(NotImplementedError, match="dims=4"):
+        bs.block_sweep(spec, grid, p, cs, torch.zeros((200, 4), device=cuda), p.density,
+                       p.pressure, p.velocity)
     with pytest.raises(ValueError, match="cell_start"):
         bs.block_sweep(*_args(spec, grid, p, cs.cpu()))
     with pytest.raises(TypeError, match="int32"):
@@ -398,6 +400,42 @@ def test_cell_kernel_instances_without_extras(cuda, dims, visc, store, shift):
 
 
 @pytest.mark.parametrize("dims", [2, 3])
+@pytest.mark.parametrize("family", ["WENDLAND_C2", "CUBIC_SPLINE"])
+@pytest.mark.parametrize("visc", VISC)
+@pytest.mark.parametrize("diff", DIFF)
+@pytest.mark.parametrize("store,shift", [(True, True), (False, False)])
+def test_block_kernel_every_mode_matches_plain_and_cell_kernel(cuda, dims, family, visc,
+                                                               diff, store, shift):
+    """The block kernel in every model and mode against the plain f64 sweep
+    (every field, padding rows zero), and against the cell kernel on the
+    same f32 inputs: the two hand kernels share their pair physics and differ
+    in summation order only."""
+    n, cap = (300, 320) if dims == 2 else (500, 530)
+    const, kern, grid, p64, cs = _sorted_state(dims, family, n, cap)
+    spec = _full_spec(const, kern, visc, diff, store, shift)
+    ref = bs.block_sweep_plain(*_args(spec, grid, p64, cs))
+    p32, cs_g = _on(p64, cuda, torch.float32), cs.to(cuda)
+    before = bs.launches
+    out = bs.block_sweep(*_args(spec, grid, p32, cs_g))
+    cell = cw.cell_sweep(*_args(spec, grid, p32, cs_g))
+    torch.cuda.synchronize()
+    assert bs.launches == before + 1
+    for f in FIELDS:
+        a, b, c = getattr(out, f), getattr(ref, f), getattr(cell, f)
+        assert (a is None) == (b is None) == (c is None), f
+        if a is None:
+            continue
+        assert a.dtype == torch.float32 and a.device.type == cuda.type
+        a, c = a.double().cpu(), c.double().cpu()
+        assert torch.isfinite(a).all(), f
+        assert not a[n:].any(), f  # padding rows stay zero
+        scale = float(b.abs().max())
+        assert scale > 0, f
+        assert float((a - b).abs().max()) <= REL_TOL * scale, f
+        assert float((a - c).abs().max()) <= REL_TOL * scale, f
+
+
+@pytest.mark.parametrize("dims", [2, 3])
 @pytest.mark.parametrize("case", ["crowded", "sheet", "edge"])
 def test_cell_kernel_odd_cells(cuda, dims, case):
     """A cell with more selves than a block has threads (and a row longer
@@ -448,7 +486,7 @@ def test_cell_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     assert not out.drhodt.any() and not out.kernel_w.any()
 
 
-def _moving_square(device, dtype="float32"):
+def _moving_square(device, dtype="float32", block_sweep=False):
     """A closed box of fixed walls filled with fluid around a solid square
     translating at 0.5 m/s, the MovingSquare mode set, g = 0."""
     dp = 0.02
@@ -467,7 +505,7 @@ def _moving_square(device, dtype="float32"):
     meta = T.SimulationMetaData("gpu_square", ".", dims=2, dtype=dtype,
                                 shifting=T.ShiftingMode.PLANAR,
                                 kernel_output=T.KernelOutputMode.STORE,
-                                block_sweep=False, grid_margin_cells=4)
+                                block_sweep=block_sweep, grid_margin_cells=4)
     geoms = (T.Geometry("", 3, T.ParticleType.MOVING,
                         T.MotionDetails(0.5, 0.0, 10.0, (1.0, 0.0))),)
     sim = T.assemble_simulation(pos, np.full(n, 1000.0), ptype, ptype.copy(),
@@ -514,6 +552,32 @@ def test_moving_square_steps_through_the_cell_kernel(cuda):
     assert float(gpu.particles.kernel_w[gpu.particles.ptype == 1].min()) > 0
 
 
+def test_moving_square_steps_through_the_block_kernel(cuda):
+    """The same box with the deck's default ``block_sweep=True``: 10 steps
+    through the block kernel's 2D all-extras instance, two block-sweep
+    launches per step and none of the cell sweep, the square on its track,
+    and the trajectory of the cell-kernel run to f32 noise."""
+    (sim_b, pos0, ptype), (sim_c, _, _) = (_moving_square(cuda, block_sweep=True),
+                                           _moving_square(cuda))
+    assert (sim_b.cfg.sweep_kernel, sim_c.cfg.sweep_kernel) == ("block", "cell")
+    assert bs.kernel_variant(sim_b.cfg.spec, 2) == 23
+    b0, c0 = bs.launches, cw.launches
+    blk = make_fixed_steps_fn(sim_b.cfg, 10)(sim_b.state)
+    torch.cuda.synchronize()
+    assert (bs.launches - b0, cw.launches - c0) == (20, 0)
+    cel = make_fixed_steps_fn(sim_c.cfg, 10)(sim_c.state)
+    assert torch.equal(blk.particles.id, cel.particles.id)
+    order = torch.argsort(blk.particles.id.cpu())
+    sq = ptype == 3
+    x_track = pos0[sq, 0] + 0.5 * float(blk.total_time)
+    assert np.abs(blk.particles.position.cpu()[order].numpy()[sq, 0] - x_track).max() < 1e-6
+    torch.testing.assert_close(blk.particles.position, cel.particles.position,
+                               rtol=0, atol=2e-6)
+    torch.testing.assert_close(blk.particles.density, cel.particles.density,
+                               rtol=5e-6, atol=0)
+    assert float(blk.particles.kernel_w[blk.particles.ptype == 1].min()) > 0
+
+
 def test_block_rule_takes_the_cell_kernel_when_asked(cuda):
     """``block_sweep=False`` on the main path's model set: the same 5 steps
     through either kernel, to f32 summation-order noise."""
@@ -534,13 +598,16 @@ def test_block_rule_takes_the_cell_kernel_when_asked(cuda):
     assert torch.equal(a.id, b.id)
     torch.testing.assert_close(a.position, b.position, rtol=0, atol=2e-6)
     torch.testing.assert_close(a.density, b.density, rtol=5e-6, atol=0)
-    # a model set the block sweep lacks raises there and names the way out
+    # any model set takes the block sweep by the rule: LAMINAR runs through it
     meta = T.SimulationMetaData("gpu_rule", ".", dims=3)
     sim = T.assemble_simulation(pos + 0.0037, dens, ptype, grp, idp, meta, const, kern,
                                 T.ViscosityModel.LAMINAR,
                                 T.DensityDiffusionModel.LINEAR, device=cuda)
-    with pytest.raises(NotImplementedError, match="block_sweep=False"):
-        make_fixed_steps_fn(sim.cfg, 1)(sim.state)
+    assert sim.cfg.sweep_kernel == "block"
+    b0, c0 = bs.launches, cw.launches
+    end = make_fixed_steps_fn(sim.cfg, 1)(sim.state)
+    assert (bs.launches - b0, cw.launches - c0) == (2, 0)
+    assert torch.isfinite(end.particles.acceleration).all()
 
 
 # --- the sharded path: the kernels on halo-extended windows ----------------------
@@ -625,6 +692,20 @@ def test_block_window_kernel_matches_plain_and_single(cuda, dims, family, visc, 
                        diffusion=T.DensityDiffusionModel[diff])
     # 3D: a slab of this small cube is thinner than the stencil reach, so the
     # window takes two slabs' rows each way (zeros past the ends)
+    _hold_window(cuda, bs, spec, grid, p64, cs, n,
+                 halos=((dims - 1) * (cap // N_SLABS), 0))
+
+
+@pytest.mark.parametrize("dims", [2, 3])
+@pytest.mark.parametrize("visc,diff", [("LAMINAR_SPS", "LINEAR"), ("LAMINAR", "COMPLEX"),
+                                       ("ARTIFICIAL", "ZERO_GRAVITY_LINEAR")])
+def test_block_window_kernel_all_extras_matches_plain_and_single(cuda, dims, visc, diff):
+    """The block kernel on the halo with PLANAR and STORE on (the sharded
+    moving square's instance in 2D): every slab against its plain version,
+    the slabs concatenated against the single-device launch bit for bit."""
+    n, cap = (300, 321) if dims == 2 else (500, 531)
+    const, kern, grid, p64, cs = _sorted_state(dims, "WENDLAND_C2", n, cap)
+    spec = _full_spec(const, kern, visc, diff)
     _hold_window(cuda, bs, spec, grid, p64, cs, n,
                  halos=((dims - 1) * (cap // N_SLABS), 0))
 

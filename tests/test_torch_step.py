@@ -356,10 +356,11 @@ def test_mdbc_state_roundtrip_and_single_step():
         assert float(nt.total_time) == pytest.approx(float(nj.total_time), rel=1e-13)
 
 
-def _square(M, speed=0.5, **kw):
+def _square(M, speed=0.5, block_sweep=False, **kw):
     """The mini moving square of test_trajectory.py:211-262: a prescribed-motion
     body driving fluid, LAMINAR_SPS + LINEAR + PLANAR + STORE, k = sqrt 2, f64,
-    ``OFF`` lattice shift."""
+    ``OFF`` lattice shift; ``block_sweep`` as given (the deck's own default is
+    True)."""
     const = M.SimulationConstants(dx=0.02, c0=30.0, cfl=0.3, g=0.0)
     kern = M.make_kernel(M.KernelFamily.WENDLAND_C2, 2, dx=const.dx, k=float(np.sqrt(2)))
     dx = const.dx
@@ -376,7 +377,7 @@ def _square(M, speed=0.5, **kw):
     meta = M.SimulationMetaData(simulation_name="traj_square", save_location=".",
                                 dims=2, dtype="float64", shifting=M.ShiftingMode.PLANAR,
                                 kernel_output=M.KernelOutputMode.STORE,
-                                grid_margin_cells=4, block_sweep=False)
+                                grid_margin_cells=4, block_sweep=block_sweep)
     motion = M.MotionDetails(velocity=speed, start_time=0.0, duration=10.0,
                              direction=(1.0, 0.0))
     sim = M.assemble_simulation(
@@ -420,6 +421,28 @@ def test_trajectory_moving_square_matches_jax_and_reference():
     expected_x = square[:, 0] + OFF + 0.5 * float(ft.total_time)
     np.testing.assert_allclose(fw["pos"][:nm, 0], expected_x, rtol=0, atol=1e-10)
     np.testing.assert_array_equal(fw["vel"][:nm], np.tile([0.5, 0.0], (nm, 1)))
+
+
+def test_moving_square_takes_the_block_sweep_by_default_and_matches_jax():
+    """With the deck's default ``block_sweep=True`` the driver's rule picks
+    the block sweep for the mini moving square, as it does for every deck
+    under 2^21 rows whatever its models (in the JAX package too, with
+    ``use_pallas``); 50 CPU steps of it (the plain version) still match the
+    JAX package's run of the same deck within the bands of
+    test_trajectory.py:64-70."""
+    sim_t, *_ = _square(T, block_sweep=True, device="cpu")
+    assert T.SimulationMetaData("d", ".").block_sweep is True
+    assert sim_t.cfg.sweep_kernel == "block"
+    ft = t_fixed(sim_t.cfg, N_STEPS)(sim_t.state)
+    fw = _final(ft.particles.id.numpy(), ft.particles, lambda a: a.numpy())
+    sim_j, *_ = _square(J, block_sweep=True)
+    fj = j_fixed(sim_j.cfg, N_STEPS)(sim_j.state)
+    jx = _final(fj.particles.id, fj.particles, np.asarray)
+    _bands(fw, jx, float(ft.total_time), float(fj.total_time),
+           float(ft.current_dt), float(fj.current_dt))
+    np.testing.assert_allclose(ft.particles.kernel_w.numpy(),
+                               np.asarray(fj.particles.kernel_w), rtol=1e-9, atol=1e-9)
+    assert float(ft.particles.kernel_w.min()) > 0
 
 
 def test_moving_square_state_roundtrip_and_rebuild_cadence():
