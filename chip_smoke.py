@@ -7,7 +7,8 @@ Phases, each printing one JSON line (any failure exits non-zero):
 
 1. device   - the card's name and power limit (no GPU: exit 1, no result);
 2. build    - nvcc builds every ``sphexample_tpu_torch/csrc/*.cu``, one
-              process per source, all started together;
+              process per source, all started together, and prints each
+              kernel instance's registers, spill and shared-memory bytes;
 3. parity   - the block-sweep kernel against its plain PyTorch version on one
               sweep of the 3D dam break (dx 0.0085, fluid velocity (0,0,-1))
               and the 2D dam break (dx 0.01); relative-to-field-max
@@ -94,7 +95,15 @@ Phases, each printing one JSON line (any failure exits non-zero):
               operation count).  The cell sweep's entry holds the large path's
               numbers, the block sweep's time on that same state, and the
               moving-square path's under keys ending in
-              ``_moving_square_path``; the sharded entries likewise.
+              ``_moving_square_path``; the sharded entries likewise.  Each
+              sweep entry also holds, per path, the schedule of the kernels'
+              shared walk on that path's state (``schedule``: groups, warp
+              passes, mean member lanes, tiles, union rows over own
+              candidates; ops/block_sweep.py:schedule_stats) and the
+              registers, spill bytes and shared-memory bytes of every
+              instance of its source (``instances``, from the build phase's
+              ptxas report); the cell sweep's entry the time of the kernel
+              that lists its occupied groups (``list_kernel_only_ms``).
 
 16. the sharded path, P = 4 slabs of the global cell-sorted order on the
               cards visible (slab r on card r mod count; on one card they
@@ -360,18 +369,19 @@ def moving_square_checks(sim, case, state, sweep_out, label, total_steps):
 
 
 def ptxas_report(log):
-    """Registers and spill-store bytes of every kernel instance in nvcc's
-    ``-Xptxas -v`` output, keyed by the kernel's name and template arguments
-    (``block_sweep_kernel<3,0,1,2,0,0,0>``: dims, family, viscosity,
-    diffusion - -1 for a run-time choice - then SPS, STORE, PLANAR)."""
+    """Registers, spill-store bytes and static shared-memory bytes of every
+    kernel instance in nvcc's ``-Xptxas -v`` output, keyed by the kernel's
+    name and template arguments (``block_sweep_kernel<3,0,1,2,0,0,0>``:
+    dims, family, viscosity, diffusion - -1 for a run-time choice - then SPS,
+    STORE, PLANAR; a kernel without template arguments by its name)."""
     out, name, spill = {}, None, 0
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", ln)
         if m:
-            k = re.search(r"([a-z][a-z_]*_kernel)I((?:L[ib]n?\d+E)+)E", m.group(1))
-            args = re.findall(r"L[ib](n?)(\d+)E", k.group(2)) if k else []
-            name = (f"{k.group(1)}<{','.join(('-' if neg else '') + v for neg, v in args)}>"
-                    if k else m.group(1))
+            k = re.search(r"([a-z][a-z_]*_kernel)(?:I((?:L[ib]n?\d+E)+)E)?", m.group(1))
+            args = re.findall(r"L[ib](n?)(\d+)E", k.group(2) or "") if k else []
+            name = (k.group(1) + (f"<{','.join(('-' if neg else '') + v for neg, v in args)}>"
+                                  if args else "") if k else m.group(1))
             spill = 0
             continue
         m = re.search(r"(\d+) bytes spill stores", ln)
@@ -379,9 +389,39 @@ def ptxas_report(log):
             spill = int(m.group(1))
         m = re.search(r"Used (\d+) registers", ln)
         if m and name:
-            out[name] = [int(m.group(1)), spill]
+            smem = re.search(r"(\d+) bytes smem", ln)
+            out[name] = [int(m.group(1)), spill, int(smem.group(1)) if smem else 0]
             name = None
     return out
+
+
+def instances(report, kernel):
+    """The ptxas numbers of one kernel's instances: {instance: {registers,
+    spill_bytes, smem_bytes}}."""
+    return {k: dict(zip(("registers", "spill_bytes", "smem_bytes"), v))
+            for k, v in report.items() if k == kernel or k.startswith(kernel + "<")}
+
+
+def schedule(sim, p, cs, mod=bs, lo=0, hi=None, sample=300):
+    """The walk's schedule of this state's sweep (ops/block_sweep.py:
+    schedule_stats): groups, warp passes, mean member lanes, tiles, and the
+    union rows a lane tests over its own candidates; with ``lo`` / ``hi``
+    that of the selves [lo, hi) launched on the whole state as a window.
+    ``bodies``: the pair bodies per pass of ``sample`` seeded passes by how
+    the compute is batched (ops/block_sweep.py:pass_bodies), divided by the
+    passes."""
+    grid = sim.cfg.grid
+    hi = p.capacity if hi is None else hi
+    sched = (bs.block_schedule(grid, p.map(lambda a: a[lo:hi]), cs) if mod is bs
+             else cw.cell_schedule(grid, cs, hi - lo, lo))
+    stats = bs.schedule_stats(sched, grid, cs)
+    n_pass = stats["warp_passes"]
+    pick = torch.randperm(n_pass, generator=torch.Generator().manual_seed(0))[:sample]
+    bodies = bs.pass_bodies(sched, grid, cs, p.position, sim.cfg.spec.kernel.H2,
+                            pick.to(cs.device), lo)
+    stats["bodies"] = {k: v / bodies["passes"] for k, v in bodies.items() if k != "passes"}
+    stats["bodies"]["sampled_passes"] = bodies["passes"]
+    return stats
 
 
 def kernel_only_ms(fn, name, reps=5):
@@ -686,7 +726,7 @@ def sweep_numbers(sim, p, cs, mod=bs, plain_reps=2, op_costs=None):
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": 1e3 * max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes > t_ops else "operations",
             "candidates": n_cand, "pairs": n_pair, "approaching_pairs": n_appr,
-            "bytes": nbytes, "ops": ops}
+            "bytes": nbytes, "ops": ops, "schedule": schedule(sim, p, cs, mod)}
 
 
 def mdbc_work(sim, args, ghost_rows=None):
@@ -1239,7 +1279,8 @@ def window_numbers(simg, p, cs, mod, halo, r=1, plain_reps=2, op_costs=None):
             "bound_by": "bytes" if t_bytes > t_ops else "operations",
             "library_ms": None, "slab": r, "slab_rows": C, "window_rows": ne,
             "candidates": n_cand, "pairs": n_pair, "approaching_pairs": n_appr,
-            "bytes": nbytes, "ops": ops}
+            "bytes": nbytes, "ops": ops,
+            "schedule": schedule(simg, p, cs, mod, r * C, (r + 1) * C)}
 
 
 def main():
@@ -1259,9 +1300,10 @@ def main():
 
     t0 = time.perf_counter()
     secs = _build.build_all()
+    ptx = {k: ptxas_report(v) for k, v in _build.build_logs.items()}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "per_source": secs,
-          "ptxas": {k: ptxas_report(v) for k, v in _build.build_logs.items()}})
+          "per_source": secs, "ptxas": ptx})
+    ptx_all = {k: v for rep in ptx.values() for k, v in rep.items()}
 
     # 3 - block-sweep parity on the initial lattices; 11 - the cell sweep on
     # the same states, on stirred copies, and both sweeps in every mode
@@ -1311,7 +1353,8 @@ def main():
         "bound_ms": nums["bound_ms"], "bound_by": nums["bound_by"],
         "library_ms": None,
         **{k: nums[k] for k in ("candidates", "pairs", "approaching_pairs",
-                                "bytes", "ops")},
+                                "bytes", "ops", "schedule")},
+        "instances": instances(ptx_all, "block_sweep_kernel"),
     }
     # 16 - the sharded main path: the same deck and steps on 4 slabs
     single_end = end_summary(state)
@@ -1349,6 +1392,7 @@ def main():
         "bytes_sent_per_slab_per_sweep": exch["bytes_sent_per_slab_per_sweep"],
         "exchange_ms_device": max(exch["exchange_ms_device_per_rank"]),
         "exchange_ms_host": max(exch["exchange_ms_host_per_rank"]),
+        "instances": instances(ptx_all, "block_sweep_kernel"),
     }
     del sim3, sim_sh, states_sh, state_sh, simg, pe, cse
     torch.cuda.empty_cache()
@@ -1481,6 +1525,11 @@ def main():
         "block_sweep_ms": time_cuda(lambda: bs.block_sweep(*argl), 20),
         "block_sweep_kernel_only_ms": kernel_only_ms(lambda: bs.block_sweep(*argl),
                                                      "block_sweep"),
+        "block_sweep_schedule": schedule(siml, pf, csf),
+        "cell_sweep_schedule": numl["schedule"],
+        # the cell sweep's list of occupied groups, built on the device
+        "cell_sweep_list_kernel_only_ms": kernel_only_ms(lambda: cw.cell_sweep(*argl),
+                                                         "occupied_groups"),
         "cell_sweep_ms": numl["ms"],
         "cell_sweep_kernel_only_ms": brkl.get("cell_sweep_kernel_only_ms",
                                               "not measured"),
@@ -1504,8 +1553,12 @@ def main():
         "library_ms": None,
         "block_sweep_ms_same_state": block_same["block_sweep_ms"],
         "block_sweep_kernel_only_ms_same_state": block_same["block_sweep_kernel_only_ms"],
+        "block_sweep_schedule_same_state": block_same["block_sweep_schedule"],
+        "list_kernel_only_ms": block_same["cell_sweep_list_kernel_only_ms"],
         **{k: numl[k] for k in ("candidates", "pairs", "approaching_pairs",
-                                "bytes", "ops")},
+                                "bytes", "ops", "schedule")},
+        "instances": {**instances(ptx_all, "cell_sweep_kernel"),
+                      **instances(ptx_all, "occupied_groups_kernel")},
     }
     del siml, state, pf, csf, argl
     torch.cuda.empty_cache()
@@ -1568,6 +1621,8 @@ def main():
         "slabs_vs_single_bitwise": parw_cell2[f"halo_{haloq}_slabs_vs_single_bitwise"],
         **window_numbers(simg, pe, cse, cw, haloq, op_costs=OPS_2D_ALL_EXTRAS),
         "grid_cells": simg.cfg.grid.ncells,
+        "instances": {**instances(ptx_all, "cell_sweep_kernel"),
+                      **instances(ptx_all, "occupied_groups_kernel")},
     }
     del simq, sim_sh, states_sh, state_sh, simg, pe, cse, outq
     torch.cuda.empty_cache()

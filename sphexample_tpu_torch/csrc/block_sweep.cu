@@ -10,15 +10,28 @@
 // stale cell coordinates of the last rebuild and the sorted order are the
 // whole contract.
 //
-// Design (first, simple version): one thread per cell-sorted self row i.
-// For each of the 3^(D-1) stencil rows it takes the contiguous candidate
-// range [cell_start[key_lo], cell_start[key_hi + 1]) exactly as
+// Design (the first version walked one thread per self): one warp
+// per 32 consecutive sorted self rows [32w, 32w + 32) - the counterpart of
+// the TPU kernel's block of consecutive sorted rows - swept through the
+// shared stage -> filter -> compute walk of csrc/sph_sweep_walk.cuh.  The
+// warp splits its rows into subgroups by the values its stencil rows come
+// from, the unclamped cell coordinates rel[1 .. D-1] of the stale cell of
+// the last rebuild: a ballot on the key of the lowest pending lane, one
+// subgroup per pass, no table and no extra launch.  In 3D, 32 consecutive
+// rows of a ~41-particle cell nearly always form one subgroup; in the 2D
+// moving square (about 4 selves a cell) the 32 rows span about 8 cells of one
+// row, and the union of candidates is about 10 cells per stencil row against
+// 3 of one self.  The x span is not capped: a pass costs the filter over the
+// union plus the compute of the busiest lane, so splitting the 32 rows in two
+// passes would pay the compute twice to save part of a cheaper filter (a
+// capped variant was not measured).  For each stencil row the candidate
+// range of a self is [cell_start[key_lo], cell_start[key_hi + 1]) exactly as
 // ops/cell_list.py::row_segments computes it (x-range clamped to the grid
-// edge, rows outside the grid empty), loops over j, and accumulates its K =
+// edge, rows outside the grid empty); each self accumulates its K =
 // (1+D)(1 + STORE + PLANAR) sums in f32 registers: drho, dv/dt, then W,
 // grad W, then grad C, div r (the cell sweep's column order).  One output row
-// per self, in sorted order.  Each pair is computed from both endpoints: no
-// atomics.
+// per self, in sorted order; an inactive row's is zero.  Each pair is
+// computed from both endpoints: no atomics.
 // Self is excluded (j != i), the support cutoff is d2 <= H2, and the
 // density-diffusion role is cell-centric: for a pair in the self's own cell
 // [s_i, e_i) the i role goes to the lower sorted index, across cells to the
@@ -31,8 +44,11 @@
 // math is csrc/sph_pair_math.cuh (add_pair), shared with the cell sweep as
 // the TPU kernels share ::_pair_math; d2 is summed unfused there, so that in
 // 2D the cutoff is the plain version's bit for bit (the MovingSquare deck's
-// k = sqrt 2 cuts W where it is not yet zero).  Summation order differs from
-// the plain version, so results agree to f32 rounding, not bit for bit.
+// k = sqrt 2 cuts W where it is not yet zero).  A self's candidates are
+// visited in the order of the first version (stencil rows z, y; j
+// ascending), so its sums are the first version's bit for bit, and the cell
+// sweep's.  Summation order differs from the plain version, so results agree
+// with it to f32 rounding, not bit for bit.
 //
 // The self window (the sharded path; replaces
 // sphexample_tpu/ops/pallas_block_sweep.py::pallas_block_sweep_sharded, the
@@ -62,20 +78,25 @@
 // accepted pair about 60 more; the inputs are ~80 bytes per particle (a few
 // microseconds of HBM time at 160k particles), so the bound is operations
 // over the 67 TFLOP/s f32 rate.  chip_smoke.py counts the candidates and
-// pairs of its inputs and prints the bound beside the measured time.
-//
-// What this design leaves on the table (later work): candidate reads are
-// not staged - each thread walks its own candidate range, so the loads of a
-// warp coalesce only where its selves share a cell; no shared-memory tile
-// of a cell row; warp divergence at the support cutoff and between selves
-// of different cells (different trip counts); at ~56 registers a thread
-// (ptxas, 3D instance) 9 blocks of 128 fit an SM, so the 1,248 blocks of
-// 159,712 selves are one wave of 1,188 blocks on 132 SMs plus a short tail.
+// pairs of its inputs and prints the bound beside the measured time.  What
+// the design does about it: the first version's warp ran the pair body on
+// every candidate that any of its lanes accepted - about three in four on the
+// main deck, where one in six is needed - and walked ragged per-thread
+// ranges; now the cheap filter runs on full lanes over staged tiles and the
+// body only over each lane's own accepted rows.  Measured on an H100 80GB
+// HBM3 (700 W): 0.440 against 0.466 ms on the main deck, 0.221 against 0.36
+// ms on its quarter slab, 0.71 against 0.63 ms on the mDBC deck - the busiest
+// lane of a tile accepts nearly as many rows as any lane did.  What it
+// leaves: the per-self order (kept for bitwise agreement) forbids splitting
+// one self's work between lanes, and the pass's ~950 candidate rows do not
+// fit a warp's shared memory, so the compute cannot wait for a whole pass,
+// whose busiest lane is near the mean.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "sph_pair_math.cuh"
+#include "sph_sweep_walk.cuh"
 
 extern "C" {
 
@@ -113,7 +134,7 @@ struct SweepParams {
 namespace {
 
 template <int D, int FAM, int VISC, int DIFF, bool SPS, bool STORE, bool SHIFT>
-__global__ void __launch_bounds__(128)
+__global__ void __launch_bounds__(WALK_THREADS)
 block_sweep_kernel(const SweepParams P,
                    const float4* __restrict__ pack,
                    const int* __restrict__ cell,
@@ -121,69 +142,62 @@ block_sweep_kernel(const SweepParams P,
                    const unsigned char* __restrict__ active,
                    float* __restrict__ out) {
     constexpr int K = n_sums<D, STORE, SHIFT>();
-    const int r = blockIdx.x * blockDim.x + threadIdx.x;   // self row
-    if (r >= P.n) return;
+    constexpr int NV = pack_vectors<D>();
+    __shared__ __align__(16) float4 tiles[WALK_WARPS][2 * WALK_TILE * NV];
+    const int lane = threadIdx.x & 31;
+    const int warp = threadIdx.x >> 5;
+    const int w0 = blockIdx.x * WALK_THREADS + warp * 32;  // the warp's first self row
+    if (w0 >= P.n) return;                                 // the whole warp
+    const int r = w0 + lane;                               // self row
+    const bool in = r < P.n;
+    const bool live = in && active[r];
     const int i = P.self_off + r;                          // its pack row
-    float* o = out + (size_t)r * K;
-    if (!active[r]) {
-#pragma unroll
-        for (int k = 0; k < K; ++k) o[k] = 0.0f;
-        return;
-    }
 
-    const Row s = load_row<D>(pack, i);
     int rel[D];
     int key = 0;
 #pragma unroll
     for (int d = 0; d < D; ++d) {
-        rel[d] = cell[(size_t)r * D + d] - P.cmin[d];
+        rel[d] = in ? cell[(size_t)r * D + d] - P.cmin[d] : 0;
         const int rc = min(max(rel[d], 0), P.shape[d] - 1);
         key += rc * P.strides[d];
     }
-    const int s_i = cell_start[key];
-    const int e_i = cell_start[key + 1];
-    const int x_lo = min(max(rel[0] - 1, 0), P.shape[0] - 1);
-    const int x_hi = min(max(rel[0] + 1, 0), P.shape[0] - 1);
+    WalkLane L;
+    L.i = i;
+    L.s_i = live ? cell_start[key] : 0;
+    L.e_i = live ? cell_start[key + 1] : 0;
+    L.xl = min(max(rel[0] - 1, 0), P.shape[0] - 1);
+    L.xh = min(max(rel[0] + 1, 0), P.shape[0] - 1);
+    const Row s = load_row<D>(pack, live ? i : P.self_off + w0);
 
     float acc[K];
 #pragma unroll
     for (int k = 0; k < K; ++k) acc[k] = 0.0f;
-
-    constexpr int R2 = (D == 3) ? 1 : 0;
-    for (int r2 = -R2; r2 <= R2; ++r2) {
-        for (int r1 = -1; r1 <= 1; ++r1) {
-            const int y = rel[1] + r1;
-            if (y < 0 || y >= P.shape[1]) continue;
-            int base = y * P.strides[1];
-            if constexpr (D == 3) {
-                const int z = rel[2] + r2;
-                if (z < 0 || z >= P.shape[2]) continue;
-                base += z * P.strides[2];
-            }
-            const int jb = cell_start[base + x_lo];
-            const int je = cell_start[base + x_hi + 1];
-            for (int j = jb; j < je; ++j) {
-                const Row c = load_row<D>(pack, j);
-                float xij[D];
-                const float d2 = pair_distance2<D>(s, c, xij);
-                if (d2 > P.H2 || j == i) continue;
-                const bool same_cell = (j >= s_i) && (j < e_i);
-                add_pair<D, SPS, STORE, SHIFT, FAM, VISC, DIFF>(
-                    P, s, c, xij, d2, same_cell ? (i < j) : (i > j), acc);
-            }
-        }
+    // subgroups by stencil rows: the lowest pending lane's cell row, and
+    // every pending lane in the same row, one pass each
+    unsigned pending = __ballot_sync(FULL_MASK, live);
+    while (pending) {
+        const int leader = __ffs(pending) - 1;
+        // (y, z) in 3D; in 2D rel[D - 1] is y again and rz goes unused
+        const int ry = __shfl_sync(FULL_MASK, rel[1], leader);
+        const int rz = __shfl_sync(FULL_MASK, rel[D - 1], leader);
+        L.member = ((pending >> lane) & 1u) && rel[1] == ry && rel[D - 1] == rz;
+        pending &= ~__ballot_sync(FULL_MASK, L.member);
+        walk_pass<D, SPS, STORE, SHIFT, FAM, VISC, DIFF>(P, pack, cell_start, tiles[warp],
+                                                        ry, rz, L, s, acc);
     }
+    if (in) {
+        float* o = out + (size_t)r * K;
 #pragma unroll
-    for (int k = 0; k < K; ++k) o[k] = acc[k];
+        for (int k = 0; k < K; ++k) o[k] = acc[k];
+    }
 }
 
 template <int D, int FAM, int VISC, int DIFF, bool SPS, bool STORE, bool SHIFT>
 cudaError_t launch(const SweepParams& P, const float* pack, const int* cell,
                    const int* cell_start, const unsigned char* active,
                    float* out, cudaStream_t stream) {
-    const int threads = 128;
-    const int blocks = (P.n + threads - 1) / threads;
-    block_sweep_kernel<D, FAM, VISC, DIFF, SPS, STORE, SHIFT><<<blocks, threads, 0, stream>>>(
+    const int blocks = (P.n + WALK_THREADS - 1) / WALK_THREADS;
+    block_sweep_kernel<D, FAM, VISC, DIFF, SPS, STORE, SHIFT><<<blocks, WALK_THREADS, 0, stream>>>(
         P, reinterpret_cast<const float4*>(pack), cell, cell_start, active, out);
     return cudaGetLastError();
 }

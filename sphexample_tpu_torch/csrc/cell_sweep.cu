@@ -16,22 +16,34 @@
 // twice-packed fields, scalar prefetch, the [maxp, K_pad, R2] output block
 // and the gather back to sorted order.
 //
-// Design (first, simple version): one thread block per grid cell; a block
-// whose cell is empty returns at once, so no list of occupied cells is kept
-// and the step gains no host sync.  The block's cell coordinates follow from
-// blockIdx (x fastest), its selves are the sorted rows [cs, ce) of
-// cell_start.  Selves are taken blockDim at a time (a cell of any occupancy
-// works), one thread per self.  For each stencil row the candidate range
-// [cell_start[key_lo], cell_start[key_hi + 1]) is computed exactly as
+// Design (the first version ran one thread block per grid cell, most
+// of them empty, with block-wide barriers around every tile): the kernel
+// runs over OCCUPIED cells only, the counterpart of the TPU kernel's
+// occupied-cell programs, and pairs x-adjacent cells as that kernel does: a
+// group is the cells (2q, 2q + 1) of one x row (the last one alone when the
+// row has an odd length), whose selves are one contiguous run of sorted rows
+// with one set of stencil rows.  On the 2,215,035-row dam break a full cell
+// holds 36-64 selves: one cell a group fills 63 % of the lanes of its warp
+// passes, a pair 85 % (ops/cell_sweep.py:cell_schedule, schedule_stats).
+//
+//   1. occupied_groups_kernel lists, in device memory, the groups with self
+//      rows in [self_off, self_off + n) - a flag per group, a ballot and a
+//      prefix within each block, one atomicAdd per block - and counts them.
+//      Launched by the same C call on the same stream: no host sync.
+//   2. cell_sweep_kernel runs persistent warps (as many as fit on the card at
+//      once, never more than the groups can use); a warp takes the next list
+//      entry from a device counter and sweeps its group's selves 32 at a time
+//      through the shared stage -> filter -> compute walk of
+//      csrc/sph_sweep_walk.cuh.  Each lane knows its own cell (the first or
+//      the second of the pair) from the pair's middle start.
+//
+// A self's K sums are written to row i of the [N, K] output: a self's sorted
+// index is its row, so there are no atomics and no gather back.  Rows that no
+// group owns (inactive padding, parked past the last cell) are never written:
+// the wrapper zero-fills the output and masks with ``active``.  For each
+// stencil row the candidate range of a self is computed exactly as
 // ops/cell_list.py::row_segments does (x clamped to the grid edge, rows
-// outside the grid empty) and brought tile by tile (TILE packed rows,
-// coalesced float4 loads) into shared memory; after a barrier every thread
-// walks the tile for its own self - all threads read the same shared row, a
-// broadcast - and sums in f32 registers.  Each thread writes its K sums to
-// row i of the [N, K] output: a self's sorted index is its row, so there are
-// no atomics and no gather back.  Rows that no block owns (inactive padding,
-// parked past the last cell) are never written: the wrapper zero-fills the
-// output and masks with ``active``.
+// outside the grid empty).
 //
 // The self window (the sharded path; replaces
 // sphexample_tpu/ops/pallas_sweep.py::pallas_pair_sweep_sharded, the same TPU
@@ -39,19 +51,21 @@
 // are selves.  Selves are the pack rows [self_off, self_off + n) - a slab of
 // the global sorted order between its two halos, or inside the whole gathered
 // array - and cell_start arrives rebased to the pack's rows and clamped to
-// them.  A block takes the part of its cell's rows that lies in the self
-// range and returns when there is none (on P slabs about (P-1)/P of the
-// blocks of a launch); a cell that straddles a slab edge is swept by both
-// slabs, each writing its own rows.  The role rule and the own-cell test use
-// the cell's whole range [cs, ce).  Tiles start at the stencil row's first
-// candidate whatever the self range, so a slab's rows come out bit for bit
-// as the single-device launch gives them.  Single device: self_off = 0.
+// them.  Only groups with rows in the self range are listed, and a warp
+// takes the part of its group's rows that lies there; a cell that straddles
+// a slab edge is swept by both slabs, each writing its own rows.  The role
+// rule and the own-cell test use the cell's whole range [cs, ce).  A self's
+// candidates are visited in the single-device launch's order, so a slab's
+// rows come out bit for bit as that launch gives them.  Single device:
+// self_off = 0.
 //
 // Pair math: csrc/sph_pair_math.cuh::add_pair, shared with the block sweep
 // as the TPU kernels share ::_pair_math.  Self excluded by index, support
 // cutoff d2 <= H2 on the unfused d2 of pair_distance2, the density-diffusion
-// role cell-centric: same_cell = cs <= j < ce of the block's own cell,
-// role_i = same_cell ? i < j : i > j.  Summation order differs from the
+// role cell-centric: same_cell = cs <= j < ce of the self's own cell,
+// role_i = same_cell ? i < j : i > j.  A self's candidates are visited in
+// the order of the first version and of the block sweep (stencil rows z, y;
+// j ascending): the same bits as both.  Summation order differs from the
 // plain version: agreement to f32 rounding, not bit for bit.
 //
 // Instances: templates on what changes the registers a thread holds - dims
@@ -64,21 +78,25 @@
 // about 45 more (ARTIFICIAL + LINEAR), while the inputs are ~50 bytes a
 // particle.  chip_smoke.py counts the candidates and pairs of its inputs and
 // prints the bound beside the measured time: on the 2,215,035-particle 3D dam
-// break 3.63e10 operations over 67 TFLOP/s = 0.542 ms against 10.4-10.5 ms
-// per launch (the block sweep on the same state: 5.9 ms), measured on an
-// NVIDIA H100 80GB HBM3 at a 700 W power limit.  What the design does about
-// it: candidate rows are read from device memory once per (cell, stencil
-// row) instead of once per self, coalesced; every thread of a block has the
-// same trip count.  What it leaves on the table: threads past a cell's
-// occupancy idle through the walk (the occupied cells of that dam break hold
-// 31 selves on average for 64 threads, a 2D moving-square cell 4 for 32: this
-// is why the block sweep, with its lanes full, is faster), loads are not overlapped
-// with the walk (no cp.async / TMA ring), warps diverge at the cutoff.
+// break 3.63e10 operations over 67 TFLOP/s = 0.542 ms, against 10.1-10.2 ms
+// per launch for the first version (NVIDIA H100 80GB HBM3, 700 W power
+// limit).  What the design does about it: no block for an empty cell; the
+// lanes of a pair-of-cells group fuller than those of one cell; tiles staged
+// asynchronously per warp, with no block-wide barrier; the pair body run
+// only over each lane's own accepted rows, where the first version's block
+// ran it on every candidate that any of its threads accepted.  Measured on
+// an H100 80GB HBM3 (700 W): 7.5-7.6 against 10.2 ms on that dam break,
+// 0.24-0.25 against 0.54 ms on the 2D moving square.  What it leaves: a
+// pair's last pass is part-full (85 % of the lanes are used on that dam
+// break, against 97 % for the block sweep's 32 consecutive rows), the model
+// is chosen at run time, and the busiest lane of a tile sets the compute as
+// in the block sweep.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "sph_pair_math.cuh"
+#include "sph_sweep_walk.cuh"
 
 extern "C" {
 
@@ -115,88 +133,128 @@ struct CellSweepParams {
 
 namespace {
 
-constexpr int TILE = 128;   // candidate rows staged per barrier
+// groups: cells (2q, 2q + 1) of one x row; list[0] = their count,
+// list[1] = the next entry to take, list[2 ..] = each group's first cell
+template <class Params>
+__device__ __forceinline__ int group_first_cell(const Params& P, int q) {
+    const int half = (P.shape[0] + 1) / 2;
+    return (q / half) * P.shape[0] + 2 * (q % half);
+}
+
+__global__ void __launch_bounds__(256)
+occupied_groups_kernel(const CellSweepParams P, const int* __restrict__ cell_start,
+                       int* __restrict__ list) {
+    __shared__ int warp_base[8];
+    __shared__ int block_base;
+    const int half = (P.shape[0] + 1) / 2;
+    const int q = blockIdx.x * blockDim.x + threadIdx.x;
+    bool has = false;
+    int c = 0;
+    if (q < (P.ncells / P.shape[0]) * half) {
+        c = group_first_cell(P, q);
+        const int gw = min(2, P.shape[0] - c % P.shape[0]);
+        has = max(cell_start[c], P.self_off) < min(cell_start[c + gw], P.self_off + P.n);
+    }
+    const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+    const unsigned b = __ballot_sync(FULL_MASK, has);
+    if (lane == 0) warp_base[w] = __popc(b);
+    __syncthreads();
+    if (threadIdx.x == 0) {
+        int sum = 0;
+        for (int k = 0; k < (int)(blockDim.x >> 5); ++k) {
+            const int v = warp_base[k];
+            warp_base[k] = sum;
+            sum += v;
+        }
+        block_base = sum ? atomicAdd(list, sum) : 0;
+    }
+    __syncthreads();
+    if (has) list[2 + block_base + warp_base[w] + __popc(b & ((1u << lane) - 1u))] = c;
+}
 
 template <int D, bool SPS, bool STORE, bool SHIFT>
-__global__ void __launch_bounds__((D == 3) ? 64 : 32)
+__global__ void __launch_bounds__(WALK_THREADS)
 cell_sweep_kernel(const CellSweepParams P,
                   const float4* __restrict__ pack,
                   const int* __restrict__ cell_start,
+                  int* __restrict__ list,
                   float* __restrict__ out) {
-    constexpr int NV = (D == 3) ? 3 : 2;               // float4s per packed row
+    constexpr int NV = pack_vectors<D>();
     constexpr int K = n_sums<D, STORE, SHIFT>();
-    __shared__ float4 tile[TILE * NV];
-
-    const int c = blockIdx.x;
-    const int cs = cell_start[c];
-    const int ce = cell_start[c + 1];
-    const int lo = max(cs, P.self_off);                 // the cell's selves
-    const int hi = min(ce, P.self_off + P.n);
-    if (lo >= hi) return;                               // empty, or another slab's
-
-    int rel[3];
-    rel[0] = c % P.shape[0];
-    const int t = c / P.shape[0];
-    rel[1] = (D == 3) ? t % P.shape[1] : t;
-    rel[2] = (D == 3) ? t / P.shape[1] : 0;
-    const int x_lo = max(rel[0] - 1, 0);
-    const int x_hi = min(rel[0] + 1, P.shape[0] - 1);
-
-    for (int base = lo; base < hi; base += blockDim.x) {
-        const int i = base + threadIdx.x;
-        const bool has = i < hi;
-        const Row s = load_row<D>(pack, has ? i : lo);
-        float acc[K];
+    __shared__ __align__(16) float4 tiles[WALK_WARPS][2 * WALK_TILE * NV];
+    const int lane = threadIdx.x & 31;
+    const int warp = threadIdx.x >> 5;
+    const int count = list[0];
+    while (true) {
+        int e = 0;
+        if (lane == 0) e = atomicAdd(list + 1, 1);
+        e = __shfl_sync(FULL_MASK, e, 0);
+        if (e >= count) return;
+        const int c = list[2 + e];                          // the group's first cell
+        const int x = c % P.shape[0];
+        const int gw = min(2, P.shape[0] - x);
+        const int t = c / P.shape[0];
+        const int ry = (D == 3) ? t % P.shape[1] : t;
+        const int rz = (D == 3) ? t / P.shape[1] : 0;
+        const int cs0 = cell_start[c], mid = cell_start[c + 1], ce1 = cell_start[c + 2];
+        const int lo = max(cs0, P.self_off);                // the group's selves
+        const int hi = min(gw == 2 ? ce1 : mid, P.self_off + P.n);
+        for (int base = lo; base < hi; base += 32) {
+            WalkLane L;
+            L.i = base + lane;
+            L.member = L.i < hi;
+            const bool second = L.i >= mid;                 // in cell c + 1
+            const int cx = x + (second ? 1 : 0);
+            L.s_i = second ? mid : cs0;
+            L.e_i = second ? ce1 : mid;
+            L.xl = max(cx - 1, 0);
+            L.xh = min(cx + 1, P.shape[0] - 1);
+            const Row s = load_row<D>(pack, L.member ? L.i : lo);
+            float acc[K];
 #pragma unroll
-        for (int k = 0; k < K; ++k) acc[k] = 0.0f;
-
-        constexpr int R2 = (D == 3) ? 1 : 0;
-        for (int r2 = -R2; r2 <= R2; ++r2) {
-            for (int r1 = -1; r1 <= 1; ++r1) {
-                const int y = rel[1] + r1;
-                if (y < 0 || y >= P.shape[1]) continue;
-                int row = y * P.strides[1];
-                if constexpr (D == 3) {
-                    const int z = rel[2] + r2;
-                    if (z < 0 || z >= P.shape[2]) continue;
-                    row += z * P.strides[2];
-                }
-                const int jb = cell_start[row + x_lo];
-                const int je = cell_start[row + x_hi + 1];
-                for (int t0 = jb; t0 < je; t0 += TILE) {
-                    const int nt = min(TILE, je - t0);
-                    __syncthreads();                    // the last tile is consumed
-                    const float4* src = pack + (size_t)t0 * NV;
-                    for (int k = threadIdx.x; k < nt * NV; k += blockDim.x) tile[k] = src[k];
-                    __syncthreads();
-                    if (!has) continue;
-                    for (int jj = 0; jj < nt; ++jj) {
-                        const int j = t0 + jj;
-                        const Row n = load_row<D>(tile, jj);
-                        float xij[D];
-                        const float d2 = pair_distance2<D>(s, n, xij);
-                        if (d2 > P.H2 || j == i) continue;
-                        const bool same_cell = (j >= cs) && (j < ce);
-                        add_pair<D, SPS, STORE, SHIFT, AT_RUN_TIME, AT_RUN_TIME, AT_RUN_TIME>(
-                            P, s, n, xij, d2, same_cell ? (i < j) : (i > j), acc);
-                    }
-                }
+            for (int k = 0; k < K; ++k) acc[k] = 0.0f;
+            walk_pass<D, SPS, STORE, SHIFT, AT_RUN_TIME, AT_RUN_TIME, AT_RUN_TIME>(
+                P, pack, cell_start, tiles[warp], ry, rz, L, s, acc);
+            if (L.member) {
+                float* o = out + (size_t)(L.i - P.self_off) * K;
+#pragma unroll
+                for (int k = 0; k < K; ++k) o[k] = acc[k];
             }
-        }
-        if (has) {
-            float* o = out + (size_t)(i - P.self_off) * K;
-#pragma unroll
-            for (int k = 0; k < K; ++k) o[k] = acc[k];
         }
     }
 }
 
+// the groups of this grid: one per x pair of cells of every x row
+int group_count(const CellSweepParams& P) {
+    return (P.ncells / P.shape[0]) * ((P.shape[0] + 1) / 2);
+}
+
 template <int D, bool SPS, bool STORE, bool SHIFT>
 cudaError_t launch(const CellSweepParams& P, const float* pack, const int* cell_start,
-                   float* out, cudaStream_t stream) {
-    const int threads = (D == 3) ? 64 : 32;
-    cell_sweep_kernel<D, SPS, STORE, SHIFT><<<P.ncells, threads, 0, stream>>>(
-        P, reinterpret_cast<const float4*>(pack), cell_start, out);
+                   int* list, float* out, cudaStream_t stream) {
+    auto kernel = cell_sweep_kernel<D, SPS, STORE, SHIFT>;
+    // persistent warps: as many blocks as fit on the card at once (looked up
+    // once per instance), never more than the groups can use
+    static int resident = 0;
+    if (resident == 0) {
+        int dev = 0, sms = 0, per_sm = 0;
+        cudaError_t err = cudaGetDevice(&dev);
+        if (err == cudaSuccess)
+            err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+        if (err == cudaSuccess)
+            err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, WALK_THREADS, 0);
+        if (err != cudaSuccess) return err;
+        resident = max(1, sms * per_sm);
+    }
+    const int groups = group_count(P);
+    cudaError_t err = cudaMemsetAsync(list, 0, 2 * sizeof(int), stream);
+    if (err != cudaSuccess) return err;
+    occupied_groups_kernel<<<(groups + 255) / 256, 256, 0, stream>>>(P, cell_start, list);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    const int blocks = min(resident, (groups + WALK_WARPS - 1) / WALK_WARPS);
+    kernel<<<blocks, WALK_THREADS, 0, stream>>>(P, reinterpret_cast<const float4*>(pack),
+                                                  cell_start, list, out);
     return cudaGetLastError();
 }
 
@@ -206,8 +264,9 @@ extern "C" {
 
 // variant = dims3 << 3 | sps << 2 | store << 1 | shift.
 // Returns 0, a cudaError_t code, or -1 for an unknown variant or mode.
+// ``list`` is device scratch of sph_cell_sweep_list_size(params) ints.
 int sph_cell_sweep(const CellSweepParams* params, int variant, const float* pack,
-                   const int* cell_start, float* out, void* stream) {
+                   const int* cell_start, int* list, float* out, void* stream) {
     const CellSweepParams P = *params;
     if (P.n <= 0 || P.ncells <= 0) return 0;
     if (P.family < WENDLAND || P.family > CUBIC || P.viscosity < VISC_ZERO
@@ -217,7 +276,7 @@ int sph_cell_sweep(const CellSweepParams* params, int variant, const float* pack
     if (((variant >> 2) & 1) != (P.viscosity == VISC_LAMINAR_SPS)) return -1;
     cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define SPH_CASE(V, D, SPS, STORE, SHIFT) \
-    case V: return static_cast<int>(launch<D, SPS, STORE, SHIFT>(P, pack, cell_start, out, st));
+    case V: return static_cast<int>(launch<D, SPS, STORE, SHIFT>(P, pack, cell_start, list, out, st));
     switch (variant) {
         SPH_CASE(0, 2, false, false, false)
         SPH_CASE(1, 2, false, false, true)
@@ -238,6 +297,10 @@ int sph_cell_sweep(const CellSweepParams* params, int variant, const float* pack
         default: return -1;
     }
 #undef SPH_CASE
+}
+
+int sph_cell_sweep_list_size(const CellSweepParams* params) {
+    return 2 + group_count(*params);
 }
 
 const char* sph_cell_sweep_error_string(int code) {

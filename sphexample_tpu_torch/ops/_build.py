@@ -117,7 +117,9 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.sph_mdbc_error_string.argtypes = [ci]
         lib.sph_mdbc_error_string.restype = ctypes.c_char_p
     elif name == "cell_sweep":
-        lib.sph_cell_sweep.argtypes = [vp, ci, vp, vp, vp, vp]
+        lib.sph_cell_sweep.argtypes = [vp, ci, vp, vp, vp, vp, vp]
         lib.sph_cell_sweep.restype = ci
+        lib.sph_cell_sweep_list_size.argtypes = [vp]
+        lib.sph_cell_sweep_list_size.restype = ci
         lib.sph_cell_sweep_error_string.argtypes = [ci]
         lib.sph_cell_sweep_error_string.restype = ctypes.c_char_p

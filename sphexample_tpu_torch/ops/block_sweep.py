@@ -18,12 +18,23 @@ counted in ``window_launches``.
 
 Outputs are in cell-sorted order, masked by ``active`` and cast to the state
 dtype (the counterpart of the JAX package's ``_collect``).
+
+The kernel's schedule (``csrc/sph_sweep_walk.cuh``): a warp sweeps 32
+consecutive self rows, in one pass per cell row they sit in; each pass stages
+the union of its selves' candidate ranges, filters it per self and computes
+the accepted pairs.  :func:`block_schedule` is that split in plain PyTorch,
+:func:`walk_candidates` the candidates each self accepts through union, own
+range and filter, in the kernel's order, and :func:`schedule_stats` what the
+schedule costs (``chip_smoke.py`` prints it; ``ops/cell_sweep.py`` has the
+cell kernel's schedule).
 """
 
 from __future__ import annotations
 
 import ctypes
 import threading
+from dataclasses import dataclass
+from typing import Optional
 
 import torch
 
@@ -32,7 +43,7 @@ from ..config import (DensityDiffusionModel, KernelFamily, KernelOutputMode,
 from ..models.density_diffusion import linear_hydrostatic_constant
 from ..models.kernels import W
 from ..state import Particles
-from .cell_list import Grid
+from .cell_list import Grid, stencil_rows
 from .halo import extend, rebase
 from .interactions import PhysicsSpec, SweepOut, pair_sweep
 
@@ -222,6 +233,185 @@ def check_inputs(grid: Grid, particles: Particles, cell_start, position, density
         raise TypeError("active must be bool")
     if not position.dtype.is_floating_point:
         raise TypeError(f"position must be floating point, not {position.dtype}")
+
+
+# the walk's shape (csrc/sph_sweep_walk.cuh): the selves of one warp pass, and
+# the packed rows of one staged tile (one bit of a lane's accept mask each)
+WARP = 32
+WALK_TILE = 64
+
+
+@dataclass(frozen=True)
+class Schedule:
+    """The passes of a sweep kernel's warps: each self row is in at most one
+    pass, and the selves of a pass share one cell row (y, or y and z), so
+    one set of stencil rows.  ``pass_x`` is the union of the members' x
+    ranges, ``cells`` the cell kernel's list of groups (their first cells)."""
+
+    groups: int                     # warps with a live row / listed groups
+    pass_of: torch.Tensor           # [n] int64: each self row's pass, -1 for none
+    pass_row: torch.Tensor          # [P, D-1] each pass's cell row (unclamped)
+    pass_x: torch.Tensor            # [P, 2] its union x range [min x_lo, max x_hi]
+    x_range: torch.Tensor           # [n, 2] each self's clamped x range
+    own: torch.Tensor               # [n, 2] each self's own cell rows [s_i, e_i)
+    cells: Optional[torch.Tensor] = None
+
+
+def _pass_union(pass_of, x_range, n_pass):
+    """[P, 2] union x range of each pass: min x_lo, max x_hi of its members."""
+    live = pass_of >= 0
+    idx = pass_of[live]
+    lo = torch.full((n_pass,), 1 << 30, dtype=torch.int64, device=idx.device)
+    hi = torch.full((n_pass,), -1, dtype=torch.int64, device=idx.device)
+    lo = lo.scatter_reduce(0, idx, x_range[live, 0], "amin")
+    hi = hi.scatter_reduce(0, idx, x_range[live, 1], "amax")
+    return torch.stack([lo, hi], dim=-1)
+
+
+def block_schedule(grid: Grid, particles: Particles, cell_start) -> Schedule:
+    """The block kernel's passes: warp w takes self rows [32w, 32w + 32) and
+    splits its live rows by the unclamped cell row of their stale cells
+    (rel[1 .. D-1]), one pass per row (the kernel ballots on the lowest
+    pending lane's row; a warp's passes do not depend on each other)."""
+    cell, active = particles.cell.long(), particles.active
+    n, dims = cell.shape
+    dev = cell.device
+    cs = cell_start.long()
+    cmin = torch.tensor(grid.cmin, device=dev)
+    shape = torch.tensor(grid.shape, device=dev)
+    strides = torch.tensor(grid.strides, device=dev)
+    rel = cell - cmin
+    key = (torch.minimum(torch.clamp(rel, min=0), shape - 1) * strides).sum(-1)
+    own = torch.stack([cs[key], cs[key + 1]], dim=-1)
+    x_range = torch.stack([torch.clamp(rel[:, 0] - 1, 0, grid.shape[0] - 1),
+                           torch.clamp(rel[:, 0] + 1, 0, grid.shape[0] - 1)], dim=-1)
+    warp = torch.arange(n, device=dev) // WARP
+    ids = torch.cat([warp[:, None], rel[:, 1:]], dim=1)[active]
+    if ids.shape[0] == 0:
+        uniq = ids.new_zeros((0, dims))
+        inv = ids.new_zeros((0,))
+    else:
+        uniq, inv = torch.unique(ids, dim=0, return_inverse=True)
+    pass_of = torch.full((n,), -1, dtype=torch.int64, device=dev)
+    pass_of[active] = inv
+    return Schedule(groups=int(torch.unique(warp[active]).numel()), pass_of=pass_of,
+                    pass_row=uniq[:, 1:], pass_x=_pass_union(pass_of, x_range, uniq.shape[0]),
+                    x_range=x_range, own=own)
+
+
+def _pass_rows(sched: Schedule, grid: Grid, cell_start):
+    """[P, S] union candidate ranges (ub, ue) of every pass and stencil row
+    (z outer, y inner, as the kernels walk them), empty outside the grid;
+    and the [P, S] row bases (cell key of x = 0)."""
+    dev = cell_start.device
+    cs = cell_start.long()
+    rows = torch.as_tensor(stencil_rows(grid.dims), device=dev).long()   # [S, D-1]
+    shape = torch.tensor(grid.shape[1:], device=dev)
+    strides = torch.tensor(grid.strides[1:], device=dev)
+    row_rel = sched.pass_row[:, None, :] + rows                          # [P, S, D-1]
+    valid = torch.all((row_rel >= 0) & (row_rel < shape), dim=-1)
+    base = torch.where(valid, (row_rel * strides).sum(-1), 0)
+    zero = torch.zeros((), dtype=torch.int64, device=dev)
+    ub = torch.where(valid, cs[base + sched.pass_x[:, None, 0]], zero)
+    ue = torch.where(valid, cs[base + sched.pass_x[:, None, 1] + 1], zero)
+    return ub, ue, base, valid
+
+
+def walk_candidates(sched: Schedule, grid: Grid, cell_start, position, H2: float,
+                    self_off: int = 0):
+    """The pairs (r, j) the kernel's walk accepts, in its order: for each self
+    row r of a pass, every stencil row's union run [ub, ue), ascending, kept
+    where j lies in the self's own x range, j != i (i = self_off + r, its
+    position row) and d2 <= H2, d2 summed unfused in ``position``'s dtype as
+    the kernel's pair_distance2 does.  int64 tensors, r ascending."""
+    dev = cell_start.device
+    cs = cell_start.long()
+    ub, ue, base, valid = _pass_rows(sched, grid, cell_start)
+    r = torch.nonzero(sched.pass_of >= 0).flatten()
+    p = sched.pass_of[r]
+    S = ub.shape[1]
+    lens = (ue[p] - ub[p]).reshape(-1)
+    seg = torch.repeat_interleave(torch.arange(lens.numel(), device=dev), lens)
+    first = torch.cumsum(lens, 0) - lens
+    j = ub[p].reshape(-1)[seg] + torch.arange(seg.numel(), device=dev) - first[seg]
+    self_k, srow = torch.div(seg, S, rounding_mode="floor"), seg % S
+    rr, pp = r[self_k], p[self_k]
+    b = base[pp, srow]
+    zero = torch.zeros((), dtype=torch.int64, device=dev)
+    jb = torch.where(valid[pp, srow], cs[b + sched.x_range[rr, 0]], zero)
+    je = torch.where(valid[pp, srow], cs[b + sched.x_range[rr, 1] + 1], zero)
+    i = self_off + rr
+    xij = position[i] - position[j]
+    d2 = torch.zeros_like(xij[:, 0])
+    for d in range(xij.shape[1]):
+        d2 = d2 + xij[:, d] * xij[:, d]
+    keep = (j >= jb) & (j < je) & (j != i) & ~(d2 > H2)
+    return rr[keep], j[keep]
+
+
+def pass_bodies(sched: Schedule, grid: Grid, cell_start, position, H2: float,
+                passes, self_off: int = 0) -> dict:
+    """Pair bodies a warp runs over the passes ``passes`` (pass ids), by how
+    its compute is batched, and the accepted pairs of its busiest and mean
+    lane, summed over the passes: ``any_lane`` - the union rows some lane
+    accepts (a walk whose lanes step through the union together pays the
+    body on each); ``per_tile`` - the busiest lane's accepts in each staged
+    tile of WALK_TILE rows (this walk); ``per_row`` - in each stencil row;
+    ``per_pass`` - over the whole pass; ``mean_lane`` - a lane's average.
+    Self row r is ``position`` row self_off + r, as in walk_candidates."""
+    ub, ue, base, valid = _pass_rows(sched, grid, cell_start)
+    cs = cell_start.long()
+    out = {"passes": 0, "any_lane": 0, "per_tile": 0, "per_row": 0, "per_pass": 0,
+           "mean_lane": 0.0}
+    for q in passes.tolist():
+        rows = torch.nonzero(sched.pass_of == q).flatten()
+        total = torch.zeros(rows.numel(), dtype=torch.int64, device=rows.device)
+        for s in range(ub.shape[1]):
+            a, b = int(ub[q, s]), int(ue[q, s])
+            if a >= b:
+                continue
+            j = torch.arange(a, b, device=rows.device)
+            jb = cs[base[q, s] + sched.x_range[rows, 0]]
+            je = cs[base[q, s] + sched.x_range[rows, 1] + 1]
+            xij = position[self_off + rows][:, None, :] - position[j][None, :, :]
+            d2 = torch.zeros_like(xij[..., 0])
+            for d in range(xij.shape[-1]):
+                d2 = d2 + xij[..., d] * xij[..., d]
+            acc = ((j >= jb[:, None]) & (j < je[:, None]) & (j != self_off + rows[:, None])
+                   & ~(d2 > H2))
+            out["any_lane"] += int(acc.any(0).sum())
+            out["per_row"] += int(acc.sum(1).max())
+            out["per_tile"] += sum(int(acc[:, t:t + WALK_TILE].sum(1).max())
+                                   for t in range(0, b - a, WALK_TILE))
+            total += acc.sum(1)
+        out["passes"] += 1
+        out["per_pass"] += int(total.max())
+        out["mean_lane"] += float(total.double().mean())
+    return out
+
+
+def schedule_stats(sched: Schedule, grid: Grid, cell_start) -> dict:
+    """What a schedule costs: groups, warp passes, mean member lanes per
+    pass, tiles staged, the union rows staged and the selves' own candidates,
+    and the rows a member lane tests over the candidates of its own ranges
+    (the filter's extra work: 1 when every pass's selves share one x range)."""
+    ub, ue, base, valid = _pass_rows(sched, grid, cell_start)
+    cs = cell_start.long()
+    live = sched.pass_of >= 0
+    n_pass = int(ub.shape[0])
+    members = int(live.sum())
+    p = sched.pass_of[live]
+    own = torch.where(valid[p], cs[base[p] + sched.x_range[live, 1, None] + 1]
+                      - cs[base[p] + sched.x_range[live, 0, None]], 0)
+    per_pass = (ue - ub).sum(-1)
+    union = int(per_pass.sum())
+    tested = int((per_pass * torch.bincount(p, minlength=n_pass)).sum())
+    self_cand = int(own.sum())
+    return {"groups": sched.groups, "warp_passes": n_pass,
+            "mean_active_lanes": members / n_pass if n_pass else 0.0,
+            "tiles": int(((ue - ub + WALK_TILE - 1) // WALK_TILE).sum()),
+            "union_rows": union, "self_candidates": self_cand,
+            "union_over_self_candidates": tested / self_cand if self_cand else 0.0}
 
 
 def block_sweep_plain(spec: PhysicsSpec, grid: Grid, particles: Particles,

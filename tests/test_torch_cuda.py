@@ -875,3 +875,129 @@ def test_four_slab_run_on_the_card(cuda, mdbc_on, block):
     if mdbc_on:
         walls = by_id(four, "ptype") == 2
         assert float((by_id(four, "density")[walls] - 1000.0).abs().max()) > 1e-3
+
+
+# --- the shared walk of both sweeps (csrc/sph_sweep_walk.cuh) ----------------------
+
+WALK_CASES = ["crowded", "blob", "sheet", "edge", "holes"]
+WALK_MODES = {"main": ("ARTIFICIAL", "LINEAR", False, False),
+              "extras": ("LAMINAR_SPS", "COMPLEX", True, True)}
+
+
+def _walk_state(dims, case, family="WENDLAND_C2", seed=11):
+    """Cells the walk must get right: ``crowded`` (150 selves in one cell:
+    more than a warp and more than a tile, a stencil row of more than two
+    tiles), ``blob`` (200 rows within 0.2 H of each other: every lane accepts
+    every row of a tile), ``sheet`` and ``edge`` (clamped stencils, rows
+    outside the grid), ``holes`` (a lattice with every 7th row inactive in
+    place, inside the warps)."""
+    rng = np.random.default_rng(seed)
+    kern = T.make_kernel(T.KernelFamily[family], dims, dx=DX)
+    grid = None
+    if case == "crowded":
+        inner = (rng.uniform(-0.45, 0.45, size=(150, dims)) + 2.0) * kern.H
+        outer = (rng.uniform(-1.4, 1.4, size=(250, dims)) + 2.0) * kern.H
+        pos = np.concatenate([inner, outer])
+    elif case == "blob":
+        pos = rng.uniform(-0.2, 0.2, size=(200, dims)) * kern.H + 3.0 * kern.H
+    elif case == "sheet":
+        pos = rng.uniform(0, 1.5, size=(300, dims))
+        pos[:, -1] = 0.3 + rng.uniform(-0.01, 0.01, size=300) * DX
+    elif case == "edge":
+        pos = rng.uniform(-0.3, 0.3, size=(400, dims))
+        grid = cl.grid_from_positions(pos, kern.H_inv, margin_cells=0)
+        pos[:40] *= 1.5
+    else:
+        n = 500 if dims == 3 else 300
+        side = int(np.ceil(n ** (1 / dims)))
+        pos = np.stack(np.meshgrid(*([np.arange(side) * DX] * dims), indexing="ij"),
+                       axis=-1).reshape(-1, dims)[:n]
+        pos = pos + rng.uniform(-0.4, 0.4, size=pos.shape) * DX
+    n = len(pos)
+    const, kern, grid, p64, cs, occ = _state_at(pos, family, n + 23, grid)
+    if case == "holes":
+        act = p64.active.clone()
+        act[5::7] = False
+        p64 = p64.replace(active=act)
+    return const, kern, grid, p64, cs, occ
+
+
+@pytest.mark.parametrize("dims", [2, 3])
+@pytest.mark.parametrize("case", WALK_CASES)
+@pytest.mark.parametrize("mode", list(WALK_MODES))
+def test_walk_both_kernels_match_plain_and_each_other(cuda, dims, case, mode):
+    """Both kernels on the walk's hard cases against the plain f64 sweep
+    (below 1e-4 of each field's max) and against each other bit for bit
+    (they visit every self's candidates in the same order)."""
+    const, kern, grid, p64, cs, occ = _walk_state(dims, case)
+    if case == "crowded":
+        assert occ > bs.WALK_TILE
+        sched = bs.block_schedule(grid, p64, cs)
+        ub, ue, _, _ = bs._pass_rows(sched, grid, cs)
+        assert int((ue - ub).max()) > 2 * bs.WALK_TILE
+    spec = _full_spec(const, kern, *WALK_MODES[mode])
+    ref = bs.block_sweep_plain(*_args(spec, grid, p64, cs))
+    p32, cs_g = _on(p64, cuda, torch.float32), cs.to(cuda)
+    b0, c0 = bs.launches, cw.launches
+    blk = bs.block_sweep(*_args(spec, grid, p32, cs_g))
+    cel = cw.cell_sweep(*_args(spec, grid, p32, cs_g))
+    torch.cuda.synchronize()
+    assert (bs.launches, cw.launches) == (b0 + 1, c0 + 1)
+    for f in FIELDS:
+        a, b, c = getattr(blk, f), getattr(ref, f), getattr(cel, f)
+        assert (a is None) == (b is None) == (c is None), f
+        if a is None:
+            continue
+        assert torch.equal(a, c), f
+        a = a.double().cpu()
+        assert torch.isfinite(a).all(), f
+        assert not a[~p64.active].any(), f      # inactive rows: zero
+        scale = float(b.abs().max())
+        assert scale > 0, f
+        assert float((a - b).abs().max()) <= REL_TOL * scale, f
+
+
+@pytest.mark.parametrize("dims", [2, 3])
+@pytest.mark.parametrize("family", ["WENDLAND_C2", "CUBIC_SPLINE"])
+@pytest.mark.parametrize("visc", VISC)
+@pytest.mark.parametrize("diff", DIFF)
+def test_block_and_cell_kernels_bitwise_in_every_mode(cuda, dims, family, visc, diff):
+    """All 32 mode sets (PLANAR and STORE on) on a crowded state: the block
+    kernel equals the cell kernel bit for bit in every field."""
+    const, kern, grid, p64, cs, _ = _walk_state(dims, "crowded", family)
+    spec = _full_spec(const, kern, visc, diff)
+    p32, cs_g = _on(p64, cuda, torch.float32), cs.to(cuda)
+    blk = bs.block_sweep(*_args(spec, grid, p32, cs_g))
+    cel = cw.cell_sweep(*_args(spec, grid, p32, cs_g))
+    torch.cuda.synchronize()
+    for f in FIELDS:
+        a, c = getattr(blk, f), getattr(cel, f)
+        assert (a is None) == (c is None), f
+        if a is not None:
+            assert torch.isfinite(a).all() and torch.equal(a, c), f
+
+
+@pytest.mark.parametrize("dims", [2, 3])
+@pytest.mark.parametrize("case", ["crowded", "holes"])
+def test_walk_windows_of_both_kernels(cuda, dims, case):
+    """B2 and B3s on the self windows of 3 slabs (self_off > 0, cells
+    straddling the slab edges): each slab bitwise the single-device launch
+    of either kernel, and the two kernels bitwise each other."""
+    const, kern, grid, p64, cs, _ = _walk_state(dims, case)
+    spec = _full_spec(const, kern, "LAMINAR_SPS", "LINEAR")
+    p32, cs_g = _on(p64, cuda, torch.float32), cs.to(cuda)
+    whole = bs.block_sweep(*_args(spec, grid, p32, cs_g))
+    C = p64.capacity // N_SLABS
+    for r in range(N_SLABS):
+        pl, cs_e, f, off = _window(p32, cs_g, r, 2 * C)
+        assert off > 0
+        args = (spec, grid, pl, cs_e, f["position"], f["density"], f["pressure"],
+                f["velocity"], f["motion_limiter"], off)
+        outs = (bs.block_sweep_window(*args), cw.cell_sweep_window(*args))
+        torch.cuda.synchronize()
+        for name in FIELDS:
+            mine = getattr(whole, name)
+            if mine is None:
+                continue
+            for o in outs:
+                assert torch.equal(getattr(o, name), mine[r * C:(r + 1) * C]), (name, r)
