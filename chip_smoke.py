@@ -17,7 +17,8 @@ Phases, each printing one JSON line (any failure exits non-zero):
               steps, then 200 timed steps through ``make_fixed_steps_fn``,
               with the physics checks (finite fields, fluid density within
               2% of rho0, the column falling, fixed walls unmoved) and the
-              launch count (exactly 2 per step);
+              launch count (exactly 2 per step); every run phase prints a
+              SHA-256 of its end state (``end_digest``);
 5. breakdown - where a step's time goes: the sweep kernel, the rebuild and
               the rest, timed with CUDA events, and the device busy share
               over a profiled window;
@@ -39,9 +40,23 @@ Phases, each printing one JSON line (any failure exits non-zero):
               some boundary density moved off rho0 (the correction fired),
               no grid escapes, and the launch counts (exactly 1 mDBC launch
               and 2 block-sweep launches per step);
-9. breakdown_mdbc - phase 5 for the mDBC run, with stage 04 timed;
+9. breakdown_mdbc - phase 5 for the mDBC run, with stage 04 timed as the
+              step runs it (compaction + one call of the fused kernel) next
+              to the parts it replaced (the moments alone, the solve, the
+              decision tree, the unfused stage), each with its device
+              launches per call;
 10. parity_mdbc_after_run, parity_sweep_mdbc_after_run - phase 7's comparisons
               on the state the run ends in;
+              parity_mdbc_fused_3d, parity_mdbc_fused_after_run - the fused
+              kernel (moments, Cramer solve and decision tree in one call)
+              against the unfused path on the card (the same kernel's
+              moments mode, then ops/mdbc.py:_mdbc_apply) on the deck's start
+              and end states: the moments it writes bit for bit the moments
+              mode's, the corrected densities within 1e-4 (whether bit for
+              bit is printed), no decision flipped away from the |det|
+              threshold, fill slots parked; and the ghost grouping (groups,
+              ghosts per group, staged rows against the candidate rows they
+              serve, ops/mdbc_moments.py:ghost_groups);
 11. parity_cell_3d, parity_cell_2d (with phase 3) - the cell-sweep kernel
               against its plain version on the states of phase 3 and on stirred
               copies of them (seeded density and velocity noise);
@@ -138,18 +153,37 @@ Phases, each printing one JSON line (any failure exits non-zero):
               one halo exchange.
               The kernel line then holds five entries: block_sweep,
               block_sweep_sharded, cell_sweep, cell_sweep_sharded,
-              mdbc_moments (both of its uses).
+              mdbc_moments (both of its uses: ``ms`` is the fused call of
+              stage 04, ``moments_mode_ms`` the moments alone; the grouping,
+              the grouping kernels' time, the fused stage's time and device
+              launches, the parked slots on the halo).
 
 Then the card's name and power limit from nvidia-smi on a line of their own,
 and last ``{"ok": true, "device": {...}}``.
+
+    python3 chip_smoke.py --reference DIR
+
+also runs another checkout DIR (e.g. the parent commit, unpacked with ``git
+archive``) in a child process: DIR's own package and chip_smoke.py run phase 8
+(its mDBC deck, 10 + 200 steps) with their kernels built into this checkout's
+``_build/reference/``, and time DIR's moment call, its moment kernel and its
+stage 04 on the end state.  Two such runs alternate with this checkout's
+calls (parent, change, change, parent; phase parent_mdbc); the end digests
+and the moments on the end state are compared bit for bit.  The kernel
+line's ``parent_*`` and ``*_in_turns`` keys hold them ("not measured"
+without the option).
 """
 
 import dataclasses
+import hashlib
+import inspect
 import json
+import os
 import re
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -198,6 +232,13 @@ OPS_2D_ALL_EXTRAS = (6, 147, 0)
 # accepted pair the density guard and the volume (2), the distance, q, kernel
 # value (8) and gradient (4 + 3) and the 4 x (1 + 1 + 1 + 3 x 2) sums of b and A
 MDBC_OPS_CANDIDATE, MDBC_OPS_PAIR = 10, 56
+# and the fused epilogue per ghost, counted from the source: in 3D five 4x4
+# determinants (4 x 14 + 7 each), 4 quotients for the solution, the gradient
+# term (3 differences, 3 products, 3 sums), the Shepard quotient and 3
+# compares; in 2D four 3x3 determinants, 3 quotients, 2 + 2 + 2, 1, 3
+MDBC_OPS_SOLVE = {2: 69, 3: 332}
+# the fused call's grouping kernels (csrc/mdbc_moments.cu steps 1-3)
+GROUP_KERNELS = ("mdbc_wet_group", "mdbc_keys_group", "mdbc_cells_group", "mdbc_order_group")
 # rows whose |det| lies within this share of the 1e-3 threshold may take the
 # other branch in the kernel's summation order: counted, not compared
 NEAR_DET = 0.05
@@ -373,14 +414,16 @@ def ptxas_report(log):
     kernel instance in nvcc's ``-Xptxas -v`` output, keyed by the kernel's
     name and template arguments (``block_sweep_kernel<3,0,1,2,0,0,0>``:
     dims, family, viscosity, diffusion - -1 for a run-time choice - then SPS,
-    STORE, PLANAR; a kernel without template arguments by its name)."""
+    STORE, PLANAR; ``mdbc_moments_kernel<3,0,f>``: dims, family, f32 or f64
+    state; a kernel without template arguments by its name)."""
     out, name, spill = {}, None, 0
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", ln)
         if m:
-            k = re.search(r"([a-z][a-z_]*_kernel)(?:I((?:L[ib]n?\d+E)+)E)?", m.group(1))
-            args = re.findall(r"L[ib](n?)(\d+)E", k.group(2) or "") if k else []
-            name = (k.group(1) + (f"<{','.join(('-' if neg else '') + v for neg, v in args)}>"
+            k = re.search(r"([a-z][a-z_]*_kernel)(?:I((?:L[ib]n?\d+E|[fd])+)E)?",
+                          m.group(1))
+            args = re.findall(r"L[ib](n?)(\d+)E|([fd])", k.group(2) or "") if k else []
+            name = (k.group(1) + (f"<{','.join(t or ('-' if neg else '') + v for neg, v, t in args)}>"
                                   if args else "") if k else m.group(1))
             spill = 0
             continue
@@ -424,10 +467,9 @@ def schedule(sim, p, cs, mod=bs, lo=0, hi=None, sample=300):
     return stats
 
 
-def kernel_only_ms(fn, name, reps=5):
-    """Device time per launch of the kernel ``name`` alone (profiler, device
-    events only) over ``reps`` calls of ``fn``; "not measured" without
-    device events."""
+def device_events(fn, reps=5):
+    """The device events (kernels, copies, fills) of ``reps`` calls of
+    ``fn`` under the profiler, after one call outside it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -437,12 +479,30 @@ def kernel_only_ms(fn, name, reps=5):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    mine = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and f"{name}_kernel" in e.key]
+    return [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+
+
+def kernel_only_ms(fn, name, reps=5, per_call=False):
+    """Device time of the kernel ``name`` (or of the kernels of a tuple of
+    names) alone (profiler, device events only) over ``reps`` calls of
+    ``fn``: per launch, or with ``per_call`` per call of ``fn``; "not
+    measured" without device events."""
+    names = (name,) if isinstance(name, str) else name
+    mine = [e for e in device_events(fn, reps) if any(f"{n}_kernel" in e.key for n in names)]
     count = sum(e.count for e in mine)
     if not count:
         return "not measured"
-    return sum(e.self_device_time_total for e in mine) / 1e3 / count
+    return sum(e.self_device_time_total for e in mine) / 1e3 / (reps if per_call else count)
+
+
+def launches_per_call(fn, reps=5):
+    """(device launches, device ms) per call of ``fn`` (profiler)."""
+    ev = device_events(fn, reps)
+    if not ev:
+        return "not measured", "not measured"
+    return (sum(e.count for e in ev) / reps,
+            sum(e.self_device_time_total for e in ev) / 1e3 / reps)
 
 
 def assemble(case):
@@ -664,6 +724,55 @@ def compare_mdbc(sim, p, cs, label):
     return res
 
 
+def fill_slots(bidx):
+    """Slots of the compacted list past the ghost count (b > 0 at row 0)."""
+    return (torch.arange(bidx.shape[0], device=bidx.device) > 0) & (bidx == 0)
+
+
+def compare_fused(sim, p, cs, label):
+    """The fused kernel (stage 04 in one call) against the unfused path on the
+    card - the same kernel's moments mode, then ``_mdbc_apply`` - on the same
+    state: moments bit for bit on every slot that computes (zeros on parked
+    ones), corrected densities within RHO_TOL (bit for bit is printed),
+    decisions equal away from the |det| threshold; and the grouping."""
+    spec, grid, B = sim.cfg.spec, sim.cfg.grid, sim.cfg.boundary_capacity
+    bidx, args = moment_args(sim, p, cs)
+    gpoint, bvalid = args[2], args[3]
+    rho_f, dec_f, mom_f = mm.mdbc_correct(spec, grid, p, bidx, bvalid, p.position, p.density,
+                                          p.motion_limiter, cs, moments=True)
+    bk, Ak = mm.mdbc_moments(*args)
+    rho_u, dec_u = mdbc._mdbc_apply(spec, p, bidx, bvalid, gpoint, bk, Ak)
+    torch.cuda.synchronize()
+    live = bvalid & ~fill_slots(bidx)
+    mom_u = torch.cat([bk, Ak.reshape(B, -1)], dim=1).float()
+    moments_bitwise = bool(torch.equal(mom_f[live], mom_u[live]) and not mom_f[~live].any())
+    det = mdbc._det_solve(Ak, bk)[0].abs()
+    near = (det - mdbc.DET_THRESHOLD).abs() <= NEAR_DET * mdbc.DET_THRESHOLD
+    flips = (dec_f != dec_u) & live
+    rows = bidx[live & ~near]
+    rel = ((rho_f[rows] - rho_u[rows]).abs() / rho_u[rows].abs())
+    stats = mm.schedule_stats(mm.ghost_groups(spec, grid, gpoint, bvalid, bidx=bidx,
+                                              cell_start=cs, motion_limiter=p.motion_limiter))
+    res = {"phase": label, "ghost_slots": B, "computing_slots": int(live.sum()),
+           "moments_vs_moments_mode_bitwise": moments_bitwise,
+           "rho_bitwise": bool(torch.equal(rho_f, rho_u)),
+           "rho_max_abs": float((rho_f - rho_u).abs().max()),
+           "rho_max_rel_away_from_threshold": float(rel.max()) if rel.numel() else 0.0,
+           "rows_differing": int((rho_f != rho_u).sum()),
+           "decision_flips": int(flips.sum()),
+           "decision_flips_far_from_threshold": int((flips & ~near).sum()),
+           "fill_slot_decisions_nonzero": int(dec_f[~live].ne(0).sum()),
+           **stats}
+    res["ok"] = (moments_bitwise and res["rho_max_rel_away_from_threshold"] < RHO_TOL
+                 and res["decision_flips_far_from_threshold"] == 0
+                 and res["fill_slot_decisions_nonzero"] == 0
+                 and bool(torch.isfinite(rho_f).all()))
+    emit(res)
+    if not res["ok"]:
+        fail(f"{label}: the fused kernel disagrees with the unfused path")
+    return res
+
+
 def time_cuda(fn, reps):
     fn()
     torch.cuda.synchronize()
@@ -729,33 +838,44 @@ def sweep_numbers(sim, p, cs, mod=bs, plain_reps=2, op_costs=None):
             "bytes": nbytes, "ops": ops, "schedule": schedule(sim, p, cs, mod)}
 
 
-def mdbc_work(sim, args, ghost_rows=None):
-    """Candidates and in-support fluid pairs of these ghosts (what the moment
-    kernel really evaluates), and the bytes it must move.  The bytes count all
-    B ghost slots as launched, or with ``ghost_rows`` only that many: a slab
-    is launched with the global B slots and fills a fraction of them."""
+def mdbc_work(sim, args, groups, own_rows=None):
+    """Candidates and in-support fluid pairs of the slots the kernel computes,
+    and the bytes and operations of the function on this run's data.
+    ``groups`` is :func:`mm.ghost_groups` of these slots: a parked slot
+    needs no work, a dry one (no fluid row in its stencil) only the test of
+    its 3^D cells' fluid flags, and only the grouped (wet) slots need their
+    candidates and, fused, the solve.  Without ``own_rows`` the moments: the
+    computing slots' ghost points, every slot's validity, the candidate
+    arrays and cell_start read once, the [B, K] f32 moments written.  With
+    ``own_rows`` (the rows of the particles whose density is corrected) the
+    fused function: per computing slot its ghost point, its row's position,
+    its row index, validity and decision; the candidates; the density read
+    and the corrected density written."""
     spec, grid, gpoint, bvalid, position, density, ml, cs = args
     kern = spec.kernel
     gcoords = cl.clamp_coords(cl.cell_coords(gpoint, kern.H_inv), grid)
     starts, ends = cl.row_segments(gcoords, grid, cs)
     B, d = gpoint.shape
+    wet = groups["keys"] >= 0
+    n_wet, n_dry = int(wet.sum()), int(groups["dry"].sum())
+    rows = n_wet + n_dry                       # the slots that are not parked
     n_cand = n_pair = 0
     for b0 in range(0, B, 8192):
         i, j = candidates(starts, ends, b0, min(b0 + 8192, B))
-        live = bvalid[i]
-        i, j = i[live], j[live]
+        keep = wet[i]
+        i, j = i[keep], j[keep]
         xij = gpoint[i] - position[j]
         n_cand += int(i.numel())
         n_pair += int((((xij * xij).sum(-1) <= kern.H2) & (ml[j] > 0.5)).sum())
     n = position.shape[0]
-    rows = B if ghost_rows is None else ghost_rows
-    # inputs read once (ghost points, validity, position, density, motion
-    # limiter, cell_start) + the [B, K] f32 output
-    nbytes = (rows * d * gpoint.element_size() + rows
-              + n * (d + 2) * position.element_size()
-              + cs.numel() * 4 + rows * mm.n_moments(d) * 4)
-    ops = MDBC_OPS_CANDIDATE * n_cand + MDBC_OPS_PAIR * n_pair
-    return n_cand, n_pair, nbytes, ops
+    ops = MDBC_OPS_CANDIDATE * n_cand + MDBC_OPS_PAIR * n_pair + 3 ** d * n_dry
+    el = gpoint.element_size()
+    cand_bytes = n * (d + 2) * position.element_size() + cs.numel() * 4
+    if own_rows is None:
+        nbytes = rows * d * el + B + cand_bytes + B * mm.n_moments(d) * 4
+        return n_cand, n_pair, nbytes, ops
+    nbytes = rows * (2 * d * el + 8 + 1 + 1) + cand_bytes + 2 * own_rows * el
+    return n_cand, n_pair, nbytes, ops + MDBC_OPS_SOLVE[d] * n_wet
 
 
 def run_phase(sim, label, mdbc_on, sweep="block", falling=True, rho_band=0.02):
@@ -774,7 +894,7 @@ def run_phase(sim, label, mdbc_on, sweep="block", falling=True, rho_band=0.02):
     rebuilds0 = state.rebuilds
     torch.cuda.reset_peak_memory_stats()
     bs.launches = 0
-    mm.launches = 0
+    mm.launches = mm.group_launches = 0
     cw.launches = 0
     t0 = time.perf_counter()
     state = make_fixed_steps_fn(sim.cfg, STEPS)(state)
@@ -782,6 +902,7 @@ def run_phase(sim, label, mdbc_on, sweep="block", falling=True, rho_band=0.02):
     wall = time.perf_counter() - t0
     counts = {"block": bs.launches, "cell": cw.launches}
     sweep_launches, mdbc_launches = counts[sweep], mm.launches
+    group_launches = mm.group_launches
     other_launches = sum(v for k, v in counts.items() if k != sweep)
     p = state.particles
     n = sim.n_live
@@ -806,12 +927,13 @@ def run_phase(sim, label, mdbc_on, sweep="block", falling=True, rho_band=0.02):
         "boundary_rows_off_rho0": int((rho_b != rho0).sum()),
         "sweep_kernel": sweep, "launches": sweep_launches,
         "block_sweep_launches": counts["block"], "cell_sweep_launches": counts["cell"],
-        "mdbc_launches": mdbc_launches,
+        "mdbc_launches": mdbc_launches, "mdbc_group_launches": group_launches,
         "ghosts": sim.cfg.boundary_capacity if mdbc_on else 0,
         "finite": finite, "walls_still": walls_still,
         "max_occupancy": int(state.max_occupancy), "max_segment": int(state.max_segment),
         "grid_escapes": int(state.grid_escapes),
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
+        "end_digest": end_digest(state),
     }
     emit(run)
     if not finite:
@@ -826,8 +948,10 @@ def run_phase(sim, label, mdbc_on, sweep="block", falling=True, rho_band=0.02):
     if sweep_launches != 2 * STEPS or other_launches != 0:
         fail(f"{label}: {sweep}-sweep launches {sweep_launches} != 2 x {STEPS} steps, "
              f"or the other sweep was launched ({other_launches})")
-    if mdbc_launches != (STEPS if mdbc_on else 0):
-        fail(f"{label}: mDBC launches {mdbc_launches} in {STEPS} steps")
+    if mdbc_launches != (STEPS if mdbc_on else 0) or group_launches != len(
+            GROUP_KERNELS) * mdbc_launches:
+        fail(f"{label}: mDBC launches {mdbc_launches} (grouping {group_launches}) in "
+             f"{STEPS} steps")
     if run["grid_escapes"] != 0:
         fail(f"{label}: particles escaped the static grid")
     if mdbc_on and run["boundary_rows_off_rho0"] == 0:
@@ -854,20 +978,123 @@ def breakdown_phase(sim, state, run, label):
         "step_ms_with_rebuild": step_rebuild_ms, "step_ms_without_rebuild": step_plain_ms,
     }
     if sim.cfg.meta.mdbc is T.MDBCMode.SIMPLE:
-        # stage 04 as the step runs it: compaction, kernel, solve, scatter
-        stage_ms = time_cuda(lambda: mdbc.mdbc_density_correction(
-            sim.cfg.spec, sim.cfg.grid, pf, csf, sim.cfg.boundary_capacity), 20)
-        _, args = moment_args(sim, pf, csf)
+        spec, grid, B = sim.cfg.spec, sim.cfg.grid, sim.cfg.boundary_capacity
+        # stage 04 as the step runs it: compaction, then one fused call
+        stage = lambda: mdbc.mdbc_density_correction(spec, grid, pf, csf, B)  # noqa: E731
+        bidx, args = moment_args(sim, pf, csf)
+        gpoint, bvalid = args[2], args[3]
+        fused = lambda: mm.mdbc_correct(spec, grid, pf, bidx, bvalid, pf.position,  # noqa: E731
+                                        pf.density, pf.motion_limiter, csf)
+
+        def unfused():
+            # the stage before the fusion: compaction, gather, moments,
+            # solve, decision tree, scatter
+            bi, bv = mdbc.compact_ghosts(pf, B)
+            gp = pf.ghost_points[bi]
+            bk, Ak = mm.mdbc_moments(spec, grid, gp, bv, pf.position, pf.density,
+                                     pf.motion_limiter, csf)
+            return mdbc._mdbc_apply(spec, pf, bi, bv, gp, bk, Ak)
+
         bvec, Amat = mm.mdbc_moments(*args)
+        stage_ms = time_cuda(stage, 20)
+        stage_launches, stage_device_ms = launches_per_call(stage)
+        unfused_launches, unfused_device_ms = launches_per_call(unfused)
         brk.update(
             mdbc_stage_ms=stage_ms, mdbc_stage_share=stage_ms / step_ms,
-            mdbc_compact_ms=time_cuda(lambda: mdbc.compact_ghosts(
-                pf, sim.cfg.boundary_capacity), 20),
+            mdbc_stage_launches=stage_launches, mdbc_stage_device_ms=stage_device_ms,
+            mdbc_compact_ms=time_cuda(lambda: mdbc.compact_ghosts(pf, B), 20),
+            mdbc_fused_call_ms=time_cuda(fused, 20),
+            mdbc_group_kernels_ms=kernel_only_ms(fused, GROUP_KERNELS, per_call=True),
+            mdbc_unfused_stage_ms=time_cuda(unfused, 20),
+            mdbc_unfused_stage_launches=unfused_launches,
+            mdbc_unfused_stage_device_ms=unfused_device_ms,
             mdbc_moments_ms=time_cuda(lambda: mm.mdbc_moments(*args), 20),
-            mdbc_solve_ms=time_cuda(lambda: mdbc._det_solve(Amat, bvec), 20))
+            mdbc_solve_ms=time_cuda(lambda: mdbc._det_solve(Amat, bvec), 20),
+            mdbc_apply_ms=time_cuda(lambda: mdbc._mdbc_apply(spec, pf, bidx, bvalid, gpoint,
+                                                             bvec, Amat), 20))
     brk.update(prof_window(sim, state))
     emit(brk)
     return brk
+
+
+# --- --reference DIR: another checkout's own mDBC stage, in turns with this one -----
+
+# run by a child process with DIR's package and DIR's chip_smoke.py: its mDBC
+# deck as phase 8 runs it (10 + 200 steps), its kernels built into OUT (in this
+# checkout), its moments on the end state saved to OUT, its end digest and
+# times on the end state printed as the last line
+REFERENCE_CHILD = """
+import hashlib, json, sys
+from pathlib import Path
+ref, out = sys.argv[1], Path(sys.argv[2])
+sys.path.insert(0, ref)
+import torch
+from sphexample_tpu_torch.ops import _build
+_build.BUILD = out
+import chip_smoke as C
+from sphexample_tpu_torch.core.step import make_fixed_steps_fn
+from sphexample_tpu_torch.ops import mdbc, mdbc_moments as mm
+@END_DIGEST@
+sim = C.assemble_mdbc(C.case_3d())
+state = make_fixed_steps_fn(sim.cfg, C.WARM_STEPS)(sim.state)
+state = make_fixed_steps_fn(sim.cfg, C.STEPS)(state)
+p, cs = state.particles, state.cell_start
+_, args = C.moment_args(sim, p, cs)
+moments = lambda: mm.mdbc_moments(*args)
+b, A = moments()
+torch.save(torch.cat([b, A.reshape(b.shape[0], -1)], 1).float().cpu(), out / "moments.pt")
+stage = lambda: mdbc.mdbc_density_correction(sim.cfg.spec, sim.cfg.grid, p, cs,
+                                             sim.cfg.boundary_capacity)
+print(json.dumps({"end_digest": end_digest(state), "ms": C.time_cuda(moments, 20),
+                  "kernel_only_ms": C.kernel_only_ms(moments, "mdbc_moments"),
+                  "stage_ms": C.time_cuda(stage, 20)}))
+"""
+REFERENCE_KEYS = ("parent_ms", "parent_kernel_only_ms", "parent_stage_ms", "ms_in_turns",
+                  "moments_mode_ms_in_turns", "kernel_only_ms_in_turns", "stage_ms_in_turns",
+                  "end_state_vs_parent_bitwise", "moments_vs_parent_bitwise",
+                  "moments_vs_parent_max_abs")
+
+
+def reference_turns(ref_dir, run_digest, args, fused, stage):
+    """DIR's own mDBC run (a child process, as REFERENCE_CHILD) and this
+    checkout's calls on phase 8's end state (``args`` of the moment
+    wrapper, the ``fused`` call, the ``stage`` 04), in turns parent /
+    change / change / parent on this card: the end digests, the moments on
+    the end state bit for bit, and the times per call (CUDA events) and per
+    launch (profiler).  "not measured" without DIR."""
+    if ref_dir is None:
+        return {k: "not measured" for k in REFERENCE_KEYS}
+    out = _build.BUILD / "reference"
+    out.mkdir(parents=True, exist_ok=True)
+    code = REFERENCE_CHILD.replace("@END_DIGEST@", inspect.getsource(end_digest))
+    cmd = [sys.executable, "-c", code, str(Path(ref_dir).resolve()), str(out)]
+    env = {**os.environ, "PYTHONDONTWRITEBYTECODE": "1"}
+    turns = {k: [] for k in REFERENCE_KEYS[:7]}
+    digests = []
+    for who in ("parent", "change", "change", "parent"):
+        if who == "parent":
+            proc = subprocess.run(cmd, cwd=out, env=env, capture_output=True, text=True)
+            if proc.returncode:
+                fail(f"the reference checkout's mDBC run failed:\n{proc.stderr[-3000:]}")
+            got = json.loads(proc.stdout.strip().splitlines()[-1])
+            digests.append(got["end_digest"])
+            for k in ("ms", "kernel_only_ms", "stage_ms"):
+                turns[f"parent_{k}"].append(got[k])
+        else:
+            turns["ms_in_turns"].append(time_cuda(fused, 20))
+            turns["moments_mode_ms_in_turns"].append(
+                time_cuda(lambda: mm.mdbc_moments(*args), 20))
+            turns["kernel_only_ms_in_turns"].append(kernel_only_ms(fused, "mdbc_moments"))
+            turns["stage_ms_in_turns"].append(time_cuda(stage, 20))
+    bk, Ak = mm.mdbc_moments(*args)
+    mine = torch.cat([bk, Ak.reshape(bk.shape[0], -1)], 1).float().cpu()
+    theirs = torch.load(out / "moments.pt")
+    res = {**turns, "parent_end_digests": digests,
+           "end_state_vs_parent_bitwise": all(d == run_digest for d in digests),
+           "moments_vs_parent_bitwise": bool(torch.equal(mine, theirs)),
+           "moments_vs_parent_max_abs": float((mine - theirs).abs().max())}
+    emit({"phase": "parent_mdbc", **res})
+    return res
 
 
 # --- the sharded path: P slabs, ranks as threads ---------------------------------
@@ -1069,6 +1296,19 @@ def by_id(state, field):
     return getattr(p, field).cpu()[order].double().numpy()
 
 
+def end_digest(state):
+    """SHA-256 of the live particles' position, velocity and density in ID
+    order, in the state's dtype: two runs that end bit for bit alike print
+    the same digest."""
+    p = state.particles
+    order = torch.argsort(p.id)
+    order = order[p.id[order] > 0]
+    h = hashlib.sha256()
+    for field in ("position", "velocity", "density"):
+        h.update(getattr(p, field)[order].contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
 def end_summary(state):
     """What a later sharded run of the same steps is held against."""
     return {"pos": by_id(state, "position"), "vel": by_id(state, "velocity"),
@@ -1111,7 +1351,7 @@ def run_sharded_phase(sim, single_end, label, mdbc_on, sweep="block", falling=Tr
     torch.cuda.reset_peak_memory_stats()
     bs.launches = bs.window_launches = 0
     cw.launches = cw.window_launches = 0
-    mm.launches = 0
+    mm.launches = mm.group_launches = 0
     t0 = time.perf_counter()
     states = make_sharded_fixed_steps_fn(cfg, sim_sh.mesh, STEPS)(states)
     torch.cuda.synchronize()
@@ -1119,6 +1359,7 @@ def run_sharded_phase(sim, single_end, label, mdbc_on, sweep="block", falling=Tr
     counts = {"block": bs.window_launches, "cell": cw.window_launches}
     single_entry = bs.launches + cw.launches
     sweep_launches, mdbc_launches = counts[sweep], mm.launches
+    group_launches = mm.group_launches
     other_launches = sum(v for k, v in counts.items() if k != sweep)
     rebuilds = [s.rebuilds - r0 for s, r0 in zip(states, rebuilds0)]
     scalars_agree = all(
@@ -1160,6 +1401,7 @@ def run_sharded_phase(sim, single_end, label, mdbc_on, sweep="block", falling=Tr
         "launches_per_step_per_slab": sweep_launches / STEPS / N_SLABS,
         "block_window_launches": counts["block"], "cell_window_launches": counts["cell"],
         "single_device_entry_launches": single_entry, "mdbc_launches": mdbc_launches,
+        "mdbc_group_launches": group_launches,
         "finite": finite, "walls_still": walls_still,
         "grid_escapes": int(state.grid_escapes),
         "vs_single_device_max_abs": diffs,
@@ -1181,8 +1423,10 @@ def run_sharded_phase(sim, single_end, label, mdbc_on, sweep="block", falling=Tr
         fail(f"{label}: windowed {sweep}-sweep launches {sweep_launches} != 2 x {STEPS} "
              f"steps x {N_SLABS} slabs, or another sweep entry was launched "
              f"({other_launches}, {single_entry})")
-    if mdbc_launches != (STEPS * N_SLABS if mdbc_on else 0):
-        fail(f"{label}: mDBC launches {mdbc_launches} in {STEPS} steps on {N_SLABS} slabs")
+    if mdbc_launches != (STEPS * N_SLABS if mdbc_on else 0) or group_launches != len(
+            GROUP_KERNELS) * mdbc_launches:
+        fail(f"{label}: mDBC launches {mdbc_launches} (grouping {group_launches}) in "
+             f"{STEPS} steps on {N_SLABS} slabs")
     if run["grid_escapes"] != 0:
         fail(f"{label}: particles escaped the static grid")
     if mdbc_on and run["boundary_rows_off_rho0"] == 0:
@@ -1283,7 +1527,7 @@ def window_numbers(simg, p, cs, mod, halo, r=1, plain_reps=2, op_costs=None):
             "schedule": schedule(simg, p, cs, mod, r * C, (r + 1) * C)}
 
 
-def main():
+def main(argv):
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device - this script runs on the card only",
               file=sys.stderr)
@@ -1404,6 +1648,7 @@ def main():
         fail(f"the mDBC case has {n_ghost} ghosts / {simm.n_live} particles")
     pm, csm = perturbed_state(simm)
     parm3 = compare_mdbc(simm, pm, csm, "parity_mdbc_3d")
+    fused3 = compare_fused(simm, pm, csm, "parity_mdbc_fused_3d")
     par_sweep_m3, _ = compare(simm, first_sweep_state(simm, pm, csm), csm,
                               "parity_sweep_mdbc_3d")
     del pm, csm
@@ -1417,28 +1662,63 @@ def main():
     brkm = breakdown_phase(simm, state, runm, "breakdown_mdbc")
     pf, csf = state.particles, state.cell_start
     parm_after = compare_mdbc(simm, pf, csf, "parity_mdbc_after_run")
+    fused_after = compare_fused(simm, pf, csf, "parity_mdbc_fused_after_run")
     par_sweep_m, _ = compare(simm, pf, csf, "parity_sweep_mdbc_after_run")
 
-    _, margs = moment_args(simm, pf, csf)
-    m_cand, m_pair, m_bytes, m_ops = mdbc_work(simm, margs)
-    m_ms = time_cuda(lambda: mm.mdbc_moments(*margs), 20)
-    m_plain_ms = time_cuda(lambda: mm.mdbc_moments_plain(*margs), 2)
-    t_bytes, t_ops = m_bytes / PEAK_BYTES, m_ops / PEAK_F32
+    mbidx, margs = moment_args(simm, pf, csf)
+    spec_m, grid_m = simm.cfg.spec, simm.cfg.grid
+
+    def fused_m():
+        return mm.mdbc_correct(spec_m, grid_m, pf, mbidx, margs[3], pf.position, pf.density,
+                               pf.motion_limiter, csf)
+
+    def plain_m():
+        bp, Ap = mm.mdbc_moments_plain(*margs)
+        return mdbc._mdbc_apply(spec_m, pf, mbidx, margs[3], margs[2], bp, Ap)
+
+    m_groups = mm.ghost_groups(spec_m, grid_m, margs[2], margs[3], cell_start=csf,
+                               motion_limiter=pf.motion_limiter)
+    f_groups = mm.ghost_groups(spec_m, grid_m, margs[2], margs[3], bidx=mbidx, cell_start=csf,
+                               motion_limiter=pf.motion_limiter)
+    m_cand, m_pair, m_bytes, m_ops = mdbc_work(simm, margs, m_groups)
+    f_bytes, f_ops = mdbc_work(simm, margs, f_groups, own_rows=pf.capacity)[2:]
+    del m_groups, f_groups
+    m_ms = time_cuda(fused_m, 20)
+    t_bytes, t_ops = f_bytes / PEAK_BYTES, f_ops / PEAK_F32
+    tm_bytes, tm_ops = m_bytes / PEAK_BYTES, m_ops / PEAK_F32
+    grouping = {k: fused_after[k] for k in (
+        "ghost_groups", "entries", "ghosts_per_group", "max_ghosts_per_group", "staged_rows",
+        "candidate_rows", "staged_rows_per_candidate_row", "candidate_rows_read_unstaged",
+        "parked_slots", "dry_slots")}
     mdbc_entry = {
         "name": "mdbc_moments", "route": "cuda",
         "source": "sphexample_tpu_torch/csrc/mdbc_moments.cu",
         "replaces": "sphexample_tpu/ops/pallas_mdbc.py:41 (_make_mdbc_kernel)",
-        "launches": runm["mdbc_launches"],
+        "launches": runm["mdbc_launches"], "group_launches": runm["mdbc_group_launches"],
         "max_abs_err": parm_after["moment_max_abs"],
         "max_rel_err": max(parm3["moment_max_rel"], parm_after["moment_max_rel"]),
+        "fused_vs_unfused_rho_max_abs": max(fused3["rho_max_abs"], fused_after["rho_max_abs"]),
+        "fused_vs_unfused_rho_bitwise": fused3["rho_bitwise"] and fused_after["rho_bitwise"],
         "ms": m_ms, "ms_per_launch": m_ms,
         "kernel_only_ms": brkm.get("mdbc_moments_kernel_only_ms", "not measured"),
-        "plain_ms": m_plain_ms,
+        "group_kernels_ms": brkm.get("mdbc_group_kernels_ms", "not measured"),
+        "plain_ms": time_cuda(plain_m, 2),
         "bound_ms": 1e3 * max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes > t_ops else "operations",
         "library_ms": None,
+        "moments_mode_ms": time_cuda(lambda: mm.mdbc_moments(*margs), 20),
+        "moments_mode_plain_ms": time_cuda(lambda: mm.mdbc_moments_plain(*margs), 2),
+        "moments_mode_bound_ms": 1e3 * max(tm_bytes, tm_ops),
+        "moments_mode_bound_by": "bytes" if tm_bytes > tm_ops else "operations",
+        "fused_stage_ms": brkm.get("mdbc_stage_ms"),
+        "fused_stage_launches": brkm.get("mdbc_stage_launches"),
+        "unfused_stage_ms": brkm.get("mdbc_unfused_stage_ms"),
+        "unfused_stage_launches": brkm.get("mdbc_unfused_stage_launches"),
         "ghosts": n_ghost, "candidates": m_cand, "pairs": m_pair,
-        "bytes": m_bytes, "ops": m_ops,
+        "bytes": f_bytes, "ops": f_ops, "moments_mode_bytes": m_bytes,
+        "moments_mode_ops": m_ops, **grouping,
+        "instances": {k: v for name in ("mdbc_moments",) + GROUP_KERNELS
+                      for k, v in instances(ptx_all, f"{name}_kernel").items()},
     }
     # the block sweep on the mDBC path, at that path's own shapes
     nums = sweep_numbers(simm, pf, csf)
@@ -1453,7 +1733,12 @@ def main():
         **{f"{k}_mdbc_path": v for k, v in nums.items()})
     # 16 - the sharded mDBC path: the block sweep and the moments on the halo
     single_end = end_summary(state)
-    del state, pf, csf, margs
+    ref_dir = argv[argv.index("--reference") + 1] if "--reference" in argv else None
+    mdbc_entry.update(reference_turns(
+        ref_dir, runm["end_digest"], margs, fused_m,
+        lambda: mdbc.mdbc_density_correction(spec_m, grid_m, pf, csf,
+                                             simm.cfg.boundary_capacity)))
+    del state, pf, csf, margs, fused_m, plain_m
     sim_sh, states_sh, state_sh, run_shm = run_sharded_phase(
         simm, single_end, "run_sharded_mdbc", mdbc_on=True)
     simg = unsharded(sim_sh)
@@ -1468,12 +1753,23 @@ def main():
     bidx, bvalid = mdbc.compact_ghosts(pl, simg.cfg.boundary_capacity)
     wargs = (simg.cfg.spec, simg.cfg.grid, pl.ghost_points[bidx], bvalid,
              f["position"], f["density"], f["motion_limiter"], cs_ext)
-    w_cand, w_pair, w_bytes, w_ops = mdbc_work(simg, wargs)
-    t_bytes, t_ops = w_bytes / PEAK_BYTES, w_ops / PEAK_F32
-    # the same with the slab's own ghost rows in place of the B global slots
+
+    def fused_w():
+        return mm.mdbc_correct(simg.cfg.spec, simg.cfg.grid, pl, bidx, bvalid,
+                               f["position"], f["density"], f["motion_limiter"], cs_ext)
+
+    def plain_w():
+        bp, Ap = mm.mdbc_moments_plain(*wargs)
+        return mdbc._mdbc_apply(simg.cfg.spec, pl, bidx, bvalid, wargs[2], bp, Ap)
+
+    w_groups = mm.ghost_groups(simg.cfg.spec, simg.cfg.grid, wargs[2], bvalid, bidx=bidx,
+                               cell_start=cs_ext, motion_limiter=f["motion_limiter"])
+    w_stats = mm.schedule_stats(w_groups)
+    # the slab's own ghost rows, the slots that compute; the B global slots
+    # as the first kernel was launched
     w_rows = int((torch.any(pl.ghost_points != 0, dim=-1) & pl.active).sum())
-    own_bytes = mdbc_work(simg, wargs, ghost_rows=w_rows)[2]
-    t_own = own_bytes / PEAK_BYTES
+    w_cand, w_pair, w_bytes, w_ops = mdbc_work(simg, wargs, w_groups, own_rows=pl.capacity)
+    t_bytes, t_ops = w_bytes / PEAK_BYTES, w_ops / PEAK_F32
     mdbc_entry.update(
         launches_sharded_path=run_shm["mdbc_launches"],
         launches_per_step_per_slab_sharded_path=run_shm["mdbc_launches"] / STEPS / N_SLABS,
@@ -1484,17 +1780,18 @@ def main():
         max_rel_err_sharded_path=max(parw_m["window_vs_plain_moment_max_rel"],
                                      parw_m_after["window_vs_plain_moment_max_rel"]),
         slabs_vs_single_bitwise_sharded_path=parw_m_after["slabs_vs_single_bitwise"],
-        ms_sharded_path=time_cuda(lambda: mm.mdbc_moments(*wargs), 20),
-        kernel_only_ms_sharded_path=kernel_only_ms(lambda: mm.mdbc_moments(*wargs),
-                                                   "mdbc_moments"),
-        plain_ms_sharded_path=time_cuda(lambda: mm.mdbc_moments_plain(*wargs), 2),
+        ms_sharded_path=time_cuda(fused_w, 20),
+        kernel_only_ms_sharded_path=kernel_only_ms(fused_w, "mdbc_moments"),
+        group_kernels_ms_sharded_path=kernel_only_ms(fused_w, GROUP_KERNELS, per_call=True),
+        plain_ms_sharded_path=time_cuda(plain_w, 2),
+        moments_mode_ms_sharded_path=time_cuda(lambda: mm.mdbc_moments(*wargs), 20),
         bound_ms_sharded_path=1e3 * max(t_bytes, t_ops),
         bound_by_sharded_path="bytes" if t_bytes > t_ops else "operations",
-        bound_ms_own_ghost_rows_sharded_path=1e3 * max(t_own, t_ops),
-        bound_by_own_ghost_rows_sharded_path="bytes" if t_own > t_ops else "operations",
-        bytes_own_ghost_rows_sharded_path=own_bytes,
         candidates_sharded_path=w_cand, pairs_sharded_path=w_pair,
-        bytes_sharded_path=w_bytes, ops_sharded_path=w_ops)
+        bytes_sharded_path=w_bytes, ops_sharded_path=w_ops,
+        **{f"{k}_sharded_path": w_stats[k] for k in (
+            "parked_slots", "dry_slots", "ghost_groups", "ghosts_per_group",
+            "staged_rows_per_candidate_row")})
     window_entry.update(
         launches_mdbc_path=run_shm["launches"], halo_rows_mdbc_path=sim_sh.cfg.halo,
         **{f"{k}_mdbc_path": v for k, v in
@@ -1740,4 +2037,4 @@ def prof_window(sim, state, steps=20):
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

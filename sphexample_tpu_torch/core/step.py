@@ -192,8 +192,9 @@ def sph_step(cfg: StepConfig, state: SimulationState, dx_acc):
     # densities with pre-correction pressures, as the reference does)
     p = p.replace(pressure=eq.pressure(p.density, c))
 
-    # 04 - mDBC: the CUDA moment kernel on the card, its plain version for
-    # CPU tensors (``ops.mdbc_moments.mdbc_moments``); no host sync
+    # 04 - mDBC: one call of the fused moment-and-correction kernel on the
+    # card, the plain version for CPU tensors (``ops.mdbc.correct_density``);
+    # no host sync
     if cfg.meta.mdbc is MDBCMode.SIMPLE and ctx.is_sharded:
         p = p.replace(density=mdbc_density_correction_sharded(
             spec, cfg.grid, p, cell_start, cfg.boundary_capacity, ctx, cfg.halo))

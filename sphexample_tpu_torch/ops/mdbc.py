@@ -7,10 +7,15 @@ Reference path: ``src/SPHCellList.jl:219-266`` ghost neighbor loop,
   * compact the boundary particles that carry a ghost node into a fixed-size
     index list (on the device, without a host sync),
   * sum the first-order moment system b (D+1) / A (D+1)^2 of every ghost
-    point over its fluid neighbors (``ops/mdbc_moments.py``: the CUDA kernel
-    for CUDA tensors, its plain version for CPU tensors only),
-  * solve all (D+1)x(D+1) systems at once in closed form (Cramer's rule,
-    plain elementwise tensor code) and apply the reference's decision tree.
+    point over its fluid neighbors,
+  * solve all (D+1)x(D+1) systems in closed form (Cramer's rule) and apply
+    the reference's decision tree.
+
+:func:`correct_density` takes the last two steps.  CUDA tensors: one call of
+the fused kernel (``ops/mdbc_moments.py:mdbc_correct``: moments, solve and
+decision tree in ``csrc/mdbc_moments.cu``).  CPU tensors: the plain version
+(``mdbc_moments_plain``, then :func:`_mdbc_apply`, plain elementwise tensor
+code whose expression tree the kernel's epilogue repeats).
 
 :func:`mdbc_density_correction_sharded` is the same for one slab of a sharded
 run: the slab's own ghosts against its halo-extended window.
@@ -25,9 +30,7 @@ import torch
 from .cell_list import Grid
 from .halo import extend, rebase
 from .interactions import PhysicsSpec
-from .mdbc_moments import mdbc_moments
-
-DET_THRESHOLD = 1e-3   # |det A| below it: Shepard or keep (reference :606)
+from .mdbc_moments import DET_THRESHOLD, mdbc_correct, mdbc_moments_plain  # noqa: F401
 
 
 def _det3(m):
@@ -101,7 +104,13 @@ def _mdbc_apply(spec: PhysicsSpec, particles, bidx, bvalid, gpoint, bvec, Amat):
     c = spec.constants
     det, sol = _det_solve(Amat, bvec)
     diff = particles.position[bidx] - gpoint
-    rho_solve = sol[..., 0] + torch.sum(sol[..., 1:] * diff, dim=-1)
+    # sol[1:] . diff added left to right: the order torch.sum takes on the card
+    # for this column-major product, written out so that the fused kernel and
+    # every device repeat it
+    grad = sol[..., 1] * diff[..., 0]
+    for d in range(1, diff.shape[-1]):
+        grad = grad + sol[..., 1 + d] * diff[..., d]
+    rho_solve = sol[..., 0] + grad
     rho_shepard = bvec[..., 0] / Amat[..., 0, 0]
 
     rho_old = particles.density[bidx]
@@ -126,6 +135,25 @@ def _mdbc_apply(spec: PhysicsSpec, particles, bidx, bvalid, gpoint, bvec, Amat):
     return density, decision
 
 
+def correct_density(spec: PhysicsSpec, grid: Grid, particles, bidx, bvalid, position,
+                    density, motion_limiter, cell_start):
+    """(corrected density array - a new tensor -, decision of every slot) of
+    the compacted rows ``bidx`` of ``particles`` against the candidate arrays
+    ``position``, ``density``, ``motion_limiter`` (the particles' own, or a
+    slab's window with ``cell_start`` rebased to it).  CPU tensors: the
+    plain moments and :func:`_mdbc_apply`.  CUDA tensors: the fused kernel,
+    which parks the fill slots (their decision reads 0; the density is the
+    same) - or an exception."""
+    if position.device.type != "cpu":
+        density, decision, _ = mdbc_correct(spec, grid, particles, bidx, bvalid, position,
+                                            density, motion_limiter, cell_start)
+        return density, decision
+    gpoint = particles.ghost_points[bidx]                  # [B, D]
+    bvec, Amat = mdbc_moments_plain(spec, grid, gpoint, bvalid, position, density,
+                                    motion_limiter, cell_start)
+    return _mdbc_apply(spec, particles, bidx, bvalid, gpoint, bvec, Amat)
+
+
 def mdbc_density_correction(spec: PhysicsSpec, grid: Grid, particles, cell_start,
                             boundary_capacity: int):
     """Return the corrected density array.
@@ -140,12 +168,8 @@ def mdbc_density_correction(spec: PhysicsSpec, grid: Grid, particles, cell_start
       NaN             : rho0
     """
     bidx, bvalid = compact_ghosts(particles, boundary_capacity)
-    gpoint = particles.ghost_points[bidx]                  # [B, D]
-    bvec, Amat = mdbc_moments(spec, grid, gpoint, bvalid, particles.position,
-                              particles.density, particles.motion_limiter,
-                              cell_start)
-    density, _ = _mdbc_apply(spec, particles, bidx, bvalid, gpoint, bvec, Amat)
-    return density
+    return correct_density(spec, grid, particles, bidx, bvalid, particles.position,
+                           particles.density, particles.motion_limiter, cell_start)[0]
 
 
 def mdbc_density_correction_sharded(spec: PhysicsSpec, grid: Grid, particles,
@@ -161,13 +185,12 @@ def mdbc_density_correction_sharded(spec: PhysicsSpec, grid: Grid, particles,
     fields the moments read - position, density, motion limiter - are
     extended by the two halos (one 1-hop exchange; with ``halo = 0`` the
     all-gather), ``cell_start`` (global sorted rows) is rebased to the window,
-    and the unchanged moment wrapper runs on the slab's own ghosts: the CUDA
-    kernel for CUDA tensors, its plain version for CPU tensors."""
+    and :func:`correct_density` runs on the slab's own ghosts.  The list is
+    compacted to the global ``boundary_capacity`` slots (the JAX package's
+    static B), most of them fill slots on a slab: the fused kernel parks
+    them, so a slab computes its own ghosts only."""
     bidx, bvalid = compact_ghosts(particles, boundary_capacity)
-    gpoint = particles.ghost_points[bidx]                  # [B, D]
     (pos, rho, ml), _, ext_off = extend(
         ctx, (particles.position, particles.density, particles.motion_limiter), halo)
     cs_ext = rebase(cell_start, ext_off, pos.shape[0])
-    bvec, Amat = mdbc_moments(spec, grid, gpoint, bvalid, pos, rho, ml, cs_ext)
-    density, _ = _mdbc_apply(spec, particles, bidx, bvalid, gpoint, bvec, Amat)
-    return density
+    return correct_density(spec, grid, particles, bidx, bvalid, pos, rho, ml, cs_ext)[0]

@@ -7,11 +7,15 @@ and kernel output, every template instance, crowded, sparse and edge cells,
 its input checks, and a short moving-square run.  The mDBC moment kernel:
 every template instance of ``csrc/mdbc_moments.cu`` against its plain version
 in f64, crowded and edge-clamped cells included, its input checks, and a
-short mDBC run.  The sharded path: the three kernels on the halo-extended
-windows of 3 slabs (cells straddling the slab edges, the whole-array window)
-against their plain versions and against the single-device kernels, the
-window entries' input checks, and 4-slab runs as thread ranks on the cards
-visible.  A CUDA kernel has no CPU mode, so
+short mDBC run; its fused mode (stage 04 in one call) bit for bit the unfused
+path on the card and within 1e-4 of the plain version in every instance, on
+an f64 state, cells of 700 ghosts, stencils wider than the stage, dry and
+empty stencils, no slots, and on the halo with the other slabs' slots
+parked.  The sharded path: the three kernels on the halo-extended windows of
+3 slabs (cells straddling the slab edges, the whole-array window) against
+their plain versions and against the single-device kernels, the window
+entries' input checks, and 4-slab runs as thread ranks on the cards visible.
+A CUDA kernel has no CPU mode, so
 these tests are marked ``gpu`` and skip without a card.  They import no JAX,
 so they also run where JAX is absent:
 
@@ -174,11 +178,12 @@ def test_main_path_steps_through_the_kernel(cuda):
 
 # --- the mDBC moment kernel ------------------------------------------------
 
-def _ghost_state(dims, family, crowded=None, seed=7):
+def _ghost_state(dims, family, crowded=None, seed=7, n_b=90, n_f=240):
     """Boundary rows with ghost points and fluid rows, inactive padding,
-    rebuilt in f64 on the CPU.  ``crowded``: 90 ghosts in one cell and 240
-    fluid rows in its x-row; "edge" pins that cell at the grid's corner and
-    puts a third of the ghost points outside the grid (clamped)."""
+    rebuilt in f64 on the CPU.  ``crowded``: ``n_b`` ghosts in one cell and
+    ``n_f`` fluid rows in its x-row; "edge" pins that cell at the grid's
+    corner and puts a third of the ghost points outside the grid (clamped);
+    "blob" puts the ghosts within 0.1 H of each other."""
     rng = np.random.default_rng(seed)
     const = T.SimulationConstants(dx=DX)
     kern = T.make_kernel(T.KernelFamily[family], dims, dx=DX)
@@ -191,8 +196,8 @@ def _ghost_state(dims, family, crowded=None, seed=7):
     else:
         pitch = kern.H
         center = (np.zeros(dims) if crowded == "edge" else np.full(dims, 3.0)) * pitch
-        n_b, n_f = 90, 240
-        gpts = center + rng.uniform(-0.45, 0.45, size=(n_b, dims)) * pitch
+        spread = 0.1 if crowded == "blob" else 0.45
+        gpts = center + rng.uniform(-spread, spread, size=(n_b, dims)) * pitch
         if crowded == "edge":
             gpts[:30, 0] -= 0.6 * pitch
             grid = cl.Grid(cmin=(0,) * dims, shape=(16,) * dims)
@@ -320,6 +325,268 @@ def test_mdbc_steps_through_both_kernels(cuda):
     torch.testing.assert_close(dg, dc, rtol=2e-5, atol=0)
     torch.testing.assert_close(gpu.particles.position.cpu(), cpu.particles.position,
                                rtol=0, atol=2e-6)
+
+
+# --- the fused stage 04: grouping, moments, solve and decision tree in one call -----
+
+RHO_TOL = 1e-4       # corrected densities, f32 kernel vs f64 plain (chip_smoke.py)
+NEAR_DET = 0.05      # |det| within this share of the threshold: may flip
+
+
+def _fused_vs(cuda, spec, grid, p64, cs, cap, dtype=torch.float32):
+    """The fused kernel on the ``dtype`` copy of the state against (a) the
+    unfused path on the card - the same kernel's moments mode, then
+    ``_mdbc_apply`` - bit for bit, and (b) the plain f64 path within RHO_TOL
+    away from the |det| threshold.  Returns (fused density, decision, the
+    compacted list)."""
+    p = _on(p64, cuda, dtype)
+    csg = cs.to(cuda)
+    bidx, bvalid = mdbc.compact_ghosts(p, cap)
+    before, groups0 = mm.launches, mm.group_launches
+    rho, dec, mom = mm.mdbc_correct(spec, grid, p, bidx, bvalid, p.position, p.density,
+                                    p.motion_limiter, csg, moments=True)
+    torch.cuda.synchronize()
+    assert mm.launches == before + 1 and mm.group_launches == groups0 + 4
+    assert rho.dtype == dtype and rho.data_ptr() != p.density.data_ptr()
+    gp = p.ghost_points[bidx]
+    bk, Ak = mm.mdbc_moments(spec, grid, gp, bvalid, p.position, p.density, p.motion_limiter,
+                             csg)
+    rho_u, dec_u = mdbc._mdbc_apply(spec, p, bidx, bvalid, gp, bk, Ak)
+    fill = (torch.arange(cap, device=cuda) > 0) & (bidx == 0)
+    live = bvalid & ~fill
+    mu = torch.cat([bk, Ak.reshape(cap, -1)], 1).float()
+    assert torch.equal(mom[live], mu[live]) and not mom[~live].any()
+    assert torch.equal(rho, rho_u), float((rho - rho_u).abs().max())
+    assert torch.equal(dec[live], dec_u[live]) and not dec[~live].any()
+    # against the plain version in f64
+    bidx64, bvalid64 = mdbc.compact_ghosts(p64, cap)
+    ref, dec_p = mdbc.correct_density(spec, grid, p64, bidx64, bvalid64, p64.position,
+                                      p64.density, p64.motion_limiter, cs)
+    bref, Aref = mm.mdbc_moments_plain(spec, grid, p64.ghost_points[bidx64], bvalid64,
+                                       p64.position, p64.density, p64.motion_limiter, cs)
+    det, _ = mdbc._det_solve(Aref, bref)
+    far = ((det.abs() - mdbc.DET_THRESHOLD).abs() > NEAR_DET * mdbc.DET_THRESHOLD) & live.cpu()
+    rows = bidx64[far]
+    torch.testing.assert_close(rho.double().cpu()[rows], ref[rows], rtol=RHO_TOL, atol=0)
+    assert torch.equal(dec.cpu()[far], dec_p[far])
+    fluid = p64.ptype == 1
+    assert torch.equal(rho.cpu()[fluid], p.density.cpu()[fluid])
+    return rho, dec, bidx
+
+
+@pytest.mark.parametrize("dims", [2, 3])
+@pytest.mark.parametrize("family", ["WENDLAND_C2", "CUBIC_SPLINE"])
+@pytest.mark.parametrize("crowded", [None, "interior", "edge", "blob"])
+def test_fused_kernel_matches_plain_and_unfused(cuda, dims, family, crowded):
+    """All four instances on the sparse, crowded, edge-clamped and blob
+    states, with fill slots past the ghosts."""
+    spec, grid, p64, cs, n_b = _ghost_state(dims, family, crowded)
+    _fused_vs(cuda, spec, grid, p64, cs, n_b + 11)
+
+
+@pytest.mark.parametrize("dims", [2, 3])
+def test_fused_kernel_on_an_f64_state(cuda, dims):
+    """The epilogue in f64 from the f32 moments: bit for bit the unfused
+    path on the card."""
+    spec, grid, p64, cs, n_b = _ghost_state(dims, "WENDLAND_C2", "interior")
+    _fused_vs(cuda, spec, grid, p64, cs, n_b + 3, dtype=torch.float64)
+
+
+@pytest.mark.parametrize("dims", [2, 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_written_out_gradient_term_is_torch_sum_on_the_card(cuda, dims, dtype):
+    """``_mdbc_apply`` (and the fused kernel) add sol[1:] . diff left to
+    right, written out; on the card that is bit for bit
+    ``torch.sum(sol[..., 1:] * diff, -1)`` with ``sol`` as ``_det_solve``
+    lays it out: on random systems, and through ``_mdbc_apply`` on the
+    solved rows of a crowded state."""
+    g = torch.Generator().manual_seed(11)
+    n, B = dims + 1, 100_000
+    A = torch.randn(B, n, n, generator=g, dtype=torch.float64).to(cuda, dtype)
+    b = torch.randn(B, n, generator=g, dtype=torch.float64).to(cuda, dtype)
+    rows = torch.randn(2 * B, dims, generator=g, dtype=torch.float64).to(cuda, dtype)
+    idx = torch.randint(0, 2 * B, (B,), generator=g).to(cuda)
+    gpoint = torch.randn(B, dims, generator=g, dtype=torch.float64).to(cuda, dtype)
+    _, sol = mdbc._det_solve(A, b)
+    diff = rows[idx] - gpoint
+    written = sol[..., 1] * diff[..., 0]
+    for d in range(1, dims):
+        written = written + sol[..., 1 + d] * diff[..., d]
+    assert torch.equal(written, torch.sum(sol[..., 1:] * diff, dim=-1))
+
+    spec, grid, p64, cs, n_b = _ghost_state(dims, "WENDLAND_C2", "interior")
+    p = _on(p64, cuda, dtype)
+    bidx, bvalid = mdbc.compact_ghosts(p, n_b)
+    gp = p.ghost_points[bidx]
+    bk, Ak = mm.mdbc_moments(spec, grid, gp, bvalid, p.position, p.density, p.motion_limiter,
+                             cs.to(cuda))
+    bk, Ak = bk.to(dtype), Ak.to(dtype)
+    rho, dec = mdbc._mdbc_apply(spec, p, bidx, bvalid, gp, bk, Ak)
+    _, sol = mdbc._det_solve(Ak, bk)
+    summed = sol[..., 0] + torch.sum(sol[..., 1:] * (p.position[bidx] - gp), dim=-1)
+    solved = (dec == 2) & bvalid
+    assert int(solved.sum()) > n_b // 2
+    assert torch.equal(rho[bidx][solved], summed[solved])
+
+
+@pytest.mark.parametrize("dims", [2, 3])
+def test_fused_kernel_cells_of_more_ghosts_than_a_block_takes(cuda, dims):
+    """700 ghosts in one cell: 22 work entries of at most 32 ghosts, each
+    staging the same stencil; the device's counters equal the mirror's."""
+    spec, grid, p64, cs, n_b = _ghost_state(dims, "WENDLAND_C2", "interior", n_b=700)
+    cap = n_b + 5
+    _fused_vs(cuda, spec, grid, p64, cs, cap)
+    p = _on(p64, cuda, torch.float32)
+    bidx, bvalid = mdbc.compact_ghosts(p, cap)
+    groups = mm.ghost_groups(spec, grid, p.ghost_points[bidx], bvalid, bidx=bidx,
+                             cell_start=cs.to(cuda), motion_limiter=p.motion_limiter)
+    assert int(groups["counts"].max()) > 10 * mm.CHUNK
+    dec = torch.empty(cap, dtype=torch.int8, device=cuda)
+    scratch = mm._launch(spec, grid, cap, p.ghost_points.contiguous(), bidx, bvalid,
+                         p.position, p.density, p.motion_limiter, cs.to(cuda),
+                         own=(p.position, p.density, p.density.clone()), decision=dec)
+    entries, _, slots, parked, cells, dry = scratch[:6].tolist()
+    assert entries == groups["entries"].numel() and cells == groups["cells"].numel()
+    assert parked == int(groups["parked"].sum()) and slots == int(groups["counts"].sum())
+    assert dry == int(groups["dry"].sum())
+
+
+@pytest.mark.parametrize("dims", [2, 3])
+def test_fused_kernel_stencil_wider_than_the_stage(cuda, dims):
+    """A ghost cell whose stencil holds more rows than the kernel stages:
+    the rest are read from device memory, in the same order."""
+    spec, grid, p64, cs, n_b = _ghost_state(dims, "WENDLAND_C2", "interior", n_b=40,
+                                            n_f=mm.STAGE_ROWS + 600)
+    first = mdbc.compact_ghosts(p64, 1)[0]
+    starts, ends = cl.row_segments(cl.clamp_coords(cl.cell_coords(
+        p64.ghost_points[first], spec.kernel.H_inv), grid), grid, cs)
+    assert int((ends - starts).sum()) > mm.STAGE_ROWS
+    _fused_vs(cuda, spec, grid, p64, cs, n_b + 2)
+
+
+@pytest.mark.parametrize("dims", [2, 3])
+def test_fused_kernel_empty_stencil_and_lone_ghosts(cuda, dims):
+    """One ghost per cell (entries that read device memory directly) and a
+    ghost whose stencil is empty: zero moments, the density kept."""
+    rng = np.random.default_rng(5)
+    const = T.SimulationConstants(dx=DX)
+    kern = T.make_kernel(T.KernelFamily.WENDLAND_C2, dims, dx=DX)
+    n_b, n_f = 12, 300
+    pos_b = rng.uniform(-0.15, 0.0, size=(n_b, dims))
+    gpts = (np.arange(n_b)[:, None] * np.eye(dims)[0] * 1.5 + 0.5) * kern.H
+    gpts[-1] = 40 * kern.H
+    pos = np.concatenate([pos_b, rng.uniform(0.0, 0.4 * n_b * kern.H, size=(n_f, dims))])
+    n = n_b + n_f
+    ptype = np.concatenate([np.full(n_b, 2), np.full(n_f, 1)]).astype(np.int32)
+    p = allocate_particles(pos, rng.uniform(995, 1040, size=n), ptype, np.ones(n, np.int32),
+                           np.arange(1, n + 1), device="cpu", dtype=torch.float64,
+                           capacity=n + 3)
+    ghost = np.zeros((n + 3, dims))
+    ghost[:n_b] = gpts
+    p = p.replace(ghost_points=torch.as_tensor(ghost))
+    grid = cl.grid_from_positions(np.concatenate([pos, gpts]), kern.H_inv, margin_cells=3)
+    sp, cs, _ = cl.rebuild(p, kern.H_inv, grid)
+    spec = PhysicsSpec(constants=const, kernel=kern, viscosity=T.ViscosityModel.ZERO,
+                       diffusion=T.DensityDiffusionModel.ZERO)
+    rho, dec, bidx = _fused_vs(cuda, spec, grid, sp, cs, n_b + 2)
+    far = int(torch.nonzero(sp.id == n_b)[0])              # the last ghost's row
+    slot = int(torch.nonzero(bidx.cpu() == far)[0])
+    assert int(dec[slot]) == 0 and float(rho[far]) == float(sp.density[far].float())
+    groups = mm.ghost_groups(spec, grid, sp.ghost_points[bidx.cpu()],
+                             mdbc.compact_ghosts(sp, n_b + 2)[1], bidx=bidx.cpu(),
+                             cell_start=cs)
+    assert int(groups["counts"].max()) == 1 and int(groups["rows"].min()) == 0
+
+
+@pytest.mark.parametrize("dims", [2, 3])
+def test_fused_kernel_dry_stencils(cuda, dims):
+    """Ghosts among wall rows only - entries whose staged stencil holds no
+    fluid row skip the walk - and one of NaN density: zero moments, the
+    density kept, the NaN scrubbed to rho0, the unfused path's bits."""
+    rng = np.random.default_rng(3)
+    const = T.SimulationConstants(dx=DX)
+    kern = T.make_kernel(T.KernelFamily.WENDLAND_C2, dims, dx=DX)
+    n_b, n_f = 200, 100
+    pos_b = rng.uniform(0.0, 0.5, size=(n_b, dims))
+    pos = np.concatenate([pos_b, rng.uniform(2.0, 2.4, size=(n_f, dims))])
+    n = n_b + n_f
+    dens = rng.uniform(995, 1040, size=n)
+    dens[3] = np.nan
+    ptype = np.concatenate([np.full(n_b, 2), np.full(n_f, 1)]).astype(np.int32)
+    p = allocate_particles(pos, dens, ptype, np.ones(n, np.int32), np.arange(1, n + 1),
+                           device="cpu", dtype=torch.float64, capacity=n + 5)
+    ghost = np.zeros((n + 5, dims))
+    ghost[:n_b] = pos_b[:, ::-1] * 0.8 + 0.05
+    p = p.replace(ghost_points=torch.as_tensor(ghost))
+    grid = cl.grid_from_positions(pos, kern.H_inv, margin_cells=3)
+    sp, cs, _ = cl.rebuild(p, kern.H_inv, grid)
+    spec = PhysicsSpec(constants=const, kernel=kern, viscosity=T.ViscosityModel.ZERO,
+                       diffusion=T.DensityDiffusionModel.ZERO)
+    rho, dec, bidx = _fused_vs(cuda, spec, grid, sp, cs, n_b + 3)
+    assert not dec.any() and not torch.isnan(rho).any()
+    nan_row = torch.isnan(sp.density)
+    assert float(rho.cpu()[nan_row]) == const.rho0
+    assert torch.equal(rho.cpu()[~nan_row], sp.density[~nan_row].float())
+
+
+def test_fused_kernel_without_slots(cuda):
+    """B = 0: nothing to launch; a fresh copy of the density comes back."""
+    spec, grid, p64, cs, n_b = _ghost_state(3, "WENDLAND_C2")
+    p = _on(p64, cuda, torch.float32)
+    bidx, bvalid = mdbc.compact_ghosts(p, 0)
+    before = mm.launches
+    rho, dec, mom = mm.mdbc_correct(spec, grid, p, bidx, bvalid, p.position, p.density,
+                                    p.motion_limiter, cs.to(cuda), moments=True)
+    assert mm.launches == before and dec.shape == (0,) and mom.shape == (0, 20)
+    assert torch.equal(rho, p.density) and rho.data_ptr() != p.density.data_ptr()
+    assert torch.equal(mdbc.mdbc_density_correction(spec, grid, p, cs.to(cuda), 0), p.density)
+
+
+def test_fused_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    spec, grid, p64, cs, n_b = _ghost_state(3, "WENDLAND_C2")
+    p = _on(p64, cuda, torch.float32)
+    csg = cs.to(cuda)
+    bidx, bvalid = mdbc.compact_ghosts(p, n_b)
+    args = (p.position, p.density, p.motion_limiter, csg)
+    before = mm.launches
+    with pytest.raises(TypeError, match="bidx"):
+        mm.mdbc_correct(spec, grid, p, bidx.int(), bvalid, *args)
+    with pytest.raises(TypeError, match="float32 / float64"):
+        mm.mdbc_correct(spec, grid, p.replace(density=p.density.half()), bidx, bvalid, *args)
+    with pytest.raises(ValueError, match="cell_start"):
+        mm.mdbc_correct(spec, grid, p, bidx, bvalid, *args[:3], cs)
+    with pytest.raises(ValueError, match="gvalid"):
+        mm.mdbc_correct(spec, grid, p, bidx, bvalid[:-1], *args)
+    with pytest.raises(ValueError, match="unsupported device"):
+        mm.mdbc_correct(spec, grid, p64, bidx.cpu(), bvalid.cpu(), p64.position, p64.density,
+                        p64.motion_limiter, cs)
+    assert mm.launches == before
+
+
+@pytest.mark.parametrize("dims", [2, 3])
+def test_fused_kernel_on_the_halo_parks_other_slabs_slots(cuda, dims):
+    """Each slab compacts to the global capacity and parks the slots past its
+    own ghosts; its corrected rows are the single launch's bit for bit."""
+    spec, grid, p64, cs, n_b = _ghost_state(dims, "WENDLAND_C2")
+    cap = p64.capacity - p64.capacity % N_SLABS
+    p64 = p64.map(lambda a: a[:cap])
+    p32, cs_g = _on(p64, cuda, torch.float32), cs.to(cuda)
+    whole = mdbc.mdbc_density_correction(spec, grid, p32, cs_g, n_b)
+    C = cap // N_SLABS
+    dens, parked = [], 0
+    for r in range(N_SLABS):
+        pl, cs_e, f, _ = _window(p32, cs_g, r, (dims - 1) * C)
+        bidx, bvalid = mdbc.compact_ghosts(pl, n_b)
+        rho, dec, _ = mm.mdbc_correct(spec, grid, pl, bidx, bvalid, f["position"],
+                                      f["density"], f["motion_limiter"], cs_e)
+        groups = mm.ghost_groups(spec, grid, pl.ghost_points[bidx], bvalid, bidx=bidx)
+        own = int((torch.any(pl.ghost_points != 0, dim=-1) & pl.active).sum())
+        assert int(groups["parked"].sum()) == n_b - own
+        assert not dec[groups["parked"]].any()
+        parked += n_b - own
+        dens.append(rho)
+    assert parked == (N_SLABS - 1) * n_b
+    assert torch.equal(torch.cat(dens), whole)
 
 
 # --- the cell sweep -----------------------------------------------------------
