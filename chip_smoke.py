@@ -158,6 +158,37 @@ Phases, each printing one JSON line (any failure exits non-zero):
               the grouping kernels' time, the fused stage's time and device
               launches, the parked slots on the halo).
 
+17. the host loop a user runs, under a temporary directory removed at the end:
+              run_simulation_main - the main deck with examples/dam_break_3d.py's
+              meta (an output every 0.01 s, the grid-cells file) through
+              ``run_simulation`` for 3 output intervals, a checkpoint (and
+              VTKHDF where h5py imports) at every counter on the asynchronous
+              saver: counters 1-4 saved, 2 block-sweep launches per step, the
+              physics gates of phase 4, the end state bit for bit that of the
+              same intervals with no save callback and with the saver
+              synchronous; ms per step next to the fixed-steps loop's (phase 4,
+              and the same steps from the same start), the HourGlass report,
+              the save section's share of the wall time;
+              checkpoint_resume - the checkpoint of counter 3 resumed into a
+              freshly assembled deck and run one interval: the end state of
+              run_simulation_main bit for bit;
+              regrid - a constructed state: 64 fluid rows moved into a blob
+              half a cell below the grid's top edge at +3 m/s; with
+              ``auto_retune=False`` the escape raises and the pre-interval state
+              keeps its SHA-256; by default the grid grows and the interval
+              replays: no escapes left, every live row inside the grown grid, 2
+              block-sweep launches per step taken, the kernel against its plain
+              version on the end state over the grown grid (parity_after_regrid);
+              run_simulation_mdbc - the mDBC deck for one interval with the
+              checkpoint saver: 1 fused mDBC call (and its 4 grouping kernels)
+              and 2 block-sweep launches per step, the checkpoint loads back
+              equal; determinism - ``check_determinism`` (5 steps twice, every
+              tensor bit for bit) on the main and the mDBC deck; output - h5py's
+              version (or null), and where it imports the VTKHDF of
+              run_simulation_main read back: 4 steps equal to the checkpoints
+              of the same counters, 3 grid-cells steps (the initial snapshot
+              has no cell list yet).
+
 Then the card's name and power limit from nvidia-smi on a line of their own,
 and last ``{"ok": true, "device": {...}}``.
 
@@ -180,8 +211,10 @@ import inspect
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -191,6 +224,8 @@ import torch
 import sphexample_tpu_torch as T
 from sphexample_tpu_torch.core.step import _sweep, make_fixed_steps_fn, sph_step
 from sphexample_tpu_torch.io.casegen import dam_break_2d, dam_break_3d
+from sphexample_tpu_torch.io.checkpoint import (load_checkpoint, resume_simulation,
+                                                save_checkpoint)
 from sphexample_tpu_torch.models import equations as eq
 from sphexample_tpu_torch.ops import _build
 from sphexample_tpu_torch.ops import block_sweep as bs
@@ -203,7 +238,8 @@ from sphexample_tpu_torch.ops.interactions import candidates
 from sphexample_tpu_torch.parallel.context import SINGLE
 from sphexample_tpu_torch.parallel.mesh import (make_mesh, make_sharded_fixed_steps_fn,
                                                 make_sharded_fn, shard_simulation)
-from sphexample_tpu_torch.state import gather_state, split_state
+from sphexample_tpu_torch.state import gather_state, split_state, state_tensors
+from sphexample_tpu_torch.utils.validation import check_determinism
 
 REL_TOL = 1e-4           # kernel vs plain, relative to the field's max
 SLAB_TOL = 1e-6          # 4 slabs concatenated vs the single-device kernel
@@ -253,6 +289,12 @@ def emit(obj):
 
 def fail(msg):
     raise SystemExit(f"chip_smoke: FAIL: {msg}")
+
+
+def reset_counts():
+    """Every single-device launch count to 0 (before a path is driven)."""
+    bs.launches = cw.launches = 0
+    mm.launches = mm.group_launches = 0
 
 
 def case_3d(dx=0.0085):
@@ -893,9 +935,7 @@ def run_phase(sim, label, mdbc_on, sweep="block", falling=True, rho_band=0.02):
     torch.cuda.synchronize()
     rebuilds0 = state.rebuilds
     torch.cuda.reset_peak_memory_stats()
-    bs.launches = 0
-    mm.launches = mm.group_launches = 0
-    cw.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     state = make_fixed_steps_fn(sim.cfg, STEPS)(state)
     torch.cuda.synchronize()
@@ -904,8 +944,41 @@ def run_phase(sim, label, mdbc_on, sweep="block", falling=True, rho_band=0.02):
     sweep_launches, mdbc_launches = counts[sweep], mm.launches
     group_launches = mm.group_launches
     other_launches = sum(v for k, v in counts.items() if k != sweep)
-    p = state.particles
     n = sim.n_live
+    run = {
+        "phase": label, "n": n, "steps": STEPS, "wall_s": wall,
+        "particle_steps_per_s": n * STEPS / wall, "ms_per_step": 1e3 * wall / STEPS,
+        "device": torch.cuda.get_device_name(0), "rebuilds": state.rebuilds - rebuilds0,
+        "sim_time_s": float(state.total_time), "dt": float(state.current_dt),
+        **physics(sim, ids0, pos0, fixed0, state),
+        "sweep_kernel": sweep, "launches": sweep_launches,
+        "block_sweep_launches": counts["block"], "cell_sweep_launches": counts["cell"],
+        "mdbc_launches": mdbc_launches, "mdbc_group_launches": group_launches,
+        "ghosts": sim.cfg.boundary_capacity if mdbc_on else 0,
+        "max_occupancy": int(state.max_occupancy), "max_segment": int(state.max_segment),
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
+        "end_digest": end_digest(state),
+    }
+    emit(run)
+    physics_gates(sim, run, label, rho_band, falling)
+    if sweep_launches != 2 * STEPS or other_launches != 0:
+        fail(f"{label}: {sweep}-sweep launches {sweep_launches} != 2 x {STEPS} steps, "
+             f"or the other sweep was launched ({other_launches})")
+    if mdbc_launches != (STEPS if mdbc_on else 0) or group_launches != len(
+            GROUP_KERNELS) * mdbc_launches:
+        fail(f"{label}: mDBC launches {mdbc_launches} (grouping {group_launches}) in "
+             f"{STEPS} steps")
+    if mdbc_on and run["boundary_rows_off_rho0"] == 0:
+        fail(f"{label}: no boundary density moved off rho0 - mDBC did not fire")
+    return state, run
+
+
+def physics(sim, ids0, pos0, fixed0, state):
+    """The physics readings of a run's end ``state`` (the start's ids,
+    positions and fixed-row mask given): finite fields, the fluid's density
+    range and least vertical velocity, the boundary's density range, fixed
+    rows unmoved (bitwise, by id), grid escapes."""
+    p = state.particles
     finite = all(bool(torch.isfinite(getattr(p, f)).all()) for f in
                  ("position", "velocity", "acceleration", "density", "pressure"))
     fluid = p.ptype == int(T.ParticleType.FLUID)
@@ -916,47 +989,32 @@ def run_phase(sim, label, mdbc_on, sweep="block", falling=True, rho_band=0.02):
     walls_still = bool(torch.equal(p.position[order_now][fixed0[order0]],
                                    pos0[order0][fixed0[order0]]))
     rho_b = p.density[(p.ptype == int(T.ParticleType.FIXED)) & p.active]
-    run = {
-        "phase": label, "n": n, "steps": STEPS, "wall_s": wall,
-        "particle_steps_per_s": n * STEPS / wall, "ms_per_step": 1e3 * wall / STEPS,
-        "device": torch.cuda.get_device_name(0), "rebuilds": state.rebuilds - rebuilds0,
-        "sim_time_s": float(state.total_time), "dt": float(state.current_dt),
+    return {
         "fluid_rho_min": float(rho_f.min()), "fluid_rho_max": float(rho_f.max()),
         "fluid_vz_min": float(p.velocity[fluid][:, -1].min()),
         "boundary_rho_min": float(rho_b.min()), "boundary_rho_max": float(rho_b.max()),
         "boundary_rows_off_rho0": int((rho_b != rho0).sum()),
-        "sweep_kernel": sweep, "launches": sweep_launches,
-        "block_sweep_launches": counts["block"], "cell_sweep_launches": counts["cell"],
-        "mdbc_launches": mdbc_launches, "mdbc_group_launches": group_launches,
-        "ghosts": sim.cfg.boundary_capacity if mdbc_on else 0,
         "finite": finite, "walls_still": walls_still,
-        "max_occupancy": int(state.max_occupancy), "max_segment": int(state.max_segment),
         "grid_escapes": int(state.grid_escapes),
-        "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
-        "end_digest": end_digest(state),
     }
-    emit(run)
-    if not finite:
+
+
+def physics_gates(sim, rec, label, rho_band=0.02, falling=True):
+    """Fail unless the readings of :func:`physics` in ``rec`` pass: finite,
+    fluid density within ``rho_band`` of rho0, (``falling``) the column
+    falling, fixed walls still, no grid escapes."""
+    rho0 = sim.cfg.spec.constants.rho0
+    if not rec["finite"]:
         fail(f"{label}: non-finite fields after the run")
-    if not (abs(run["fluid_rho_min"] / rho0 - 1) <= rho_band
-            and abs(run["fluid_rho_max"] / rho0 - 1) <= rho_band):
+    if not (abs(rec["fluid_rho_min"] / rho0 - 1) <= rho_band
+            and abs(rec["fluid_rho_max"] / rho0 - 1) <= rho_band):
         fail(f"{label}: fluid density left rho0 +- {100 * rho_band:g}%")
-    if falling and not run["fluid_vz_min"] < 0:
+    if falling and not rec["fluid_vz_min"] < 0:
         fail(f"{label}: the fluid column is not falling")
-    if not walls_still:
+    if not rec["walls_still"]:
         fail(f"{label}: fixed boundary particles moved")
-    if sweep_launches != 2 * STEPS or other_launches != 0:
-        fail(f"{label}: {sweep}-sweep launches {sweep_launches} != 2 x {STEPS} steps, "
-             f"or the other sweep was launched ({other_launches})")
-    if mdbc_launches != (STEPS if mdbc_on else 0) or group_launches != len(
-            GROUP_KERNELS) * mdbc_launches:
-        fail(f"{label}: mDBC launches {mdbc_launches} (grouping {group_launches}) in "
-             f"{STEPS} steps")
-    if run["grid_escapes"] != 0:
+    if rec["grid_escapes"] != 0:
         fail(f"{label}: particles escaped the static grid")
-    if mdbc_on and run["boundary_rows_off_rho0"] == 0:
-        fail(f"{label}: no boundary density moved off rho0 - mDBC did not fire")
-    return state, run
 
 
 def breakdown_phase(sim, state, run, label):
@@ -1371,15 +1429,6 @@ def run_sharded_phase(sim, single_end, label, mdbc_on, sweep="block", falling=Tr
     state = gather_state(states, "cuda:0")
     p = state.particles
     n = sim.n_live
-    finite = all(bool(torch.isfinite(getattr(p, f)).all()) for f in
-                 ("position", "velocity", "acceleration", "density", "pressure"))
-    fluid = p.ptype == int(T.ParticleType.FLUID)
-    rho0 = cfg.spec.constants.rho0
-    rho_f = p.density[fluid]
-    order_now, order0 = torch.argsort(p.id), torch.argsort(ids0)
-    walls_still = bool(torch.equal(p.position[order_now][fixed0[order0]],
-                                   pos0[order0][fixed0[order0]]))
-    rho_b = p.density[(p.ptype == int(T.ParticleType.FIXED)) & p.active]
     end = end_summary(state)
     in_bands, diffs = in_trajectory_bands(end, single_end)
     C = p.capacity // N_SLABS
@@ -1394,31 +1443,19 @@ def run_sharded_phase(sim, single_end, label, mdbc_on, sweep="block", falling=Tr
         "rebuilds_total_single_device": single_end["rebuilds"],
         "ranks_agree_on_scalars": scalars_agree,
         "sim_time_s": end["total_time"], "dt": end["dt"],
-        "fluid_rho_min": float(rho_f.min()), "fluid_rho_max": float(rho_f.max()),
-        "fluid_vz_min": float(p.velocity[fluid][:, -1].min()),
-        "boundary_rows_off_rho0": int((rho_b != rho0).sum()),
+        **physics(sim, ids0, pos0, fixed0, state),
         "sweep_kernel": sweep, "launches": sweep_launches,
         "launches_per_step_per_slab": sweep_launches / STEPS / N_SLABS,
         "block_window_launches": counts["block"], "cell_window_launches": counts["cell"],
         "single_device_entry_launches": single_entry, "mdbc_launches": mdbc_launches,
         "mdbc_group_launches": group_launches,
-        "finite": finite, "walls_still": walls_still,
-        "grid_escapes": int(state.grid_escapes),
         "vs_single_device_max_abs": diffs,
         "vs_single_device_bitwise": all(v == 0.0 for v in diffs.values()),
         "vs_single_device_in_bands": in_bands,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
     }
     emit(run)
-    if not finite:
-        fail(f"{label}: non-finite fields after the run")
-    if not (abs(run["fluid_rho_min"] / rho0 - 1) <= rho_band
-            and abs(run["fluid_rho_max"] / rho0 - 1) <= rho_band):
-        fail(f"{label}: fluid density left rho0 +- {100 * rho_band:g}%")
-    if falling and not run["fluid_vz_min"] < 0:
-        fail(f"{label}: the fluid column is not falling")
-    if not walls_still:
-        fail(f"{label}: fixed boundary particles moved")
+    physics_gates(sim, run, label, rho_band, falling)
     if (sweep_launches != 2 * STEPS * N_SLABS or other_launches != 0 or single_entry != 0):
         fail(f"{label}: windowed {sweep}-sweep launches {sweep_launches} != 2 x {STEPS} "
              f"steps x {N_SLABS} slabs, or another sweep entry was launched "
@@ -1427,8 +1464,6 @@ def run_sharded_phase(sim, single_end, label, mdbc_on, sweep="block", falling=Tr
             GROUP_KERNELS) * mdbc_launches:
         fail(f"{label}: mDBC launches {mdbc_launches} (grouping {group_launches}) in "
              f"{STEPS} steps on {N_SLABS} slabs")
-    if run["grid_escapes"] != 0:
-        fail(f"{label}: particles escaped the static grid")
     if mdbc_on and run["boundary_rows_off_rho0"] == 0:
         fail(f"{label}: no boundary density moved off rho0 - mDBC did not fire")
     if not 0 < run["max_halo"] <= halo:
@@ -1525,6 +1560,358 @@ def window_numbers(simg, p, cs, mod, halo, r=1, plain_reps=2, op_costs=None):
             "candidates": n_cand, "pairs": n_pair, "approaching_pairs": n_appr,
             "bytes": nbytes, "ops": ops,
             "schedule": schedule(simg, p, cs, mod, r * C, (r + 1) * C)}
+
+
+# --- 17: the host loop a user runs (run_simulation, checkpoints, VTKHDF) ------------
+
+HOST_INTERVALS = 3       # output intervals of run_simulation_main (0.01 s each)
+BLOB_ROWS, BLOB_SPEED = 64, 3.0   # the regrid phase's constructed escape
+
+
+def host_case(tmp, name):
+    """The main deck with examples/dam_break_3d.py's meta: an output every
+    0.01 s, the grid-cells file on, saved under ``tmp/name``."""
+    arrays, meta, const, kern = case_3d()
+    meta = T.replace(meta, simulation_name="DamBreak3D", save_location=str(tmp / name),
+                     output_times=0.01, export_grid_cells=True)
+    return arrays, meta, const, kern
+
+
+def h5py_version():
+    """h5py's version where it imports (the VTKHDF writers need it), else None."""
+    try:
+        import h5py
+    except ImportError:
+        return None
+    return h5py.__version__
+
+
+def full_digest(state):
+    """SHA-256 of every tensor of a state: a state nothing wrote into keeps it."""
+    h = hashlib.sha256()
+    for k, v in state_tensors(state).items():
+        h.update(k.encode())
+        h.update(v.contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def saver(sim, directory, vtk):
+    """A save callback: a checkpoint at every counter (with the grid the
+    snapshot was stepped on) and, with ``vtk``, the VTKHDF files.  Records
+    the counters, the seconds the callback took and the seconds of its first
+    copy to the host (one field: the wait for the kernels queued before it
+    on the default stream, and the transfer)."""
+    record = {"counters": [], "seconds": 0.0, "first_copy_s": 0.0}
+
+    def save(counter, state):
+        t0 = time.perf_counter()
+        state.particles.position.cpu()
+        record["first_copy_s"] += time.perf_counter() - t0
+        save_checkpoint(str(directory / f"ckpt_{counter:06d}.npz"), state, counter,
+                        grid=sim.cfg.grid)
+        if vtk is not None:
+            vtk(counter, state)
+        record["counters"].append(counter)
+        record["seconds"] += time.perf_counter() - t0
+
+    return save, record
+
+
+def timed_run(sim, **kw):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    T.run_simulation(sim, **kw)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def run_simulation_main(tmp, run):
+    """The main deck through ``run_simulation`` for HOST_INTERVALS output
+    intervals with a checkpoint (and VTKHDF where h5py imports) at every
+    counter on the asynchronous saver; then the same intervals with no save
+    callback, and with the saver synchronous, and the same number of steps
+    through ``make_fixed_steps_fn`` - all from the same start state."""
+    h5 = h5py_version()
+    sim = assemble(host_case(tmp, "main"))
+    start = sim.state
+    ids0, pos0 = start.particles.id.clone(), start.particles.position.clone()
+    fixed0 = start.particles.ptype == int(T.ParticleType.FIXED)
+    vtk = None
+    if h5 is not None:
+        from sphexample_tpu_torch.io.output import make_save_callback
+
+        vtk = make_save_callback(sim)
+    (tmp / "ckpt").mkdir()
+    save, record = saver(sim, tmp / "ckpt", vtk)
+    reset_counts()
+    wall = timed_run(sim, save_callback=save, max_intervals=HOST_INTERVALS)
+    launches = {"block": bs.launches, "cell": cw.launches, "mdbc": mm.launches}
+    hg = sim.hourglass
+    report = hg.report()
+    if vtk is not None:
+        vtk.close()
+    state = sim.state
+    steps = int(state.iteration) - int(start.iteration)
+    loop_s, save_s = hg.totals["00 SimulationLoop"], hg.totals["13 Save Particle Data"]
+    # the same intervals with no save callback; with the saver synchronous
+    bare = assemble(host_case(tmp, "bare"))
+    bare_wall = timed_run(bare, max_intervals=HOST_INTERVALS)
+    sync = assemble(host_case(tmp, "sync"))
+    sync.meta = T.replace(sync.meta, async_output=False)
+    (tmp / "ckpt_sync").mkdir()
+    save_sync, record_sync = saver(sync, tmp / "ckpt_sync", None)
+    sync_wall = timed_run(sync, save_callback=save_sync, max_intervals=HOST_INTERVALS)
+    # the fixed-steps loop over the same number of steps (no output times)
+    fixed = make_fixed_steps_fn(sim.cfg, steps)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fixed(start)
+    torch.cuda.synchronize()
+    fixed_wall = time.perf_counter() - t0
+    n = sim.n_live
+    rec = {
+        "phase": "run_simulation_main", "n": n, "intervals": HOST_INTERVALS,
+        "steps": steps, "sim_time_s": float(state.total_time),
+        "counters_saved": record["counters"], "h5py": h5,
+        "wall_s": wall, "wall_ms_per_step": 1e3 * wall / steps,
+        "particle_steps_per_s": n * steps / wall,
+        "loop_ms_per_step": 1e3 * loop_s / steps,
+        "no_save_wall_ms_per_step": 1e3 * bare_wall / steps,
+        "sync_save_wall_ms_per_step": 1e3 * sync_wall / steps,
+        "fixed_steps_ms_per_step_same_steps": 1e3 * fixed_wall / steps,
+        "run_phase_fixed_steps_ms_per_step": run["ms_per_step"],
+        "save_section_s": save_s, "save_share_of_wall": save_s / wall,
+        "save_callback_s": record["seconds"],
+        "sync_save_callback_s": record_sync["seconds"],
+        "save_first_copy_s": record["first_copy_s"],
+        "sync_save_first_copy_s": record_sync["first_copy_s"],
+        "retunes": hg.counts.get("02b Retune neighbor windows", 0),
+        "block_sweep_launches": launches["block"], "cell_sweep_launches": launches["cell"],
+        "mdbc_launches": launches["mdbc"],
+        "hourglass": {k: [hg.counts[k], hg.totals[k]] for k in hg.totals},
+        "hourglass_report": report,
+        **physics(sim, ids0, pos0, fixed0, state),
+        "end_digest": end_digest(state), "no_save_end_digest": end_digest(bare.state),
+        "sync_save_end_digest": end_digest(sync.state),
+    }
+    emit(rec)
+    physics_gates(sim, rec, "run_simulation_main")
+    if rec["counters_saved"] != list(range(1, HOST_INTERVALS + 2)):
+        fail(f"run_simulation_main: saved counters {rec['counters_saved']}")
+    if launches != {"block": 2 * steps, "cell": 0, "mdbc": 0}:
+        fail(f"run_simulation_main: launches {launches} in {steps} steps")
+    if not rec["end_digest"] == rec["no_save_end_digest"] == rec["sync_save_end_digest"]:
+        fail("run_simulation_main: saving changed the run's end state")
+    if rec["retunes"]:
+        fail("run_simulation_main: the main deck re-gridded")
+    return sim, rec
+
+
+def checkpoint_resume(tmp, main_rec):
+    """The checkpoint of counter 3 resumed into a freshly assembled main deck
+    and run one more interval: the straight run's end state, bit for bit."""
+    sim, counter = resume_simulation(assemble(host_case(tmp, "resume")),
+                                     str(tmp / "ckpt" / "ckpt_000003.npz"))
+    on_card = sim.state.particles.position.device.type == "cuda"
+    it0 = int(sim.state.iteration)
+    reset_counts()
+    wall = timed_run(sim, start_counter=counter, max_intervals=1)
+    rec = {"phase": "checkpoint_resume", "counter": counter, "on_card": on_card,
+           "steps": int(sim.state.iteration) - it0, "wall_s": wall,
+           "block_sweep_launches": bs.launches, "end_digest": end_digest(sim.state)}
+    rec["end_state_vs_straight_run_bitwise"] = rec["end_digest"] == main_rec["end_digest"]
+    emit(rec)
+    if counter != 3 or not on_card:
+        fail(f"checkpoint_resume: counter {counter}, on the card {on_card}")
+    if not rec["end_state_vs_straight_run_bitwise"]:
+        fail("checkpoint_resume: the resumed run ends off the straight run")
+
+
+def escaping_blob(sim):
+    """A constructed state: the main deck with its BLOB_ROWS highest fluid
+    rows moved into a 4 x 4 x 4 lattice (spacing dx) centred half a cell
+    below the static grid's top edge, above the open tank, at +BLOB_SPEED m/s
+    in z: they leave the grid within the first output interval."""
+    p = sim.state.particles
+    H, dx = sim.cfg.spec.kernel.H, sim.cfg.spec.constants.dx
+    grid = sim.cfg.grid
+    z_top = (grid.cmin[2] + grid.shape[2] - 0.5) * H
+    fluid = torch.nonzero(p.ptype == int(T.ParticleType.FLUID)).squeeze(1)
+    rows = fluid[torch.argsort(p.position[fluid, 2], descending=True)[:BLOB_ROWS]]
+    lattice = torch.stack(torch.meshgrid(*[torch.arange(4.0)] * 3, indexing="ij"),
+                          dim=-1).reshape(-1, 3).to(p.position) * dx
+    centre = torch.cat([p.position[:, :2].mean(0), p.position.new_tensor([z_top - H / 2])])
+    pos, vel = p.position.clone(), p.velocity.clone()
+    pos[rows] = centre + lattice - lattice.mean(0)
+    vel[rows] = vel.new_tensor([0.0, 0.0, BLOB_SPEED])
+    sim.state = sim.state.replace(particles=p.replace(position=pos, velocity=vel))
+    return {"constructed_state": f"{BLOB_ROWS} fluid rows moved into a blob H/2 below "
+                                 f"the grid's top edge at +{BLOB_SPEED} m/s in z",
+            "blob_z_m": float(centre[2]), "grid_top_m": z_top}
+
+
+def regrid(tmp):
+    """A grid escape on the card: with ``auto_retune=False`` the driver
+    raises and leaves the pre-interval state as it was; by default it grows
+    the grid and replays the interval on the grown grid."""
+    from sphexample_tpu_torch.core import step as step_mod
+
+    sim = assemble(host_case(tmp, "regrid"))
+    rec = {"phase": "regrid", **escaping_blob(sim)}
+    first = sim.state
+    digest0 = full_digest(first)
+    grid0 = sim.cfg.grid
+    t0 = time.perf_counter()
+    try:
+        T.run_simulation(sim, max_intervals=1, auto_retune=False)
+    except RuntimeError as e:
+        rec["auto_retune_off_error"] = str(e)
+    rec["failed_interval_s"] = time.perf_counter() - t0
+    rec["pre_interval_state_unchanged"] = (sim.state is first
+                                           and full_digest(first) == digest0)
+    calls = [0]
+    real = step_mod.sph_step
+
+    def counted(cfg, state, dx):
+        calls[0] += 1
+        return real(cfg, state, dx)
+
+    step_mod.sph_step = counted
+    reset_counts()
+    try:
+        wall = timed_run(sim, max_intervals=1)
+    finally:
+        step_mod.sph_step = real
+    launches = {"block": bs.launches, "cell": cw.launches}
+    state, grid = sim.state, sim.cfg.grid
+    p = state.particles
+    c = cl.cell_coords(p.position[p.active], sim.cfg.spec.kernel.H_inv)
+    inside = bool((c == cl.clamp_coords(c, grid)).all())
+    rec.update(
+        grid_shape_before=list(grid0.shape), grid_shape_after=list(grid.shape),
+        grid_cmin_before=list(grid0.cmin), grid_cmin_after=list(grid.cmin),
+        replays=sim.hourglass.counts.get("02b Retune neighbor windows", 0),
+        retune_s=sim.hourglass.totals.get("02b Retune neighbor windows", 0.0),
+        wall_s=wall, steps_taken=calls[0], steps_kept=int(state.iteration),
+        block_sweep_launches=launches["block"], cell_sweep_launches=launches["cell"],
+        grid_escapes=int(state.grid_escapes), live_rows_inside_grid=inside)
+    emit(rec)
+    if "escaped" not in rec.get("auto_retune_off_error", ""):
+        fail("regrid: auto_retune=False did not raise on the escape")
+    if not rec["pre_interval_state_unchanged"]:
+        fail("regrid: the failed interval wrote into the pre-interval state")
+    if not (grid.ncells > grid0.ncells and rec["replays"] >= 1):
+        fail("regrid: the grid did not grow")
+    if rec["grid_escapes"] != 0 or not inside:
+        fail("regrid: particles outside the grown grid after the replay")
+    if launches != {"block": 2 * calls[0], "cell": 0}:
+        fail(f"regrid: launches {launches} in {calls[0]} steps")
+    compare(sim, p, state.cell_start, "parity_after_regrid")
+
+
+def run_simulation_mdbc(tmp):
+    """The mDBC deck for one output interval through ``run_simulation`` with
+    the checkpoint saver: one fused mDBC call (and its 4 grouping kernels)
+    per step, and the checkpoint written at the end loads back equal."""
+    arrays, meta, const, kern = case_3d()
+    meta = T.replace(meta, save_location=str(tmp / "mdbc"), output_times=0.01)
+    sim = assemble_mdbc((arrays, meta, const, kern))
+    start = sim.state
+    ids0, pos0 = start.particles.id.clone(), start.particles.position.clone()
+    fixed0 = start.particles.ptype == int(T.ParticleType.FIXED)
+    (tmp / "ckpt_mdbc").mkdir()
+    save, record = saver(sim, tmp / "ckpt_mdbc", None)
+    reset_counts()
+    wall = timed_run(sim, save_callback=save, max_intervals=1)
+    launches = {"block": bs.launches, "cell": cw.launches, "mdbc": mm.launches,
+                "grouping": mm.group_launches}
+    state = sim.state
+    steps = int(state.iteration) - int(start.iteration)
+    back, counter = load_checkpoint(str(tmp / "ckpt_mdbc" / "ckpt_000002.npz"), state)
+    ta, tb = state_tensors(back), state_tensors(state)
+    rec = {"phase": "run_simulation_mdbc", "n": sim.n_live, "steps": steps,
+           "wall_s": wall, "wall_ms_per_step": 1e3 * wall / steps,
+           "counters_saved": record["counters"], "save_callback_s": record["seconds"],
+           **{f"{k}_launches": v for k, v in launches.items()},
+           **physics(sim, ids0, pos0, fixed0, state),
+           "checkpoint_counter": counter,
+           "checkpoint_loads_back_equal": all(torch.equal(ta[k], tb[k]) for k in ta)
+           and back.rebuilds == state.rebuilds,
+           "end_digest": end_digest(state)}
+    emit(rec)
+    physics_gates(sim, rec, "run_simulation_mdbc")
+    if launches != {"block": 2 * steps, "cell": 0, "mdbc": steps,
+                    "grouping": len(GROUP_KERNELS) * steps}:
+        fail(f"run_simulation_mdbc: launches {launches} in {steps} steps")
+    if rec["boundary_rows_off_rho0"] == 0:
+        fail("run_simulation_mdbc: no boundary density moved off rho0 - mDBC did not fire")
+    if record["counters"] != [1, 2] or counter != 2 or not rec["checkpoint_loads_back_equal"]:
+        fail("run_simulation_mdbc: the checkpoint does not load back equal")
+
+
+def determinism():
+    """``check_determinism`` (5 steps twice, every tensor bit for bit) on the
+    main deck (the block sweep) and the mDBC deck (block sweep + mDBC)."""
+    rec = {"phase": "determinism", "steps": 5,
+           "main_deck": check_determinism(assemble(case_3d()), 5),
+           "mdbc_deck": check_determinism(assemble_mdbc(case_3d()), 5)}
+    emit(rec)
+    if not (rec["main_deck"] and rec["mdbc_deck"]):
+        fail(f"determinism: {rec}")
+
+
+def output_phase(tmp, main_sim):
+    """The VTKHDF of run_simulation_main read back with the port's reader,
+    where h5py imports: 4 steps, each step's positions and densities those
+    of the checkpoint of the same counter, cast to the file's dtype; and a
+    grid-cells file of 3 steps: the initial snapshot has no cell list yet
+    (its ``cell_start`` is all zeros until the first step rebuilds), so it
+    writes no grid step - as in the JAX package."""
+    h5 = h5py_version()
+    rec = {"phase": "output", "h5py": h5}
+    if h5 is None:
+        rec["note"] = "h5py does not import here: no VTKHDF written or read"
+        emit(rec)
+        return
+    import h5py
+
+    from sphexample_tpu_torch.io.vtkhdf import read_transient_polydata
+
+    base = tmp / "main" / "DamBreak3D"
+    n = main_sim.n_live
+    with h5py.File(f"{base}.vtkhdf", "r", locking=False) as f:
+        rec["NSteps"] = int(f["VTKHDF"]["Steps"].attrs["NSteps"])
+    with h5py.File(f"{base}_GridCells.vtkhdf", "r", locking=False) as f:
+        rec["grid_cells_NSteps"] = int(f["VTKHDF"]["Steps"].attrs["NSteps"])
+    equal = []
+    for k, (t, pts, data) in enumerate(read_transient_polydata(
+            f"{base}.vtkhdf", variables=["Density"]), start=1):
+        ck, _ = load_checkpoint(str(tmp / "ckpt" / f"ckpt_{k:06d}.npz"), main_sim.state)
+        pos = ck.particles.position[:n].cpu().numpy().astype(pts.dtype)
+        rho = ck.particles.density[:n].cpu().numpy().astype(data["Density"].dtype)
+        equal.append(bool(np.array_equal(pts, pos) and np.array_equal(data["Density"], rho)
+                          and t == float(ck.total_time)))
+    rec["steps_equal_to_checkpoints"] = equal
+    emit(rec)
+    if rec["NSteps"] != HOST_INTERVALS + 1 or rec["grid_cells_NSteps"] != HOST_INTERVALS:
+        fail(f"output: {rec['NSteps']} particle steps, {rec['grid_cells_NSteps']} grid steps")
+    if equal != [True] * (HOST_INTERVALS + 1):
+        fail(f"output: the file's steps differ from the checkpoints: {equal}")
+
+
+def host_loop_phases(run):
+    """Phases 17: the host loop on the main and mDBC decks, under a temporary
+    directory removed at the end."""
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
+    try:
+        main_sim, main_rec = run_simulation_main(tmp, run)
+        checkpoint_resume(tmp, main_rec)
+        regrid(tmp)
+        run_simulation_mdbc(tmp)
+        determinism()
+        output_phase(tmp, main_sim)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def main(argv):
@@ -1987,6 +2374,10 @@ def main(argv):
         max_abs_err_moving_square_path=parw_blockq[f"halo_{haloq}_window_vs_plain_max_abs"],
         **{f"{k}_moving_square_path": v for k, v in
            window_numbers(simg, pe, cse, bs, haloq, op_costs=OPS_2D_ALL_EXTRAS).items()})
+
+    # 17 - the host loop a user runs: run_simulation with its saver,
+    # checkpoints and resume, re-grid and replay, VTKHDF
+    host_loop_phases(run)
 
     emit({"phase": "elapsed", "seconds": time.perf_counter() - t_start})
     # 15 - the kernel line

@@ -8,9 +8,11 @@ Reference: ``src/SimulationMetaDataConfiguration.jl:12-75`` and
 ``src/SimulationConstantsConfiguration.jl:36-52``.
 
 Knobs of the JAX package that only sized TPU structures (Pallas windows,
-chunk tables, device-program length, watchdogs, async output) are not
-copied: nothing in the port reads them.  ``block_sweep`` is kept: it chooses
-between the port's two sweep kernels as it does between the JAX package's.
+chunk tables) are not copied: nothing in the port reads them.
+``block_sweep`` is kept: it chooses between the port's two sweep kernels as
+it does between the JAX package's.  The host loop's knobs (steps per chunk,
+asynchronous output, the device-call watchdog) are kept with the JAX
+defaults.
 """
 
 from __future__ import annotations
@@ -273,6 +275,19 @@ class SimulationMetaData:
     # capacity allow; False takes the cell sweep (one block per cell, every
     # model and mode) - see core/driver.py:choose_sweep_kernel
     block_sweep: bool = True
+    # Steps per chunk of an output interval: the host checks progress, beats
+    # the watchdog and fires the progress callback between chunks
+    # (core/step.py:make_interval_fn); None = one chunk per interval.
+    max_steps_per_call: Optional[int] = 64
+    # Run the save callback on a worker thread, so that snapshot transfers
+    # and file writes overlap the next interval (core/driver.py:_AsyncSaver).
+    async_output: bool = True
+    # Device-call watchdog (utils/watchdog.py): seconds a chunk or a snapshot
+    # save may block before the run warns loudly - or, with watchdog_hard,
+    # exits with code 86 so that a supervisor can resume from the last
+    # checkpoint.
+    device_call_timeout: Optional[float] = None
+    watchdog_hard: bool = False
 
     def output_time_for(self, counter: int) -> float:
         """next_output_time (reference src/SPHCellList.jl:687-698)."""

@@ -5,20 +5,26 @@ Entry points run on the card: ``device=None`` resolves to ``"cuda"`` and
 raises when no GPU is present.  Only an explicit ``device="cpu"`` runs on
 the CPU (the plain versions of the kernels).  ``assemble_simulation`` builds
 the motion table from ``geometries`` and chooses the sweep kernel
-(:func:`choose_sweep_kernel`).  A simulation sharded by
-``parallel.mesh.shard_simulation`` carries the tuple of its slab states;
-``run_simulation`` steps it through the same loop, reads the replicated
-scalars from rank 0's state and raises when a stencil window or a row
-migration reached past the halo (``max_halo > cfg.halo``);
-:func:`gather_state` gives the one global state.  Still missing: re-grid and
-replay of an interval on grid escapes (and, sharded, re-sharding with a
-larger halo), output and the asynchronous saver, checkpoints; the port's
-kernels have no capacity windows, so grid escapes and the halo are the only
-overflows left to guard.
+(:func:`choose_sweep_kernel`).  ``run_simulation`` is the JAX package's host
+loop: output intervals in chunks, the save callback (on a worker thread by
+default, :class:`_AsyncSaver`), the log and progress callbacks, the
+``HourGlass`` sections, and the re-grid and replay of an interval in which
+particles escaped the static grid (:func:`_regrow_grid`, :func:`_retune`).
+The port's kernels have no capacity windows, so grid escapes and, sharded,
+the halo are the only overflows to guard, and capacity never grows on a
+replay.  A simulation sharded by ``parallel.mesh.shard_simulation`` carries
+the tuple of its slab states; ``run_simulation`` steps it through the same
+loop, reads the replicated scalars from rank 0's state and raises on a grid
+escape or a halo overrun (re-sharding is not ported yet);
+:func:`gather_state` gives the one global state.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import queue
+import sys
+import threading
 import time
 from dataclasses import dataclass
 from typing import Callable, Optional, Sequence
@@ -41,6 +47,8 @@ from ..ops import cell_list as cl
 from ..ops.block_sweep import BLOCK_CAP_LIMIT
 from ..ops.interactions import PhysicsSpec
 from ..state import SimulationState, allocate_particles, gather_state  # noqa: F401
+from ..utils.timers import HourGlass
+from ..utils.watchdog import DeviceWatchdog
 from .motion import build_motion_table
 from .step import StepConfig, make_interval_fn
 
@@ -76,6 +84,7 @@ class Simulation:
     n_live: int
     interval_fn: Callable = None
     mesh: object = None
+    hourglass: object = None  # filled by run_simulation
 
     def __post_init__(self):
         if self.interval_fn is None:
@@ -192,55 +201,313 @@ def build_simulation(
     )
 
 
+def _overflow_reason(cfg: StepConfig, state) -> Optional[str]:
+    """Non-None when the interval's results are not to be believed: particles
+    escaped the static grid (they were clamped into edge cells), or, sharded,
+    a stencil window or a row migration reached past the halo (the clamped
+    window dropped pairs).  The lines of JAX ``_overflow_reason`` that the
+    port can trip; it has no candidate windows or chunk tables."""
+    state = _replicated(state)
+    esc = int(state.grid_escapes)
+    if esc > 0:
+        return (
+            f"{esc} particle(s) escaped the static cell grid and were "
+            f"clamped into edge cells (wrong physics); re-grid with a "
+            f"larger bounding box or raise grid_margin_cells"
+        )
+    if cfg.halo and int(state.max_halo) > cfg.halo:
+        return (
+            f"stencil windows reached {int(state.max_halo)} sorted rows past "
+            f"a slab boundary, exceeding the halo capacity {cfg.halo}; "
+            f"re-shard with a larger halo"
+        )
+    return None
+
+
+def _regrow_grid(cfg: StepConfig, failed_state, margin_cells: int) -> cl.Grid:
+    """Union of the current grid and the escaped configuration's bounding box
+    (plus margin): covers wherever the failed interval's particles actually
+    went.  The reference's Dict grid is unbounded (SPHCellList.jl:144-162);
+    this is the static-grid analog - grow, replay, carry on."""
+    p = failed_state.particles
+    act = p.active.cpu().numpy()
+    pos = p.position.detach().cpu().numpy()[act]
+    if not np.all(np.isfinite(pos)):
+        raise FloatingPointError(
+            "simulation diverged: non-finite particle positions at the "
+            "grid-escape re-grid"
+        )
+    esc_grid = cl.grid_from_positions(pos, cfg.spec.kernel.H_inv, margin_cells)
+    cmin = tuple(min(a, b) for a, b in zip(cfg.grid.cmin, esc_grid.cmin))
+    cmax = tuple(
+        max(a + s - 1, b + t - 1)
+        for a, s, b, t in zip(cfg.grid.cmin, cfg.grid.shape,
+                              esc_grid.cmin, esc_grid.shape)
+    )
+    new_grid = cl.Grid(
+        cmin=cmin, shape=tuple(hi - lo + 1 for lo, hi in zip(cmin, cmax))
+    )
+    if new_grid.ncells > max(8 * cfg.grid.ncells, 2 ** 24):
+        raise RuntimeError(
+            f"grid-escape re-grid would need {new_grid.ncells} cells "
+            f"({new_grid.shape}, was {cfg.grid.shape}): particles are far "
+            f"outside the simulation domain - this is almost certainly a "
+            f"diverged simulation, not a domain-sizing problem"
+        )
+    return new_grid
+
+
+def _retune(sim: Simulation, prev_state, failed_state):
+    """Grow the static grid to cover the failed interval's escapees and
+    return (sim, pre-interval state) for the replay (the single-device grid
+    part of JAX ``_retune``).  Capacity and the sweep kernel stay as
+    assembled: the port's kernels have no candidate windows to grow."""
+    cfg = sim.cfg
+    esc = int(failed_state.grid_escapes)
+    new_grid = cfg.grid
+    if esc > 0:
+        new_grid = _regrow_grid(cfg, failed_state, sim.meta.grid_margin_cells)
+    if new_grid == cfg.grid:
+        raise RuntimeError(
+            "grid retune made no progress; raise grid_margin_cells manually")
+    # the replay starts from the pre-interval state on the grown grid: the
+    # old cell_start has the old grid's shape, and the escape count was
+    # measured against the old grid (the replay's first step rebuilds)
+    dev = prev_state.cell_start.device
+    prev_state = prev_state.replace(
+        cell_start=torch.zeros((new_grid.ncells + 2,), dtype=torch.int32, device=dev),
+        grid_escapes=torch.zeros((), dtype=torch.int32, device=dev),
+    )
+    print(
+        f"[sphexample_tpu_torch] grid escapes {esc}; re-gridding "
+        f"{cfg.grid.shape}->{new_grid.shape} and replaying the interval",
+        file=sys.stderr,
+    )
+    new_sim = Simulation(cfg=dataclasses.replace(cfg, grid=new_grid),
+                         state=prev_state, meta=sim.meta, n_live=sim.n_live)
+    return new_sim, prev_state
+
+
+def _default_progress(meta: SimulationMetaData, t_wall0: float):
+    """In-interval progress line (the reference's ProgressMeter spinner,
+    SPHCellList.jl:870-907): fires once per chunk, rate-limited, and only
+    when stderr is a terminal."""
+    if not sys.stderr.isatty():
+        return None
+    last = [0.0]
+
+    def progress(state):
+        now = time.perf_counter()
+        if now - last[0] < 2.0:
+            return
+        last[0] = now
+        tt = float(state.total_time)
+        frac = min(tt / meta.simulation_time, 1.0) if meta.simulation_time else 0.0
+        wall = now - t_wall0
+        eta = wall * (1.0 - frac) / frac if frac > 1e-9 else float("nan")
+        sys.stderr.write(
+            f"\r  iter {int(state.iteration):>8}  t={tt:.4f}/"
+            f"{meta.simulation_time:g}s  dt={float(state.current_dt):.2e}  "
+            f"wall {wall:6.0f}s  eta {eta:6.0f}s "
+        )
+        sys.stderr.flush()
+
+    return progress
+
+
+class _AsyncSaver:
+    """Run the save callback on a worker thread so that snapshot transfers
+    and file writes overlap the next interval's compute.
+
+    One worker keeps the snapshots in order (same output files); the queue
+    is bounded, so at most ``maxsize`` states wait.  This is safe because
+    nothing writes in place into a state the loop has handed on: every step
+    returns new tensors.  On the card the worker's ``.cpu()`` copies run on
+    its thread's current stream (the default one), behind the kernels
+    already queued there.  Exceptions re-raise on the next enqueue or on
+    close()."""
+
+    def __init__(self, save_callback, maxsize: int = 2, watchdog=None):
+        self._cb = save_callback
+        self._q = queue.Queue(maxsize=maxsize)
+        self._err = None
+        self._wd = watchdog  # covers the snapshot transfers too
+        self._t = threading.Thread(target=self._run, daemon=True)
+        self._t.start()
+
+    def _run(self):
+        while True:
+            item = self._q.get()
+            try:
+                if item is None:
+                    return
+                if self._wd is not None:
+                    self._wd.arm(f"snapshot {item[0]}")
+                self._cb(*item)
+            except BaseException as e:  # noqa: BLE001 - surfaced on main thread
+                self._err = e
+                return
+            finally:
+                # disarm on every exit: a save exception leaving the watchdog
+                # armed would fire a bogus "device call hung" (or an
+                # os._exit(86) in hard mode) over the error close() raises
+                if self._wd is not None:
+                    self._wd.disarm()
+                self._q.task_done()
+
+    def __call__(self, counter, state):
+        # bounded-timeout puts: if the worker died (or is stuck in a stalled
+        # transfer), the main thread must not block forever on a full queue
+        while True:
+            if self._err is not None:
+                raise RuntimeError("async save failed") from self._err
+            if not self._t.is_alive():
+                raise RuntimeError("async saver thread died")
+            try:
+                self._q.put((counter, state), timeout=30.0)
+                return
+            except queue.Full:
+                continue
+
+    def drain(self):
+        """Wait until every queued snapshot is written (a worker's error
+        raises here): a save callback that reads the simulation's config
+        then sees the config its snapshots were stepped under."""
+        q = self._q
+        while True:
+            if self._err is not None:
+                raise RuntimeError("async save failed") from self._err
+            with q.all_tasks_done:
+                if not q.unfinished_tasks:
+                    return
+                q.all_tasks_done.wait(timeout=1.0)
+            if not self._t.is_alive() and q.unfinished_tasks:
+                raise RuntimeError("async saver thread died")
+
+    def close(self):
+        # after a worker exception the thread has exited without draining: a
+        # blocking put on the bounded queue would turn the failure into a
+        # hang.  A healthy but slow worker must instead be waited for:
+        # returning with snapshots still queued would drop the last outputs.
+        deadline = time.monotonic() + 1800.0
+        while (self._err is None and self._t.is_alive()
+               and time.monotonic() < deadline):
+            try:
+                self._q.put(None, timeout=60.0)
+                break
+            except queue.Full:
+                continue  # worker alive and draining: keep waiting
+        while self._t.is_alive() and time.monotonic() < deadline:
+            self._t.join(timeout=60.0)
+        if self._err is not None:
+            raise RuntimeError("async save failed") from self._err
+        if self._t.is_alive() or not self._q.empty():
+            raise RuntimeError(
+                "async saver did not drain within 30 min: "
+                "snapshots would be lost (stalled transfer?)"
+            )
+
+
 def run_simulation(
     sim: Simulation,
+    save_callback: Optional[Callable[[int, SimulationState], None]] = None,
     log_callback: Optional[Callable[[dict], None]] = None,
     max_intervals: Optional[int] = None,
+    auto_retune: bool = True,
+    start_counter: int = 1,
+    progress_callback: Optional[Callable] = None,
 ) -> Simulation:
     """Outer host loop over output intervals (reference SPHCellList.jl:881-929).
 
-    Raises when particles escaped the static grid during an interval (they
-    were clamped into edge cells: wrong physics), or, in a sharded run, when
-    a stencil window or a row migration reached past the halo (the clamped
-    window dropped pairs); re-gridding or re-sharding and replaying the
-    interval is a later slice of the port."""
+    ``save_callback(counter, state)`` fires once for the initial state (at
+    ``start_counter == 1`` only: a resumed run's snapshot for its counter
+    exists already) and once per output time; with ``meta.async_output`` it
+    runs on a worker thread.  When particles escaped the static grid during
+    an interval its results are invalid: with ``auto_retune`` the driver
+    grows the grid and **replays the interval from the pre-interval state**,
+    otherwise it raises.  A sharded simulation raises on a grid escape or a
+    halo overrun either way.  ``sim.cfg``, ``sim.state`` and
+    ``sim.interval_fn`` are updated in place; ``sim.hourglass`` holds the
+    wall time of the loop's sections."""
     meta = sim.meta
     state = sim.state
     sharded = isinstance(state, tuple)
-    counter = 1
-    intervals = 0
+    dtype = _replicated(state).total_time.dtype
+    counter = start_counter
+    saver = save_callback
+    save_wd = None
+    if save_callback is not None and meta.async_output:
+        if meta.device_call_timeout:
+            save_wd = DeviceWatchdog(meta.device_call_timeout,
+                                     hard=meta.watchdog_hard,
+                                     context="snapshot save")
+        saver = _AsyncSaver(save_callback, watchdog=save_wd)
+    if saver is not None and counter == 1:
+        # initial-state snapshot; on resume (start_counter > 1) the snapshot
+        # for this counter already exists in the reopened output files
+        saver(counter, state)
+
+    # stage-level wall accounting (reference's TimerOutputs taxonomy,
+    # SPHCellList.jl:883-918); retrieve via sim.hourglass.report()
+    hourglass = HourGlass()
+    sim.hourglass = hourglass
     t_wall0 = time.perf_counter()
-    while True:
-        t_out = meta.output_time_for(counter)
-        prev_iter = int(_replicated(state).iteration)
-        states = sim.interval_fn(state, t_out)
-        state = _replicated(states)
-        check_halo(sim.cfg, state)
-        esc = int(state.grid_escapes)
-        if esc > 0:
-            raise RuntimeError(
-                f"{esc} particle(s) escaped the static cell grid and were "
-                f"clamped into edge cells (wrong physics); raise "
-                f"grid_margin_cells"
-            )
-        counter += 1
-        intervals += 1
-        tt = float(state.total_time)
-        if log_callback is not None:
-            log_callback(dict(
-                counter=counter,
-                total_time=tt,
-                iteration=int(state.iteration),
-                steps_in_interval=int(state.iteration) - prev_iter,
-                dt=float(state.current_dt),
-                wall_time=time.perf_counter() - t_wall0,
-            ))
-        if tt > meta.simulation_time:
-            break
-        if max_intervals is not None and intervals >= max_intervals:
-            break
-        state = states
-    sim.state = states
+    if progress_callback is None:
+        progress_callback = _default_progress(meta, t_wall0)
+    intervals = 0
+    try:
+        while True:
+            # the output time in the state's dtype, as the JAX loop compares
+            t_out = torch.tensor(meta.output_time_for(counter), dtype=dtype).item()
+            prev_iter = int(_replicated(state).iteration)
+            prev_state = state
+            with hourglass.section("00 SimulationLoop"):
+                state = sim.interval_fn(state, t_out, progress_callback)
+
+            overflow = _overflow_reason(sim.cfg, state)
+            if overflow:
+                if not auto_retune or sharded:
+                    raise RuntimeError(overflow)
+                with hourglass.section("02b Retune neighbor windows"):
+                    if isinstance(saver, _AsyncSaver):
+                        saver.drain()  # snapshots queued on the old grid
+                    new_sim, state = _retune(sim, prev_state, state)
+                    sim.cfg = new_sim.cfg
+                    sim.state = new_sim.state
+                    sim.interval_fn = new_sim.interval_fn
+                continue  # replay the same interval on the grown grid
+
+            counter += 1
+            intervals += 1
+            lead = _replicated(state)
+            if saver is not None:
+                with hourglass.section("13 Save Particle Data"):
+                    saver(counter, state)
+            if log_callback is not None:
+                log_callback(dict(
+                    counter=counter,
+                    total_time=float(lead.total_time),
+                    iteration=int(lead.iteration),
+                    steps_in_interval=int(lead.iteration) - prev_iter,
+                    dt=float(lead.current_dt),
+                    wall_time=time.perf_counter() - t_wall0,
+                ))
+            if float(lead.total_time) > meta.simulation_time:
+                break
+            if max_intervals is not None and intervals >= max_intervals:
+                break
+    finally:
+        try:
+            if isinstance(saver, _AsyncSaver):
+                with hourglass.section("13 Save Particle Data"):
+                    saver.close()
+        finally:
+            # stop the watchdog even when close() raises - a still-armed
+            # hard watchdog would os._exit(86) over the real error
+            if save_wd is not None:
+                save_wd.stop()
+
+    sim.state = state
     return sim
 
 
@@ -248,15 +515,3 @@ def _replicated(state) -> SimulationState:
     """The state whose scalars speak for the run: rank 0's slab state of a
     sharded run (the scalars are replicated), else the state itself."""
     return state[0] if isinstance(state, tuple) else state
-
-
-def check_halo(cfg: StepConfig, state) -> None:
-    """The halo guard of a sharded run: a window that the clamp cut dropped
-    pairs without a sign, so an interval whose ``max_halo`` passed the halo
-    is not to be believed."""
-    state = _replicated(state)
-    if cfg.halo and int(state.max_halo) > cfg.halo:
-        raise RuntimeError(
-            f"stencil windows reached {int(state.max_halo)} sorted rows past "
-            f"a slab boundary, exceeding the halo capacity {cfg.halo}; "
-            f"re-shard with a larger halo")

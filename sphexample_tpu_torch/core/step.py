@@ -61,6 +61,7 @@ from ..ops.mdbc import mdbc_density_correction, mdbc_density_correction_sharded
 from ..ops.timestep import adaptive_dt
 from ..parallel.context import SINGLE, CommContext
 from ..state import SimulationState
+from ..utils.watchdog import DeviceWatchdog
 from .motion import MotionTable, progress_motion
 
 
@@ -303,15 +304,53 @@ def make_interval_fn(cfg: StepConfig):
     """The per-output-interval function: steps while ``total_time <= t_out``
     (reference SPHCellList.jl:742), with the displacement accumulator freshly
     set to 1 + h so the first step of every interval rebuilds (:739).  Reads
-    ``total_time`` on the host once per step."""
+    ``total_time`` on the host once per step.
 
-    def interval(state: SimulationState, t_out: float) -> SimulationState:
-        dx = _initial_dx_acc(cfg, state)
-        it_before = int(state.iteration)
-        while float(state.total_time) <= t_out:
-            state, dx = sph_step(cfg, state, dx)
-        _check_interval_progress(state, t_out, it_before)
-        return state
+    The steps go in chunks of at most ``meta.max_steps_per_call`` (the JAX
+    package's device programs, ``sphexample_tpu/core/step.py:464-513``); the
+    accumulator carries across chunks, so the trajectory is that of one
+    unchunked loop.  Between chunks the host checks progress
+    (:func:`_check_interval_progress`) and fires ``progress(state)`` after
+    every chunk but the last - the analog of the reference's in-interval
+    ProgressMeter spinner (SPHCellList.jl:870-907).  With
+    ``meta.device_call_timeout`` set, a watchdog is armed around every chunk
+    after this function's first (which may build and load the kernels) and
+    warns - or, with ``meta.watchdog_hard``, exits with code 86 so that a
+    supervisor can resume from the last checkpoint - when one blocks longer
+    (utils/watchdog.py).  In a sharded run every rank runs this loop on its
+    slab; rank 0's speaks for the run (progress and watchdog)."""
+    cap = cfg.meta.max_steps_per_call
+    wd_timeout = cfg.meta.device_call_timeout
+    lead = cfg.ctx.rank() == 0
+    warm = [False]
+
+    def interval(state: SimulationState, t_out: float, progress=None) -> SimulationState:
+        wd = None
+        if wd_timeout and lead:
+            wd = DeviceWatchdog(wd_timeout, hard=cfg.meta.watchdog_hard,
+                                context="device chunk")
+        try:
+            dx = _initial_dx_acc(cfg, state)
+            while True:
+                it_before = int(state.iteration)
+                if wd is not None and warm[0]:
+                    wd.arm(f"from iteration {it_before}")
+                k = 0
+                while float(state.total_time) <= t_out and (cap is None or k < cap):
+                    state, dx = sph_step(cfg, state, dx)
+                    k += 1
+                done = float(state.total_time) > t_out
+                if wd is not None:
+                    wd.disarm()
+                warm[0] = True
+                _check_interval_progress(state, t_out, it_before)
+                if done:
+                    return state
+                if progress is not None and lead:
+                    progress(state)
+        finally:
+            if wd is not None:
+                wd.stop()
 
     return interval
 

@@ -186,7 +186,7 @@ class SimulationState:
     position_half: torch.Tensor   # [N, D]
     # Active particles whose unclamped cell coords fell outside the static
     # grid at any rebuild (they are clamped into edge cells: wrong physics);
-    # run_simulation raises when it is nonzero.
+    # run_simulation re-grids and replays the interval when it is nonzero.
     grid_escapes: torch.Tensor    # scalar int32
     # Sharded runs: the furthest sorted-row reach of any stencil window (and
     # of the rebuild's row migration) past its slab's boundaries, the maximum
@@ -283,11 +283,16 @@ def state_from_numpy(leaves: Dict[str, np.ndarray], device, devices=None):
     return state if devices is None else split_state(state, devices)
 
 
+def state_tensors(state: SimulationState) -> Dict[str, torch.Tensor]:
+    """Every tensor of a single-device state by the flat names of
+    :func:`state_from_numpy` (``"particles.position"``, ``"cell_start"``,
+    ...), without a copy."""
+    out = {f"particles.{f}": getattr(state.particles, f) for f in _PARTICLE_FIELDS}
+    out.update({k: getattr(state, k) for k in _STATE_TENSORS})
+    return out
+
+
 def state_to_numpy(state) -> Dict[str, np.ndarray]:
     """The inverse of :func:`state_from_numpy`: a flat dict of numpy leaves
     (of the gathered global state when given a tuple of slab states)."""
-    state = gather_state(state)
-    out = {f"particles.{f}": getattr(state.particles, f).cpu().numpy()
-           for f in _PARTICLE_FIELDS}
-    out.update({k: getattr(state, k).cpu().numpy() for k in _STATE_TENSORS})
-    return out
+    return {k: v.cpu().numpy() for k, v in state_tensors(gather_state(state)).items()}

@@ -15,7 +15,9 @@ parked.  The sharded path: the three kernels on the halo-extended windows of
 3 slabs (cells straddling the slab edges, the whole-array window) against
 their plain versions and against the single-device kernels, the window
 entries' input checks, and 4-slab runs as thread ranks on the cards visible.
-A CUDA kernel has no CPU mode, so
+The host loop: a grid escape re-gridded and replayed on the card, a card
+state's checkpoint round trip, and ``check_determinism`` for the block sweep,
+the cell sweep and the mDBC kernel.  A CUDA kernel has no CPU mode, so
 these tests are marked ``gpu`` and skip without a card.  They import no JAX,
 so they also run where JAX is absent:
 
@@ -1268,3 +1270,100 @@ def test_walk_windows_of_both_kernels(cuda, dims, case):
                 continue
             for o in outs:
                 assert torch.equal(getattr(o, name), mine[r * C:(r + 1) * C]), (name, r)
+
+
+# --- the host loop on the card: re-grid and replay, checkpoints, determinism ------
+
+def _escape_on(device):
+    """tests/test_aux.py:477-541 on ``device`` in f32: a random 2D blob, one
+    particle launched at 30 m/s through the grid's 2-cell margin."""
+    rng = np.random.default_rng(7)
+    const = T.SimulationConstants(dx=0.02, c0=40.0, cfl=0.3)
+    kern = T.make_kernel(T.KernelFamily.WENDLAND_C2, 2, dx=const.dx)
+    pos = rng.uniform(0, 0.3, size=(200, 2))
+    meta = T.SimulationMetaData(simulation_name="esc", save_location=".", dims=2,
+                                simulation_time=0.02, output_times=0.01, block_size=64,
+                                grid_margin_cells=2)
+    sim = T.assemble_simulation(pos, np.full(200, const.rho0), np.ones(200, np.int32),
+                                np.ones(200, np.int32), np.arange(1, 201), meta, const,
+                                kern, T.ViscosityModel.ARTIFICIAL,
+                                T.DensityDiffusionModel.ZERO, device=device)
+    p = sim.state.particles
+    vel = torch.zeros_like(p.velocity)
+    vel[0, 0] = 30.0
+    pos2 = p.position.clone()
+    pos2[0] = torch.tensor([0.45, 0.15], dtype=pos2.dtype)
+    sim.state = sim.state.replace(particles=p.replace(velocity=vel, position=pos2))
+    return sim
+
+
+def test_regrid_replay_on_the_card(cuda, monkeypatch):
+    """An escape re-grids and replays on the card: the grid grows, the replay
+    runs clean, 2 block-sweep launches per step taken (the failed attempt
+    included), and the kernel agrees with its plain version on the end state
+    over the grown grid."""
+    from sphexample_tpu_torch.core import step
+
+    sim = _escape_on(cuda)
+    grid0 = sim.cfg.grid
+    calls = []
+    real = step.sph_step
+
+    def counted(cfg, state, dx):
+        calls.append(1)
+        return real(cfg, state, dx)
+
+    monkeypatch.setattr(step, "sph_step", counted)
+    before = bs.launches
+    T.run_simulation(sim, max_intervals=1)
+    torch.cuda.synchronize()
+    assert sim.cfg.grid.ncells > grid0.ncells and int(sim.state.grid_escapes) == 0
+    assert sim.hourglass.counts["02b Retune neighbor windows"] >= 1
+    assert sim.state.particles.position.device.type == "cuda"
+    assert len(calls) > int(sim.state.iteration) > 0
+    assert bs.launches - before == 2 * len(calls)
+    p, cs = sim.state.particles, sim.state.cell_start
+    spec = sim.cfg.spec
+    out = bs.block_sweep(*_args(spec, sim.cfg.grid, p, cs))
+    p64 = _on(p, "cpu", torch.float64)
+    ref = bs.block_sweep_plain(*_args(spec, sim.cfg.grid, p64, cs.cpu()))
+    for a, b in ((out.drhodt, ref.drhodt), (out.acceleration, ref.acceleration)):
+        a = a.double().cpu()
+        assert torch.isfinite(a).all()
+        assert float((a - b).abs().max()) <= REL_TOL * float(b.abs().max())
+
+
+def test_checkpoint_round_trip_of_a_card_state(cuda, tmp_path):
+    from sphexample_tpu_torch.io.checkpoint import (load_checkpoint, resume_simulation,
+                                                    save_checkpoint)
+
+    sim = _tall_column(cuda, mdbc_on=True)
+    state = make_fixed_steps_fn(sim.cfg, 6)(sim.state)
+    path = str(tmp_path / "ck.npz")
+    save_checkpoint(path, state, 2, grid=sim.cfg.grid)
+    back, counter = load_checkpoint(path, _tall_column(cuda, mdbc_on=True).state)
+    assert counter == 2 and back.rebuilds == state.rebuilds
+    for f in dataclasses.fields(state.particles):
+        a, b = getattr(back.particles, f.name), getattr(state.particles, f.name)
+        assert a.device.type == "cuda" and torch.equal(a, b), f.name
+    for name in ("cell_start", "total_time", "current_dt", "iteration", "position_half"):
+        assert getattr(back, name).device.type == "cuda"
+        assert torch.equal(getattr(back, name), getattr(state, name)), name
+    resumed, counter = resume_simulation(_tall_column(cuda, mdbc_on=True), path)
+    assert resumed.state.particles.position.device.type == "cuda"
+    on_cpu, _ = load_checkpoint(path, _tall_column("cpu", mdbc_on=True).state)
+    assert torch.equal(on_cpu.particles.density, state.particles.density.cpu())
+
+
+@pytest.mark.parametrize("mdbc_on,block", [(False, True), (False, False), (True, True)])
+def test_determinism_of_the_kernels(cuda, mdbc_on, block):
+    """``check_determinism`` holds on the card for the block sweep, the cell
+    sweep and the mDBC kernel: each output is written once, in one order."""
+    from sphexample_tpu_torch.utils.validation import check_determinism
+
+    sim = _tall_column(cuda, mdbc_on, block)
+    mod, other = (bs, cw) if block else (cw, bs)
+    s0, o0, m0 = mod.launches, other.launches, mm.launches
+    assert check_determinism(sim, n_steps=5)
+    assert mod.launches - s0 == 2 * 5 * 2 and other.launches == o0
+    assert mm.launches - m0 == (10 if mdbc_on else 0)

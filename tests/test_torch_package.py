@@ -70,6 +70,33 @@ def test_imports_with_jax_blocked():
     assert r.stdout.strip().endswith("ok")
 
 
+def test_the_run_and_its_checkpoints_import_without_h5py():
+    """The card may have no h5py: the package, the driver and the
+    checkpoints import with it (and JAX) blocked; only the VTKHDF modules
+    need it."""
+    code = (
+        "import sys\n"
+        f"for m in {FORBIDDEN + ('h5py',)!r}: sys.modules[m] = None\n"
+        "import sphexample_tpu_torch, sphexample_tpu_torch.core.driver\n"
+        "import sphexample_tpu_torch.io.checkpoint, sphexample_tpu_torch.utils.validation\n"
+        "import sphexample_tpu_torch.utils.logger, sphexample_tpu_torch.utils.timers\n"
+        "try:\n"
+        "    import sphexample_tpu_torch.io.output\n"
+        "except ImportError:\n"
+        "    print('ok')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "ok"
+    importers = sorted(
+        p.relative_to(PKG).as_posix() for p in PKG.rglob("*.py")
+        if any(isinstance(n, ast.Import) and any(a.name == "h5py" for a in n.names)
+               for n in ast.walk(ast.parse(p.read_text()))))
+    assert importers == ["io/vtkhdf.py"]
+
+
 def test_sharded_modules_are_among_the_checked():
     """The modules of the sharded path are part of what the two tests above
     walk: they import with JAX blocked and import nothing of the JAX package."""

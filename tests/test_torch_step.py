@@ -248,10 +248,16 @@ def test_run_simulation_raises_on_grid_escape():
     sim = T.assemble_simulation(pos + OFF, dens, ptype, grp, idp, meta, const, kern,
                                 T.ViscosityModel.ARTIFICIAL,
                                 T.DensityDiffusionModel.LINEAR, device="cpu")
+    grid0 = sim.cfg.grid
     p = sim.state.particles
     p.position[np.argmax(ptype == 1), 2] += 5.0  # one fluid particle far above
+    start = sim.state
     with pytest.raises(RuntimeError, match="escaped"):
-        T.run_simulation(sim, max_intervals=1)
+        T.run_simulation(sim, max_intervals=1, auto_retune=False)
+    # by default the driver grows the grid and replays the interval
+    T.run_simulation(sim, max_intervals=1)
+    assert sim.cfg.grid.ncells > grid0.ncells and int(sim.state.grid_escapes) == 0
+    assert sim.state is not start and float(sim.state.total_time) > 0.001
 
 
 N_STEPS = 50  # test_trajectory.py:34
