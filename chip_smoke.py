@@ -189,6 +189,45 @@ Phases, each printing one JSON line (any failure exits non-zero):
               of the same counters, 3 grid-cells steps (the initial snapshot
               has no cell list yet).
 
+18. the deck CLIs a user runs (``python -m sphexample_tpu_torch.examples.<deck>``,
+              called in this process with their log sent to a file), the
+              sharded retune and the neighbor list, under a temporary
+              directory removed at the end; every record holds the wall
+              seconds, the steps taken, ms per step by the wall and by the
+              interval loop, and the card's name and power limit:
+              examples_main - dam_break_3d at its default dx 0.0085 (159,712
+              particles), 3 intervals, a checkpoint per counter: checkpoints
+              for counters 1-4 (the initial snapshot's included), the h5py
+              line printed where h5py does not import (and no VTKHDF), the
+              ParaView state file, exactly 2 block-sweep launches per step,
+              the end state bit for bit that of run_simulation_main;
+              neighbor_list - ops/neighbor_list.py's list sweep (plain
+              PyTorch) against the block-sweep kernel on that end state below
+              1e-4 of each field's max, build and sweep ms;
+              examples_resume - ``--resume`` from counter 3 for one interval:
+              the straight run's end digest;
+              examples_shard - ``--shard 4``, one interval: 2 windowed
+              block-sweep launches per step per slab, none single-device, the
+              end state within the trajectory bands of the single-device CLI
+              run's counter-2 checkpoint;
+              examples_mdbc - dam_break_2d_mdbc on CSVs written from this
+              script's 2D three-layer mDBC dam break (the deck's dx and
+              constants): 1 mDBC call (+ 4 grouping kernels) and 2 block-sweep
+              launches per step, mDBC fired;
+              profile - ``--profile DIR`` over 2 intervals: a Chrome trace
+              that names the block-sweep kernel;
+              sharded_regrid - phase 17's escaping blob on 4 slabs through
+              ``run_simulation``: re-gridded, re-sharded over the same mesh and
+              replayed, the pre-interval slabs' SHA-256 unchanged, no escapes
+              left, 2 windowed launches per rank step, the end state within
+              the trajectory bands of the single-device regrid run (whether
+              bit for bit is printed), B2 against its plain version on the
+              grown grid (sharded_parity_after_regrid, every slab);
+              sharded_halo_retune - the main deck on 4 slabs with the halo cut
+              to 128 rows: the first interval overruns it, the driver
+              re-shards with at least ``halo_floor`` (the JAX driver's
+              ``min_halo``) and the replayed interval completes.
+
 Then the card's name and power limit from nvidia-smi on a line of their own,
 and last ``{"ok": true, "device": {...}}``.
 
@@ -292,8 +331,8 @@ def fail(msg):
 
 
 def reset_counts():
-    """Every single-device launch count to 0 (before a path is driven)."""
-    bs.launches = cw.launches = 0
+    """Every launch count to 0 (before a path is driven)."""
+    bs.launches = cw.launches = bs.window_launches = cw.window_launches = 0
     mm.launches = mm.group_launches = 0
 
 
@@ -1807,6 +1846,7 @@ def regrid(tmp):
     if launches != {"block": 2 * calls[0], "cell": 0}:
         fail(f"regrid: launches {launches} in {calls[0]} steps")
     compare(sim, p, state.cell_start, "parity_after_regrid")
+    return end_summary(state), rec
 
 
 def run_simulation_mdbc(tmp):
@@ -1901,15 +1941,403 @@ def output_phase(tmp, main_sim):
 
 def host_loop_phases(run):
     """Phases 17: the host loop on the main and mDBC decks, under a temporary
-    directory removed at the end."""
+    directory removed at the end.  Returns the main run's record and the
+    re-gridded run's end state (what phase 18 holds its runs against)."""
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
     try:
         main_sim, main_rec = run_simulation_main(tmp, run)
         checkpoint_resume(tmp, main_rec)
-        regrid(tmp)
+        regrid_end, regrid_rec = regrid(tmp)
         run_simulation_mdbc(tmp)
         determinism()
         output_phase(tmp, main_sim)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return main_rec, regrid_end, regrid_rec
+
+
+# --- 18: the deck CLIs a user runs, the sharded retune, the neighbor list ----------
+
+CLI_INTERVALS = 3        # examples_main: output intervals of the 3D dam break deck
+HALO_CUT = 128           # sharded_halo_retune: the halo the main deck's slabs get
+
+
+def cli(deck, argv, tmp, name, card):
+    """``python -m sphexample_tpu_torch.examples.<deck> argv`` in this process,
+    its standard output (the run's log) into ``tmp/name.log``, its standard
+    error kept; every checkpoint it writes is also copied to
+    ``tmp/name_ckpt/<counter>.npz``.  Launch counts start from 0.  Returns
+    (simulation, record, the checkpoints' directory): wall seconds, the steps
+    taken (per slab), ms per step by the wall and by the interval loop, the
+    checkpoints' counters, the card, what it said on stderr."""
+    import contextlib
+    import importlib
+    import io
+
+    from sphexample_tpu_torch.io import checkpoint as ck
+
+    kept = tmp / f"{name}_ckpt"
+    kept.mkdir(exist_ok=True)
+    counters = []
+    real = ck.save_checkpoint
+
+    def save_checkpoint(path, state, counter, grid=None):
+        real(path, state, counter, grid=grid)
+        shutil.copy(path, kept / f"{counter}.npz")
+        counters.append(counter)
+
+    mod = importlib.import_module(f"sphexample_tpu_torch.examples.{deck}")
+    err = io.StringIO()
+    ck.save_checkpoint = save_checkpoint
+    calls, restore = counted_steps()
+    reset_counts()
+    try:
+        with open(tmp / f"{name}.log", "w") as out, contextlib.redirect_stdout(out), \
+                contextlib.redirect_stderr(err):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sim = mod.main(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        ck.save_checkpoint = real
+        restore()
+    slabs = len(sim.state) if isinstance(sim.state, tuple) else 1
+    lead = sim.state[0] if slabs > 1 else sim.state
+    hg = sim.hourglass
+    steps = calls[0] // slabs
+    rec = {"phase": name, "deck": deck, "argv": argv, "n": sim.n_live, "card": card,
+           "wall_s": wall, "steps": steps, "wall_ms_per_step": 1e3 * wall / steps,
+           "loop_ms_per_step": 1e3 * hg.totals["00 SimulationLoop"] / steps,
+           "iteration": int(lead.iteration), "sim_time_s": float(lead.total_time),
+           "retunes": hg.counts.get("02b Retune neighbor windows", 0),
+           "checkpoint_counters": counters, "stderr": err.getvalue()[-2000:],
+           "launches": {"block": bs.launches, "cell": cw.launches,
+                        "block_window": bs.window_launches, "cell_window": cw.window_launches,
+                        "mdbc": mm.launches, "grouping": mm.group_launches}}
+    return sim, rec, kept
+
+
+def examples_main(tmp, main_rec, card):
+    """The 3D dam break deck as a user runs it, at its default dx (159,712
+    particles), CLI_INTERVALS intervals with a checkpoint per counter: the
+    end state bit for bit that of run_simulation_main (the same deck, meta
+    and intervals through run_simulation)."""
+    from sphexample_tpu_torch.examples._runner import NO_H5PY
+
+    h5 = h5py_version()
+    save = tmp / "cli_main"
+    sim, rec, kept = cli(
+        "dam_break_3d", ["--max-intervals", str(CLI_INTERVALS), "--checkpoint-every", "1",
+                         "--save", str(save)], tmp, "examples_main", card)
+    state, steps = sim.state, rec["steps"]
+    rec.update(
+        h5py=h5, h5py_notice=NO_H5PY in rec["stderr"],
+        paraview_state_file=(save / "DamBreak3D_SingleVTKHDFStateFile.py").is_file(),
+        vtkhdf_files=sorted(f.name for f in save.glob("*.vtkhdf")),
+        end_digest=end_digest(state),
+        end_digest_run_simulation_main=main_rec["end_digest"])
+    rec["end_state_vs_run_simulation_main_bitwise"] = (
+        rec["end_digest"] == main_rec["end_digest"])
+    emit(rec)
+    if sim.n_live != main_rec["n"]:
+        fail(f"examples_main: {sim.n_live} particles, not run_simulation_main's "
+             f"{main_rec['n']}")
+    if rec["checkpoint_counters"] != list(range(1, CLI_INTERVALS + 2)):
+        fail(f"examples_main: checkpoints for counters {rec['checkpoint_counters']}")
+    if rec["h5py_notice"] != (h5 is None) or (h5 is None) == bool(rec["vtkhdf_files"]):
+        fail(f"examples_main: h5py {h5}, notice printed {rec['h5py_notice']}, "
+             f"files {rec['vtkhdf_files']}")
+    if rec["launches"] != {"block": 2 * steps, "cell": 0, "block_window": 0,
+                           "cell_window": 0, "mdbc": 0, "grouping": 0}:
+        fail(f"examples_main: launches {rec['launches']} in {steps} steps")
+    if not rec["paraview_state_file"]:
+        fail("examples_main: no ParaView state file")
+    if not rec["end_state_vs_run_simulation_main_bitwise"]:
+        fail("examples_main: the CLI run ends off run_simulation_main")
+    return sim, rec, kept
+
+
+def examples_resume(tmp, main_rec, kept, card):
+    """``--resume`` from the examples_main checkpoint of counter 3, one
+    interval: the straight run's end state."""
+    save = tmp / "cli_main"
+    sim, rec, _ = cli(
+        "dam_break_3d", ["--resume", str(kept / "3.npz"), "--max-intervals", "1",
+                         "--save", str(save)], tmp, "examples_resume", card)
+    rec["end_digest"] = end_digest(sim.state)
+    rec["end_state_vs_straight_run_bitwise"] = rec["end_digest"] == main_rec["end_digest"]
+    emit(rec)
+    if not rec["end_state_vs_straight_run_bitwise"]:
+        fail("examples_resume: the resumed CLI run ends off the straight run")
+    if rec["iteration"] != main_rec["iteration"] or rec["launches"]["block"] != 2 * rec["steps"]:
+        fail("examples_resume: a different number of steps, or not 2 launches a step")
+
+
+def examples_shard(tmp, main_kept, card):
+    """``--shard 4``, one interval: 2 windowed block-sweep launches per step
+    per slab and no single-device launch; the end state within the
+    trajectory bands of the single-device CLI run's state at counter 2."""
+    sim, rec, _ = cli(
+        "dam_break_3d", ["--shard", str(N_SLABS), "--max-intervals", "1",
+                         "--save", str(tmp / "cli_shard")], tmp, "examples_shard", card)
+    steps = rec["steps"]
+    state = gather_state(sim.state, "cuda:0")
+    ref, counter = load_checkpoint(str(main_kept / "2.npz"), state)
+    in_bands, diffs = in_trajectory_bands(end_summary(state), end_summary(ref))
+    rec.update(slabs=len(sim.state), halo=sim.cfg.halo, sweep_kernel=sim.cfg.sweep_kernel,
+               vs_single_device_cli_in_bands=in_bands, vs_single_device_cli_max_abs=diffs,
+               vs_single_device_cli_bitwise=all(v == 0.0 for v in diffs.values()),
+               max_halo=int(state.max_halo))
+    emit(rec)
+    want = {"block": 0, "cell": 0, "block_window": 2 * steps * N_SLABS, "cell_window": 0,
+            "mdbc": 0, "grouping": 0}
+    if rec["launches"] != want or counter != 2:
+        fail(f"examples_shard: launches {rec['launches']} in {steps} steps on {N_SLABS} "
+             "slabs")
+    if not (in_bands and (rec["halo"] == 0 or 0 < rec["max_halo"] <= rec["halo"])):
+        fail(f"examples_shard: off the single-device CLI run: {diffs}")
+
+
+def examples_mdbc(tmp, card):
+    """The 2D mDBC dam-break deck (dam_break_2d_mdbc, its file layout) on
+    CSVs written from this script's own 2D three-layer mDBC dam break (the
+    deck's dx and constants): one interval, exactly one mDBC call (and its
+    grouping kernels) and two block-sweep launches per step."""
+    (pos, dens, _, _, idp), ghost, normals, _, _, _ = mdbc_dam_break(case_2d())
+    nb = len(ghost)
+    root = tmp / "input" / "dam_break_2d"
+    root.mkdir(parents=True)
+    base = root / "DamBreak2d_Dp0.02_MDBC"
+
+    def xz(a):
+        return np.stack([a[:, 0], np.zeros(len(a)), a[:, 1]], axis=-1)
+
+    def write(path, header, rows):
+        with open(path, "w") as fh:
+            fh.write(header + "\n")
+            for row in rows:
+                fh.write(",".join(repr(float(v)) for v in row) + "\n")
+
+    cols = "Points:0,Points:1,Points:2,Idp,Rhop"
+    parts = np.concatenate([xz(pos), (idp - 1)[:, None], dens[:, None]], axis=1)
+    write(f"{base}_Bound_ThreeLayers.csv", cols, parts[:nb])
+    write(f"{base}_Fluid_ThreeLayers.csv", cols, parts[nb:])
+    write(f"{base}_GhostNodes_ThreeLayers.csv",
+          "Normal:0,Normal:1,Normal:2,Points:0,Points:1,Points:2",
+          np.concatenate([xz(normals), xz(pos[:nb])], axis=1))
+    sim, rec, _ = cli(
+        "dam_break_2d_mdbc", ["--input", str(tmp / "input"), "--max-intervals", "1",
+                              "--save", str(tmp / "cli_mdbc")], tmp, "examples_mdbc", card)
+    state, steps = sim.state, rec["steps"]
+    p = state.particles
+    rho_b = p.density[(p.ptype == int(T.ParticleType.FIXED)) & p.active]
+    rec.update(ghosts=sim.cfg.boundary_capacity,
+               finite=bool(torch.isfinite(p.density).all() and torch.isfinite(p.position).all()),
+               boundary_rows_off_rho0=int((rho_b != 1000.0).sum()),
+               grid_escapes=int(state.grid_escapes))
+    emit(rec)
+    want = {"block": 2 * steps, "cell": 0, "block_window": 0, "cell_window": 0,
+            "mdbc": steps, "grouping": len(GROUP_KERNELS) * steps}
+    if rec["launches"] != want:
+        fail(f"examples_mdbc: launches {rec['launches']} in {steps} steps")
+    if sim.cfg.boundary_capacity != nb or not rec["finite"] or not rec["boundary_rows_off_rho0"]:
+        fail("examples_mdbc: the deck did not load its ghosts, or mDBC did not fire")
+
+
+def examples_profile(tmp, card):
+    """``--profile DIR`` over two intervals: a Chrome trace of the second
+    that names the block-sweep kernel."""
+    prof = tmp / "profile"
+    _, rec, _ = cli(
+        "dam_break_3d", ["--max-intervals", "2", "--profile", str(prof),
+                         "--save", str(tmp / "cli_profile")], tmp, "profile", card)
+    trace = prof / "trace.json"
+    text = trace.read_text() if trace.is_file() else ""
+    events = json.loads(text)["traceEvents"] if text else []
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    rec.update(trace_bytes=len(text), names_block_sweep_kernel="block_sweep_kernel" in text,
+               kernel_events=len(kernels),
+               block_sweep_kernel_events=sum("block_sweep_kernel" in e.get("name", "")
+                                             for e in kernels))
+    del rec["stderr"]
+    emit(rec)
+    if not rec["names_block_sweep_kernel"]:
+        fail("profile: the trace does not name the block-sweep kernel")
+
+
+def slab_digests(states):
+    return [full_digest(s) for s in states]
+
+
+def counted_steps():
+    """Count ``sph_step`` calls (every rank's) until the returned function
+    restores it; returns (calls list, restore)."""
+    from sphexample_tpu_torch.core import step as step_mod
+
+    calls = [0]
+    real = step_mod.sph_step
+
+    def counted(cfg, state, dx):
+        calls[0] += 1
+        return real(cfg, state, dx)
+
+    step_mod.sph_step = counted
+    return calls, lambda: setattr(step_mod, "sph_step", real)
+
+
+def sharded_regrid(tmp, regrid_end, card):
+    """Phase 17's escaping blob on 4 slabs through ``run_simulation``: the
+    failed interval re-gridded, re-sharded over the same mesh and replayed;
+    the pre-interval slabs untouched; B2 against its plain version on the
+    grown grid; the end state against the single-device regrid run's."""
+    sim = assemble(host_case(tmp, "sregrid"))
+    blob = escaping_blob(sim)
+    sim_sh = shard_simulation(sim, make_mesh(N_SLABS))
+    del sim
+    first, grid0, halo0, mesh0 = sim_sh.state, sim_sh.cfg.grid, sim_sh.cfg.halo, sim_sh.mesh
+    digests0 = slab_digests(first)
+    calls, restore = counted_steps()
+    reset_counts()
+    try:
+        wall = timed_run(sim_sh, max_intervals=1)
+    finally:
+        restore()
+    launches = {"block": bs.launches, "block_window": bs.window_launches,
+                "cell": cw.launches + cw.window_launches}
+    state = gather_state(sim_sh.state, "cuda:0")
+    hg = sim_sh.hourglass
+    end = end_summary(state)
+    in_bands, diffs = in_trajectory_bands(end, regrid_end)
+    rec = {"phase": "sharded_regrid", **blob, "slabs": N_SLABS, "card": card,
+           "grid_shape_before": list(grid0.shape), "grid_shape_after": list(sim_sh.cfg.grid.shape),
+           "halo_before": halo0, "halo_after": sim_sh.cfg.halo, "same_mesh": sim_sh.mesh == mesh0,
+           "replays": hg.counts.get("02b Retune neighbor windows", 0),
+           "retune_s": hg.totals.get("02b Retune neighbor windows", 0.0), "wall_s": wall,
+           "rank_steps_taken": calls[0], "steps_kept": int(state.iteration),
+           "wall_ms_per_step_kept": 1e3 * wall / max(int(state.iteration), 1),
+           "launches": launches, "grid_escapes": int(state.grid_escapes),
+           "max_halo": int(state.max_halo),
+           "pre_interval_slabs_unchanged": slab_digests(first) == digests0,
+           "vs_single_device_regrid_in_bands": in_bands,
+           "vs_single_device_regrid_max_abs": diffs,
+           "vs_single_device_regrid_bitwise": all(v == 0.0 for v in diffs.values()),
+           "end_digest": end_digest(state)}
+    emit(rec)
+    if not (rec["replays"] >= 1 and sim_sh.cfg.grid.ncells > grid0.ncells
+            and isinstance(sim_sh.state, tuple) and rec["same_mesh"]):
+        fail("sharded_regrid: the failed interval was not re-gridded and re-sharded")
+    if not rec["pre_interval_slabs_unchanged"]:
+        fail("sharded_regrid: the failed interval wrote into the pre-interval slabs")
+    if rec["grid_escapes"] or not (sim_sh.cfg.halo == 0
+                                   or 0 < rec["max_halo"] <= sim_sh.cfg.halo):
+        fail("sharded_regrid: escapes or a halo overrun left after the replay")
+    if launches != {"block": 0, "block_window": 2 * calls[0], "cell": 0}:
+        fail(f"sharded_regrid: launches {launches} in {calls[0]} rank steps")
+    if not in_bands:
+        fail(f"sharded_regrid: off the single-device regrid run: {diffs}")
+    simg = unsharded(sim_sh)
+    compare_window(sim_sh, simg, state.particles, state.cell_start,
+                   "sharded_parity_after_regrid", bs)
+
+
+def sharded_halo_retune(tmp, card):
+    """The main deck on 4 slabs with the halo cut to HALO_CUT rows: the first
+    interval overruns it, the driver re-shards with at least the JAX
+    package's floor (``halo_floor``) and replays; the interval completes."""
+    from sphexample_tpu_torch.parallel.mesh import halo_floor, make_sharded_interval_fn
+
+    sim_sh = shard_simulation(assemble(host_case(tmp, "shalo")), make_mesh(N_SLABS))
+    halo_full = sim_sh.cfg.halo
+    cut = dataclasses.replace(sim_sh.cfg, halo=HALO_CUT)
+    sim_sh.interval_fn, sim_sh.cfg = make_sharded_interval_fn(cut, sim_sh.mesh)
+    inner, needs = sim_sh.interval_fn, []
+
+    def spy(states, t_out, progress=None):
+        states = inner(states, t_out, progress)
+        needs.append(int(states[0].max_halo))
+        return states
+
+    sim_sh.interval_fn = spy
+    calls, restore = counted_steps()
+    reset_counts()
+    try:
+        wall = timed_run(sim_sh, max_intervals=1)
+    finally:
+        restore()
+    state = gather_state(sim_sh.state, "cuda:0")
+    C = state.particles.capacity // N_SLABS
+    floor = halo_floor(needs[0], HALO_CUT) if needs else None
+    rec = {"phase": "sharded_halo_retune", "slabs": N_SLABS, "card": card,
+           "halo_assembled": halo_full, "halo_cut": HALO_CUT, "failed_max_halo": needs[:1],
+           "jax_floor": floor, "slab_rows": C, "halo_after": sim_sh.cfg.halo,
+           "replays": sim_sh.hourglass.counts.get("02b Retune neighbor windows", 0),
+           "wall_s": wall, "rank_steps_taken": calls[0], "steps_kept": int(state.iteration),
+           "max_halo": int(state.max_halo), "window_launches": bs.window_launches,
+           "finite": bool(torch.isfinite(state.particles.position).all())}
+    emit(rec)
+    want = floor if floor is not None and -(-floor // 128) * 128 <= C else 0
+    if not (rec["replays"] == 1 and needs and needs[0] > HALO_CUT):
+        fail("sharded_halo_retune: the cut halo did not overrun and retune once")
+    if not (sim_sh.cfg.halo >= want and (want or sim_sh.cfg.halo == 0)):
+        fail(f"sharded_halo_retune: halo {sim_sh.cfg.halo} below the floor {floor}")
+    if not (state.iteration > 0 and rec["max_halo"] <= sim_sh.cfg.halo and rec["finite"]):
+        fail("sharded_halo_retune: the replayed interval did not complete")
+    if bs.window_launches != 2 * calls[0]:
+        fail(f"sharded_halo_retune: {bs.window_launches} window launches in {calls[0]} "
+             "rank steps")
+
+
+def neighbor_list_phase(sim, card):
+    """ops/neighbor_list.py (plain PyTorch: the JAX module reaches no Pallas
+    kernel) on the main deck's CLI end state: the list sweep against the
+    block-sweep kernel below 1e-4 of each field's max; build and sweep ms."""
+    from sphexample_tpu_torch.ops.neighbor_list import build_neighbor_list, pair_sweep_list
+
+    spec, grid = sim.cfg.spec, sim.cfg.grid
+    state = sim.state
+    p, cs = state.particles, state.cell_start
+    starts, ends = cl.row_segments(p.cell, grid, cs)
+    cseg = int((ends - starts).max())
+    K0 = int(starts.shape[1]) * cseg
+    block = 2048
+    nbr, count = build_neighbor_list(spec.kernel, grid, cseg, K0, block, p, cs)
+    K = int(count)
+    nbr = nbr[:, :K].contiguous()
+    args = (p, p.position, p.density, p.pressure, p.velocity)
+    out = pair_sweep_list(spec, grid, nbr, block, *args)
+    k = bs.block_sweep(spec, grid, p, cs, *args[1:])
+    torch.cuda.synchronize()
+    d = sweep_diff(k, out, "neighbor_list")
+    rec = {"phase": "neighbor_list", "n": sim.n_live, "card": card, "cseg": cseg,
+           "max_count": K, "list_entries": int((nbr < p.capacity).sum()),
+           **d, "max_rel": max(v for key, v in d.items() if key.endswith("_rel")),
+           "build_ms": time_cuda(lambda: build_neighbor_list(spec.kernel, grid, cseg, K,
+                                                             block, p, cs), 3),
+           "list_sweep_ms": time_cuda(lambda: pair_sweep_list(spec, grid, nbr, block,
+                                                              *args), 3),
+           "block_sweep_ms": time_cuda(lambda: bs.block_sweep(spec, grid, p, cs, *args[1:]),
+                                       20)}
+    emit(rec)
+    if rec["max_rel"] >= REL_TOL:
+        fail("neighbor_list: the list sweep and the block-sweep kernel disagree")
+
+
+def cli_phases(main_rec, regrid_end, card):
+    """Phases 18, under a temporary directory removed at the end."""
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_cli_"))
+    try:
+        sim, rec, kept = examples_main(tmp, main_rec, card)
+        neighbor_list_phase(sim, card)
+        del sim
+        examples_resume(tmp, rec, kept, card)
+        examples_shard(tmp, kept, card)
+        examples_mdbc(tmp, card)
+        examples_profile(tmp, card)
+        torch.cuda.empty_cache()
+        sharded_regrid(tmp, regrid_end, card)
+        torch.cuda.empty_cache()
+        sharded_halo_retune(tmp, card)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -2377,7 +2805,9 @@ def main(argv):
 
     # 17 - the host loop a user runs: run_simulation with its saver,
     # checkpoints and resume, re-grid and replay, VTKHDF
-    host_loop_phases(run)
+    main_rec, regrid_end, _ = host_loop_phases(run)
+    # 18 - the deck CLIs, the sharded retune, the neighbor list
+    cli_phases(main_rec, regrid_end, smi)
 
     emit({"phase": "elapsed", "seconds": time.perf_counter() - t_start})
     # 15 - the kernel line

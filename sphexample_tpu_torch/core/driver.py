@@ -14,8 +14,9 @@ The port's kernels have no capacity windows, so grid escapes and, sharded,
 the halo are the only overflows to guard, and capacity never grows on a
 replay.  A simulation sharded by ``parallel.mesh.shard_simulation`` carries
 the tuple of its slab states; ``run_simulation`` steps it through the same
-loop, reads the replicated scalars from rank 0's state and raises on a grid
-escape or a halo overrun (re-sharding is not ported yet);
+loop and reads the replicated scalars from rank 0's state.  On a grid escape
+or a halo overrun it gathers the pre-interval slabs, re-grids, re-shards
+with a grown halo over the same mesh and replays (:func:`_reshard`);
 :func:`gather_state` gives the one global state.
 """
 
@@ -46,7 +47,7 @@ from ..models import equations as eq
 from ..ops import cell_list as cl
 from ..ops.block_sweep import BLOCK_CAP_LIMIT
 from ..ops.interactions import PhysicsSpec
-from ..state import SimulationState, allocate_particles, gather_state  # noqa: F401
+from ..state import SimulationState, allocate_particles, gather_state
 from ..utils.timers import HourGlass
 from ..utils.watchdog import DeviceWatchdog
 from .motion import build_motion_table
@@ -258,15 +259,19 @@ def _regrow_grid(cfg: StepConfig, failed_state, margin_cells: int) -> cl.Grid:
 
 
 def _retune(sim: Simulation, prev_state, failed_state):
-    """Grow the static grid to cover the failed interval's escapees and
-    return (sim, pre-interval state) for the replay (the single-device grid
-    part of JAX ``_retune``).  Capacity and the sweep kernel stay as
-    assembled: the port's kernels have no candidate windows to grow."""
+    """Grow the static grid to cover the failed interval's escapees (and,
+    sharded, the halo) and return (sim, pre-interval state) for the replay
+    (JAX ``_retune`` without its candidate windows).  Capacity and, on one
+    device, the sweep kernel stay as assembled: the port's kernels have no
+    candidate windows to grow."""
     cfg = sim.cfg
-    esc = int(failed_state.grid_escapes)
+    esc = int(_replicated(failed_state).grid_escapes)
     new_grid = cfg.grid
     if esc > 0:
-        new_grid = _regrow_grid(cfg, failed_state, sim.meta.grid_margin_cells)
+        new_grid = _regrow_grid(cfg, gather_state(failed_state),
+                                sim.meta.grid_margin_cells)
+    if cfg.ctx.is_sharded:
+        return _reshard(sim, prev_state, failed_state, new_grid)
     if new_grid == cfg.grid:
         raise RuntimeError(
             "grid retune made no progress; raise grid_margin_cells manually")
@@ -286,6 +291,44 @@ def _retune(sim: Simulation, prev_state, failed_state):
     new_sim = Simulation(cfg=dataclasses.replace(cfg, grid=new_grid),
                          state=prev_state, meta=sim.meta, n_live=sim.n_live)
     return new_sim, prev_state
+
+
+def _reshard(sim: Simulation, prev_state, failed_state, new_grid):
+    """The sharded retune (JAX ``_retune``'s sharded branch,
+    ``sphexample_tpu/core/driver.py:355-405``, without its candidate
+    windows): gather the pre-interval slabs into one state, put it on
+    ``new_grid``, and cut it again over the same mesh with the halo floored
+    at ``halo_floor(max_halo, halo)`` rows.  A floor above a slab gives the
+    whole-array window (``size_halo``), which cannot overflow, so the
+    replays end.  Returns (sharded sim, its slab states)."""
+    from ..parallel.context import SINGLE
+    from ..parallel.mesh import halo_floor, shard_simulation
+
+    cfg = sim.cfg
+    failed = _replicated(failed_state)
+    esc, halo_need = int(failed.grid_escapes), int(failed.max_halo)
+    min_halo = halo_floor(halo_need, cfg.halo)
+    state = gather_state(prev_state)
+    if new_grid != cfg.grid:
+        dev = state.cell_start.device
+        state = state.replace(
+            cell_start=torch.zeros((new_grid.ncells + 2,), dtype=torch.int32, device=dev),
+            grid_escapes=torch.zeros((), dtype=torch.int32, device=dev))
+    base = Simulation(cfg=dataclasses.replace(cfg, ctx=SINGLE, halo=0, grid=new_grid),
+                      state=state, meta=sim.meta, n_live=sim.n_live)
+    print(
+        f"[sphexample_tpu_torch] sharded neighbor windows outgrown (halo "
+        f"{halo_need}/{cfg.halo}, grid escapes {esc}); retuning halo >= "
+        f"{min_halo}, grid {cfg.grid.shape}->{new_grid.shape}, re-sharding "
+        f"over {sim.mesh.size} devices and replaying the interval",
+        file=sys.stderr,
+    )
+    new_sim = shard_simulation(base, sim.mesh, min_halo=min_halo)
+    if new_grid == cfg.grid and new_sim.cfg.halo == cfg.halo:
+        raise RuntimeError(
+            "sharded retune made no progress (neither the grid nor the halo "
+            "changed); raise grid_margin_cells or shard over fewer devices")
+    return new_sim, new_sim.state
 
 
 def _default_progress(meta: SimulationMetaData, t_wall0: float):
@@ -423,15 +466,14 @@ def run_simulation(
     ``start_counter == 1`` only: a resumed run's snapshot for its counter
     exists already) and once per output time; with ``meta.async_output`` it
     runs on a worker thread.  When particles escaped the static grid during
-    an interval its results are invalid: with ``auto_retune`` the driver
-    grows the grid and **replays the interval from the pre-interval state**,
-    otherwise it raises.  A sharded simulation raises on a grid escape or a
-    halo overrun either way.  ``sim.cfg``, ``sim.state`` and
-    ``sim.interval_fn`` are updated in place; ``sim.hourglass`` holds the
-    wall time of the loop's sections."""
+    an interval, or (sharded) a stencil window reached past the halo, its
+    results are invalid: with ``auto_retune`` the driver grows the grid (and
+    re-shards with a grown halo) and **replays the interval from the
+    pre-interval state**, otherwise it raises.  ``sim.cfg``, ``sim.state``,
+    ``sim.interval_fn`` and ``sim.mesh`` are updated in place;
+    ``sim.hourglass`` holds the wall time of the loop's sections."""
     meta = sim.meta
     state = sim.state
-    sharded = isinstance(state, tuple)
     dtype = _replicated(state).total_time.dtype
     counter = start_counter
     saver = save_callback
@@ -466,16 +508,17 @@ def run_simulation(
 
             overflow = _overflow_reason(sim.cfg, state)
             if overflow:
-                if not auto_retune or sharded:
+                if not auto_retune:
                     raise RuntimeError(overflow)
                 with hourglass.section("02b Retune neighbor windows"):
                     if isinstance(saver, _AsyncSaver):
-                        saver.drain()  # snapshots queued on the old grid
+                        saver.drain()  # snapshots queued on the old grid and mesh
                     new_sim, state = _retune(sim, prev_state, state)
                     sim.cfg = new_sim.cfg
                     sim.state = new_sim.state
                     sim.interval_fn = new_sim.interval_fn
-                continue  # replay the same interval on the grown grid
+                    sim.mesh = new_sim.mesh
+                continue  # replay the same interval on the grown grid / halo
 
             counter += 1
             intervals += 1

@@ -107,25 +107,15 @@ def pair_sweep(
     so the density-diffusion role compares extended indices.
     """
     kern = spec.kernel
-    c = spec.constants
     n, dims = particles.capacity, position.shape[1]
-    dev = position.device
     ml = particles.motion_limiter if motion_limiter is None else motion_limiter
-    want_kernel = spec.kernel_output is KernelOutputMode.STORE
-    want_shift = spec.shifting is ShiftingMode.PLANAR
 
     starts, ends = row_segments(particles.cell, grid, cell_start)     # [N, S]
     keys = linearize(particles.cell, grid).long()
     s_cell = cell_start[keys]
     e_cell = cell_start[keys + 1]
 
-    zeros = lambda *shape: torch.zeros(shape, dtype=position.dtype, device=dev)  # noqa: E731
-    outs = {"drhodt": zeros(n), "acc": zeros(n, dims)}
-    if want_kernel:
-        outs.update(kernel_w=zeros(n), kernel_grad=zeros(n, dims))
-    if want_shift:
-        outs.update(grad_c=zeros(n, dims), div_r=zeros(n))
-
+    outs = _zero_outs(spec, n, dims, position)
     for b0 in range(0, n, block_size):
         b1 = min(b0 + block_size, n)
         r, j = candidates(starts, ends, b0, b1)      # self row, candidate
@@ -136,51 +126,27 @@ def pair_sweep(
         # stencil rows are always active: padding is parked past every row)
         keep = (d2 <= kern.H2) & (j != i) & particles.active[r]
         r, i, j, xij, d2 = r[keep], i[keep], j[keep], xij[keep], d2[keep]
-
-        rho_i, rho_j = density[i], density[j]
-        p_i, p_j = pressure[i], pressure[j]
-        ml_i, ml_j = ml[i], ml[j]
-
-        d = torch.sqrt(d2)
-        q = torch.clamp(d * kern.h_inv, 0.0, 2.0)
-        grad_w = K.grad_W(kern, q, xij)                             # [P, D]
-        vij = velocity[i] - velocity[j]
-
-        # continuity (reference SPHCellList.jl:289-291)
-        sym = _dot(-vij, grad_w)
-        drho = -rho_i * (c.m0 / rho_j) * sym
-
-        # density diffusion (reference :293-296), cell-centric role order:
-        # intra-cell pairs give the i role to the lower sorted index,
-        # cross-cell pairs to the particle in the later cell (= higher index)
+        # density-diffusion role order: intra-cell pairs give the i role to
+        # the lower sorted index, cross-cell pairs to the particle in the
+        # later cell (= higher index)
         same_cell = (j >= s_cell[r]) & (j < e_cell[r])
-        i_is_role_i = torch.where(same_cell, i < j, i > j)
-        drho = drho + dd.compute_density_diffusion(
-            spec.diffusion, kern, c, xij, grad_w, d2,
-            rho_i, rho_j, ml_i, ml_j, i_is_role_i,
-        )
+        add_pairs(spec, outs, r, i, j, xij, d2, density, pressure, velocity, ml,
+                  same_cell)
+    return _sweep_out(outs)
 
-        # momentum (reference :299-303) + tensile correction + viscosity
-        pfac = (p_i + p_j) / (rho_i * rho_j)
-        f_ab = K.tensile_correction(kern, p_i, rho_i, p_j, rho_j, q, c.dx)
-        dvdt = (-c.m0 * (pfac + f_ab))[..., None] * grad_w
-        dvdt = dvdt + visc.compute_viscosity(
-            spec.viscosity, kern, c, xij, vij, grad_w, d2, rho_i, rho_j
-        )
 
-        outs["drhodt"].index_add_(0, r, drho)
-        outs["acc"].index_add_(0, r, dvdt)
-        if want_kernel:
-            # KernelOutput! (reference SPHCellList.jl:106-116)
-            outs["kernel_w"].index_add_(0, r, K.W(kern, q))
-            outs["kernel_grad"].index_add_(0, r, grad_w)
-        if want_shift:
-            # add_shifting_terms! (reference SPHCellList.jl:73-88): grad_C
-            # uses the self density, div_r the neighbor's
-            outs["grad_c"].index_add_(0, r, (c.m0 / rho_i)[:, None] * grad_w)
-            outs["div_r"].index_add_(
-                0, r, (c.m0 / rho_j) * _dot(-xij, grad_w) * (ml_i * ml_j))
+def _zero_outs(spec: PhysicsSpec, n: int, dims: int, like) -> dict:
+    """The zeroed accumulators of a sweep over ``n`` selves."""
+    zeros = lambda *shape: torch.zeros(shape, dtype=like.dtype, device=like.device)  # noqa: E731
+    outs = {"drhodt": zeros(n), "acc": zeros(n, dims)}
+    if spec.kernel_output is KernelOutputMode.STORE:
+        outs.update(kernel_w=zeros(n), kernel_grad=zeros(n, dims))
+    if spec.shifting is ShiftingMode.PLANAR:
+        outs.update(grad_c=zeros(n, dims), div_r=zeros(n))
+    return outs
 
+
+def _sweep_out(outs: dict) -> SweepOut:
     return SweepOut(
         drhodt=outs["drhodt"],
         acceleration=outs["acc"],
@@ -189,4 +155,54 @@ def pair_sweep(
         grad_c=outs.get("grad_c"),
         div_r=outs.get("div_r"),
     )
+
+
+def add_pairs(spec: PhysicsSpec, outs: dict, r, i, j, xij, d2, density, pressure,
+              velocity, ml, same_cell):
+    """Sum the terms of the pairs (i, j) - fields indexed by ``i`` and ``j``,
+    ``xij = x_i - x_j`` and ``d2 = |xij|^2`` within the support - into the
+    self rows ``r`` of the accumulators ``outs``.  ``same_cell``: whether j
+    lies in i's cell (the density-diffusion role order)."""
+    kern = spec.kernel
+    c = spec.constants
+    rho_i, rho_j = density[i], density[j]
+    p_i, p_j = pressure[i], pressure[j]
+    ml_i, ml_j = ml[i], ml[j]
+
+    d = torch.sqrt(d2)
+    q = torch.clamp(d * kern.h_inv, 0.0, 2.0)
+    grad_w = K.grad_W(kern, q, xij)                             # [P, D]
+    vij = velocity[i] - velocity[j]
+
+    # continuity (reference SPHCellList.jl:289-291)
+    sym = _dot(-vij, grad_w)
+    drho = -rho_i * (c.m0 / rho_j) * sym
+
+    # density diffusion (reference :293-296), cell-centric role order
+    i_is_role_i = torch.where(same_cell, i < j, i > j)
+    drho = drho + dd.compute_density_diffusion(
+        spec.diffusion, kern, c, xij, grad_w, d2,
+        rho_i, rho_j, ml_i, ml_j, i_is_role_i,
+    )
+
+    # momentum (reference :299-303) + tensile correction + viscosity
+    pfac = (p_i + p_j) / (rho_i * rho_j)
+    f_ab = K.tensile_correction(kern, p_i, rho_i, p_j, rho_j, q, c.dx)
+    dvdt = (-c.m0 * (pfac + f_ab))[..., None] * grad_w
+    dvdt = dvdt + visc.compute_viscosity(
+        spec.viscosity, kern, c, xij, vij, grad_w, d2, rho_i, rho_j
+    )
+
+    outs["drhodt"].index_add_(0, r, drho)
+    outs["acc"].index_add_(0, r, dvdt)
+    if "kernel_w" in outs:
+        # KernelOutput! (reference SPHCellList.jl:106-116)
+        outs["kernel_w"].index_add_(0, r, K.W(kern, q))
+        outs["kernel_grad"].index_add_(0, r, grad_w)
+    if "grad_c" in outs:
+        # add_shifting_terms! (reference SPHCellList.jl:73-88): grad_C
+        # uses the self density, div_r the neighbor's
+        outs["grad_c"].index_add_(0, r, (c.m0 / rho_i)[:, None] * grad_w)
+        outs["div_r"].index_add_(
+            0, r, (c.m0 / rho_j) * _dot(-xij, grad_w) * (ml_i * ml_j))
 

@@ -95,6 +95,14 @@ def _r128(v) -> int:
     return -(-int(v) // 128) * 128
 
 
+def halo_floor(need: int, halo: int) -> int:
+    """The floor a sharded retune puts under the next halo when windows
+    reached ``need`` rows past a slab with a halo of ``halo`` rows (the JAX
+    driver's ``min_halo``, ``sphexample_tpu/core/driver.py:373``): twice the
+    need, at least the old halo, rounded up to 128 rows, plus 128."""
+    return _r128(max(need * 2, halo)) + 128
+
+
 def size_halo(need: int, C: int, min_halo: int = 0) -> int:
     """The halo of a slab of ``C`` rows whose windows reach ``need`` rows
     (the rule of ``sphexample_tpu/parallel/mesh.py:220-245``): twice the

@@ -224,6 +224,29 @@ def test_sharded_resume_is_refused(tmp_path):
         resume_simulation(sharded, str(tmp_path / "a.npz"))
 
 
+def test_sharded_resume_in_the_cli_order_matches_the_continuous_run(tmp_path):
+    """tests/test_sharded.py:494-536 for the port: a sharded run saved at an
+    interval boundary, resumed into a fresh single-device assembly and then
+    sharded (the CLI's ``--resume`` + ``--shard`` order), ends where the
+    uninterrupted sharded run ends."""
+    from sphexample_tpu_torch.parallel.mesh import make_mesh, shard_simulation
+
+    mesh = make_mesh(4, "cpu")
+    ref = T.run_simulation(shard_simulation(_tiny(T), mesh), max_intervals=2)
+    first = T.run_simulation(shard_simulation(_tiny(T), mesh), max_intervals=1)
+    path = str(tmp_path / "ck.npz")
+    save_checkpoint(path, first.state, 2, grid=first.cfg.grid)
+    sim, counter = resume_simulation(_tiny(T), path)
+    assert counter == 2
+    sim = T.run_simulation(shard_simulation(sim, mesh), max_intervals=1,
+                           start_counter=counter)
+    a, b = T.state_to_numpy(ref.state), T.state_to_numpy(sim.state)
+    assert int(a["iteration"]) == int(b["iteration"]) > 0
+    assert float(a["total_time"]) == float(b["total_time"])
+    for k in ("position", "velocity", "density", "pressure"):
+        np.testing.assert_array_equal(b[f"particles.{k}"], a[f"particles.{k}"], err_msg=k)
+
+
 def test_jax_resume_of_a_port_file_continues(tmp_path):
     """A port checkpoint resumed by the JAX package and run on agrees with
     the port's own continuation within tests/test_trajectory.py:64-70."""

@@ -2,8 +2,10 @@
 replay on a grid escape (the setup of tests/test_aux.py:477-541: 200
 particles in f64, one launched at 30 m/s through the grid's 2-cell margin),
 ``run_simulation``'s callbacks and sections, the chunked interval, the
-asynchronous saver, the watchdog, ``profile_stages`` and the sharded loop's
-refusal of an escape."""
+asynchronous saver, the watchdog, ``profile_stages``, and on 4 slabs the
+sharded retune (a constructed escape re-gridded, re-sharded and replayed,
+against the JAX package's sharded retune on 4 virtual devices) and, with
+``auto_retune=False``, the refusal of an escape."""
 
 import dataclasses
 import hashlib
@@ -396,6 +398,89 @@ def test_sharded_run_raises_on_an_escape_with_the_jax_message():
     want = jd._overflow_reason(sim_j.cfg, failed_j)
     sharded = shard_simulation(_port_escape(), make_mesh(4, "cpu"))
     with pytest.raises(RuntimeError) as e:
-        T.run_simulation(sharded, max_intervals=1)
+        T.run_simulation(sharded, max_intervals=1, auto_retune=False)
     assert str(e.value) == want
     assert isinstance(sharded.state, tuple)
+
+
+# --- the sharded retune: re-grid, re-shard and replay on 4 slabs -------------------
+
+def _tall_escape(M):
+    """The tall column of tests/test_torch_sharded_step.py (f64; the JAX
+    package on its all-gather XLA path) with its highest fluid particle moved
+    1.5 cells below the grid's top edge and launched at 30 m/s in +z: it
+    leaves the grid within the first output interval."""
+    from test_torch_sharded_step import _tall
+
+    sim = _tall(J, use_pallas=False) if M is J else _tall(T, device="cpu")
+    p, g = sim.state.particles, sim.cfg.grid
+    pos = np.asarray(p.position).copy()
+    vel = np.zeros_like(pos)
+    i = int(np.argmax(np.where(np.asarray(p.ptype) == 1, pos[:, 1], -np.inf)))
+    pos[i, 1] = (g.cmin[1] + g.shape[1] - 1.5) * sim.cfg.spec.kernel.H
+    vel[i, 1] = 30.0
+    conv = jnp.asarray if M is J else torch.as_tensor
+    sim.state = sim.state.replace(particles=p.replace(position=conv(pos),
+                                                      velocity=conv(vel)))
+    return sim
+
+
+@pytest.fixture(scope="module")
+def sharded_escape():
+    """The escape on 4 slabs through both packages' ``run_simulation`` (JAX
+    on 4 virtual devices), the port with a save callback that records the
+    grid of each snapshot, and the port's pre-interval slabs' digests."""
+    from sphexample_tpu.parallel.mesh import make_mesh as j_mesh
+    from sphexample_tpu.parallel.mesh import shard_simulation as j_shard
+
+    sim_j = J.run_simulation(j_shard(_tall_escape(J), j_mesh(4)), max_intervals=1)
+    sim_t = shard_simulation(_tall_escape(T), make_mesh(4, "cpu"))
+    start, grid0, halo0, mesh0 = sim_t.state, sim_t.cfg.grid, sim_t.cfg.halo, sim_t.mesh
+    before = [_digest(s) for s in start]
+    saved = []
+    T.run_simulation(sim_t, max_intervals=1, save_callback=lambda c, s: saved.append(
+        (c, sim_t.cfg.grid, len(s))))
+    return sim_j, sim_t, start, before, (grid0, halo0, mesh0), saved
+
+
+def test_sharded_escape_regrids_reshards_and_matches_jax(sharded_escape):
+    sim_j, sim_t, _, _, (grid0, halo0, mesh0), _ = sharded_escape
+    grid = sim_t.cfg.grid
+    assert (grid.cmin, grid.shape) == (sim_j.cfg.grid.cmin, sim_j.cfg.grid.shape)
+    assert grid.ncells > grid0.ncells
+    assert sim_t.cfg.ctx.is_sharded and isinstance(sim_t.state, tuple)
+    assert len(sim_t.state) == 4 and sim_t.mesh == mesh0
+    # the halo floor of JAX's sharded retune: at least the old halo + 128
+    assert sim_t.cfg.halo >= halo0 + 128 and halo0 > 0
+    assert sim_t.hourglass.counts["02b Retune neighbor windows"] == \
+        sim_j.hourglass.counts["02b Retune neighbor windows"] == 1
+    end = td.gather_state(sim_t.state)
+    assert int(end.grid_escapes) == 0 and 0 < int(end.max_halo) <= sim_t.cfg.halo
+    assert int(end.iteration) == int(sim_j.state.iteration)
+    assert float(end.total_time) == pytest.approx(float(sim_j.state.total_time), rel=1e-12)
+    ft, fj = _end(end), _end(sim_j.state)
+    scale = float(np.abs(fj["position"]).max())
+    np.testing.assert_allclose(ft["position"], fj["position"], rtol=1e-9, atol=1e-9 * scale)
+    np.testing.assert_allclose(ft["velocity"], fj["velocity"], rtol=1e-7, atol=1e-8)
+    np.testing.assert_allclose(ft["density"], fj["density"], rtol=1e-9, atol=1e-6)
+
+
+def test_sharded_retune_leaves_the_pre_interval_slabs(sharded_escape):
+    """The failed interval and the re-shard write into no slab of the
+    pre-interval state; each snapshot is saved with the grid it was stepped
+    on (the saver is drained before the re-grid)."""
+    _, sim_t, start, before, (grid0, _, _), saved = sharded_escape
+    assert [_digest(s) for s in start] == before
+    assert saved == [(1, grid0, 4), (2, sim_t.cfg.grid, 4)]
+
+
+def test_sharded_escape_ends_where_the_single_device_retune_ends(sharded_escape):
+    _, sim_t, _, _, _, _ = sharded_escape
+    single = _tall_escape(T)
+    T.run_simulation(single, max_intervals=1)
+    assert single.cfg.grid == sim_t.cfg.grid
+    end = td.gather_state(sim_t.state)
+    assert int(end.iteration) == int(single.state.iteration)
+    a, b = _end(single.state), _end(end)
+    for f in a:
+        np.testing.assert_allclose(b[f], a[f], rtol=1e-9, atol=1e-12, err_msg=f)

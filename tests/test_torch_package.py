@@ -111,6 +111,33 @@ def test_sharded_modules_are_among_the_checked():
     assert mdbc_moments.launches == 0
 
 
+DECKS = ("dam_break_3d", "moving_square_2d", "still_wedge_mdbc",
+         "still_wedge_middle_square_mdbc", "dam_break_2d_mdbc", "duckling_mdbc")
+
+
+def test_the_deck_clis_import_without_jax_or_h5py():
+    """The deck CLIs, their runner, the ParaView state file and the neighbor
+    list are among the modules the tests above walk, and they import with
+    JAX and ``h5py`` blocked (the runner imports the VTKHDF writers only
+    when it runs)."""
+    new = (["sphexample_tpu_torch.examples", "sphexample_tpu_torch.examples._runner",
+            "sphexample_tpu_torch.io.paraview", "sphexample_tpu_torch.ops.neighbor_list"]
+           + [f"sphexample_tpu_torch.examples.{d}" for d in DECKS])
+    assert set(new) <= set(_modules())
+    code = (
+        "import sys\n"
+        f"for m in {FORBIDDEN + ('h5py',)!r}: sys.modules[m] = None\n"
+        "import importlib\n"
+        f"for m in {new!r}: importlib.import_module(m)\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "ok"
+
+
 def _tiny():
     meta = T.SimulationMetaData("tiny", ".", dims=2, dtype="float64")
     const = T.SimulationConstants()

@@ -14,7 +14,9 @@ with CPU tensors - through ``shard_simulation`` and its interval function.
 * ``shard_simulation``'s halo, padded capacity and kernel choice against the
   JAX package's on the same deck;
 * every rank takes the same lazy-rebuild branch; the ``max_halo > halo``
-  guard of the driver; a JAX sharded state carried into the port and back.
+  guard of the driver (``auto_retune=False``) and its retune to the JAX
+  package's halo floor, the whole-array fallback and the no-progress guard;
+  a JAX sharded state carried into the port and back.
 """
 
 import dataclasses
@@ -293,7 +295,7 @@ def test_halo_guard_raises():
     small = dataclasses.replace(sharded.cfg, halo=8)
     sharded.interval_fn, sharded.cfg = make_sharded_interval_fn(small, sharded.mesh)
     with pytest.raises(RuntimeError, match="halo capacity 8"):
-        T.run_simulation(sharded, max_intervals=1)
+        T.run_simulation(sharded, max_intervals=1, auto_retune=False)
     # within the halo the same driver loop runs the intervals and logs them
     ok = shard_simulation(_port(), make_mesh(N, "cpu"))
     ok.meta = T.replace(ok.meta, output_times=0.001, simulation_time=0.0015)
@@ -301,6 +303,84 @@ def test_halo_guard_raises():
     T.run_simulation(ok, log_callback=logs.append)
     assert len(logs) == 2 and logs[-1]["total_time"] > 0.0015
     assert isinstance(ok.state, tuple) and int(ok.state[0].iteration) == logs[-1]["iteration"]
+
+
+def test_halo_floor_is_the_jax_expression():
+    """``parallel.mesh.halo_floor`` against the JAX sharded retune's own
+    ``min_halo`` line (sphexample_tpu/core/driver.py:373), evaluated on the
+    same inputs."""
+    import inspect
+
+    from sphexample_tpu.core import driver as jd
+    from sphexample_tpu_torch.parallel.mesh import halo_floor
+
+    line = next(ln.strip() for ln in inspect.getsource(jd._retune).splitlines()
+                if ln.strip().startswith("min_halo = "))
+    expr = compile(line.split("=", 1)[1].strip(), "driver.py", "eval")
+    for need in (0, 1, 50, 63, 64, 65, 127, 128, 1000, 15596):
+        for halo in (0, 8, 128, 256, 512, 31360):
+            cfg = dataclasses.make_dataclass("Cfg", ["halo"])(halo)
+            assert halo_floor(need, halo) == eval(expr, {"halo_need": need, "cfg": cfg}), \
+                (need, halo)
+
+
+def _cut_halo(sharded, halo):
+    small = dataclasses.replace(sharded.cfg, halo=halo)
+    sharded.interval_fn, sharded.cfg = make_sharded_interval_fn(small, sharded.mesh)
+    return sharded
+
+
+def test_halo_overrun_retunes_to_the_jax_floor_and_replays():
+    """A halo of 8 rows on the tall column: the interval overruns it, the
+    driver re-shards with a halo of at least ``halo_floor(max_halo, 8)`` and
+    replays the interval, which then ends where the single-device run ends."""
+    from sphexample_tpu_torch.parallel.mesh import halo_floor
+
+    sharded = _cut_halo(shard_simulation(_port(), make_mesh(N, "cpu")), 8)
+    first, needs = sharded.interval_fn, []
+
+    def spy(states, t_out, progress=None):
+        states = first(states, t_out, progress)
+        needs.append(int(states[0].max_halo))
+        return states
+
+    sharded.interval_fn = spy
+    T.run_simulation(sharded, max_intervals=1)
+    C = sharded.state[0].particles.capacity
+    assert len(needs) == 1 and needs[0] > 8
+    assert C >= sharded.cfg.halo >= halo_floor(needs[0], 8)
+    assert sharded.hourglass.counts["02b Retune neighbor windows"] == 1
+    end = gather_state(sharded.state)
+    assert 0 < int(end.max_halo) <= sharded.cfg.halo and int(end.grid_escapes) == 0
+    single = _port()
+    one = single.interval_fn(single.state, sharded.meta.output_time_for(1))
+    assert int(end.iteration) == int(one.iteration)
+    a, b = _fields(one, _tnp), _fields(end, _tnp)
+    for f in a:
+        np.testing.assert_allclose(b[f], a[f], rtol=1e-9, atol=1e-12, err_msg=f)
+
+
+def test_a_floor_above_a_slab_falls_back_to_the_whole_array():
+    """A retune whose floor exceeds a slab re-shards with ``halo = 0`` (the
+    whole gathered array, which cannot overflow), and the replay completes;
+    one that changes neither the grid nor the halo raises."""
+    from sphexample_tpu_torch.core import driver as td
+
+    sharded = shard_simulation(_port(), make_mesh(N, "cpu"))
+    C = sharded.state[0].particles.capacity
+    failed = tuple(s.replace(max_halo=torch.tensor(C, dtype=torch.int32))
+                   for s in sharded.state)
+    new, states = td._retune(sharded, sharded.state, failed)
+    assert sharded.cfg.halo > 0 and new.cfg.halo == 0 and new.mesh == sharded.mesh
+    out = new.interval_fn(states, T_OUT)
+    assert _overflow_reason(new.cfg, out) is None
+    single = _port()
+    a, b = _fields(single.interval_fn(single.state, T_OUT), _tnp), _fields(
+        gather_state(out), _tnp)
+    for f in a:
+        np.testing.assert_allclose(b[f], a[f], rtol=1e-9, atol=1e-12, err_msg=f)
+    with pytest.raises(RuntimeError, match="made no progress"):
+        td._retune(new, states, failed)
 
 
 def _leaves(state):
