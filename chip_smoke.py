@@ -228,6 +228,36 @@ Phases, each printing one JSON line (any failure exits non-zero):
               re-shards with at least ``halo_floor`` (the JAX driver's
               ``min_halo``) and the replayed interval completes.
 
+19. the main deck to its end time, under a temporary directory removed at
+              the end: native_csv - the main deck written as DualSPHysics CSVs
+              (boundary and fluid) and read back, the native reader
+              (io/native.py, built with g++ in phase 2: a failed build fails
+              there with the compiler's message) against the csv-module path
+              bit for bit, each timed, then ``build_simulation`` from the two
+              files: both served by the native reader, every tensor of the
+              state that of the arrays' assembly (examples_mdbc gates its 3
+              CSVs the same way);
+              end_time_main - ``python -m sphexample_tpu_torch.examples.
+              dam_break_3d`` with its defaults (159,712 particles, an output
+              every 0.01 s) from t = 0 to 1.6 s, one checkpoint at the last
+              counter, tools/analyze_dambreak.py's readings
+              (utils/validation.py:dam_break_readings) at each of the 161
+              outputs; gates from the JAX package's record
+              (PERFORMANCE.md:36-68): no NaN or non-finite value, 17,846-18,206
+              steps, the front at x >= 1.575 first at 0.50-0.70 s, peak |v|max
+              before it 2.5-3.1 m/s, |v|max < 2 m/s at the end, fluid density
+              in the JAX dam-break test's band (850, 1150) at every output
+              (the rows outside the record's [990, 1010] counted), exactly 2
+              block-sweep launches per step and no other sweep, fixed walls
+              bitwise still, grid escapes re-gridded and replayed (counted),
+              the checkpoint the end state; the X(T) series printed as the
+              tool prints it (every 10th output, the arrival, the last);
+              ``--series FILE`` writes every output's readings there as JSON;
+              front_speed_2d, hydrostatic_2d - tests/test_physics_validation.py's
+              2D cases through ``run_simulation`` on the card with their sizes
+              and gates (front ratio in (0.51, 0.71), printed beside the CPU's;
+              deep pressure within 15 % of rho g h), 2 launches per step.
+
 Then the card's name and power limit from nvidia-smi on a line of their own,
 and last ``{"ok": true, "device": {...}}``.
 
@@ -263,6 +293,7 @@ import torch
 import sphexample_tpu_torch as T
 from sphexample_tpu_torch.core.step import _sweep, make_fixed_steps_fn, sph_step
 from sphexample_tpu_torch.io.casegen import dam_break_2d, dam_break_3d
+from sphexample_tpu_torch.io import csv_io, native
 from sphexample_tpu_torch.io.checkpoint import (load_checkpoint, resume_simulation,
                                                 save_checkpoint)
 from sphexample_tpu_torch.models import equations as eq
@@ -278,7 +309,7 @@ from sphexample_tpu_torch.parallel.context import SINGLE
 from sphexample_tpu_torch.parallel.mesh import (make_mesh, make_sharded_fixed_steps_fn,
                                                 make_sharded_fn, shard_simulation)
 from sphexample_tpu_torch.state import gather_state, split_state, state_tensors
-from sphexample_tpu_torch.utils.validation import check_determinism
+from sphexample_tpu_torch.utils.validation import check_determinism, dam_break_readings
 
 REL_TOL = 1e-4           # kernel vs plain, relative to the field's max
 SLAB_TOL = 1e-6          # 4 slabs concatenated vs the single-device kernel
@@ -1962,18 +1993,21 @@ CLI_INTERVALS = 3        # examples_main: output intervals of the 3D dam break d
 HALO_CUT = 128           # sharded_halo_retune: the halo the main deck's slabs get
 
 
-def cli(deck, argv, tmp, name, card):
+def cli(deck, argv, tmp, name, card, on_save=None):
     """``python -m sphexample_tpu_torch.examples.<deck> argv`` in this process,
     its standard output (the run's log) into ``tmp/name.log``, its standard
     error kept; every checkpoint it writes is also copied to
-    ``tmp/name_ckpt/<counter>.npz``.  Launch counts start from 0.  Returns
-    (simulation, record, the checkpoints' directory): wall seconds, the steps
-    taken (per slab), ms per step by the wall and by the interval loop, the
-    checkpoints' counters, the card, what it said on stderr."""
+    ``tmp/name_ckpt/<counter>.npz``; ``on_save(counter, state)``, if given,
+    is called on every snapshot before the deck's own save callback.  Launch
+    counts start from 0.  Returns (simulation, record, the checkpoints'
+    directory): wall seconds, the steps taken (per slab), ms per step by the
+    wall and by the interval loop, the checkpoints' counters, the card, what
+    it said on stderr."""
     import contextlib
     import importlib
     import io
 
+    from sphexample_tpu_torch.core import driver
     from sphexample_tpu_torch.io import checkpoint as ck
 
     kept = tmp / f"{name}_ckpt"
@@ -1986,9 +2020,21 @@ def cli(deck, argv, tmp, name, card):
         shutil.copy(path, kept / f"{counter}.npz")
         counters.append(counter)
 
+    real_run = driver.run_simulation
+
+    def run_simulation(sim, save_callback=None, **kw):
+        def save(counter, state):
+            on_save(counter, state)
+            if save_callback is not None:
+                save_callback(counter, state)
+
+        return real_run(sim, save_callback=save, **kw)
+
     mod = importlib.import_module(f"sphexample_tpu_torch.examples.{deck}")
     err = io.StringIO()
     ck.save_checkpoint = save_checkpoint
+    if on_save is not None:
+        driver.run_simulation = run_simulation
     calls, restore = counted_steps()
     reset_counts()
     try:
@@ -2001,6 +2047,7 @@ def cli(deck, argv, tmp, name, card):
             wall = time.perf_counter() - t0
     finally:
         ck.save_checkpoint = real
+        driver.run_simulation = real_run
         restore()
     slabs = len(sim.state) if isinstance(sim.state, tuple) else 1
     lead = sim.state[0] if slabs > 1 else sim.state
@@ -2126,9 +2173,11 @@ def examples_mdbc(tmp, card):
     write(f"{base}_GhostNodes_ThreeLayers.csv",
           "Normal:0,Normal:1,Normal:2,Points:0,Points:1,Points:2",
           np.concatenate([xz(normals), xz(pos[:nb])], axis=1))
+    before = dict(native.calls)
     sim, rec, _ = cli(
         "dam_break_2d_mdbc", ["--input", str(tmp / "input"), "--max-intervals", "1",
                               "--save", str(tmp / "cli_mdbc")], tmp, "examples_mdbc", card)
+    rec["csv_readers"] = {k: native.calls[k] - before[k] for k in before}
     state, steps = sim.state, rec["steps"]
     p = state.particles
     rho_b = p.density[(p.ptype == int(T.ParticleType.FIXED)) & p.active]
@@ -2143,6 +2192,9 @@ def examples_mdbc(tmp, card):
         fail(f"examples_mdbc: launches {rec['launches']} in {steps} steps")
     if sim.cfg.boundary_capacity != nb or not rec["finite"] or not rec["boundary_rows_off_rho0"]:
         fail("examples_mdbc: the deck did not load its ghosts, or mDBC did not fire")
+    if rec["csv_readers"] != {"native": 3, "python": 0}:
+        fail(f"examples_mdbc: the native reader did not serve its 3 CSVs: "
+             f"{rec['csv_readers']}")
 
 
 def examples_profile(tmp, card):
@@ -2342,6 +2394,251 @@ def cli_phases(main_rec, regrid_end, card):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# --- 19: the main deck to its end time, the native CSV reader, the 2D physics -------
+
+# the JAX package's record of the full run (PERFORMANCE.md:36-68, read with
+# tools/analyze_dambreak.py): 18,026 steps to t = 1.6 s, the front at the far
+# wall (x = 1.6 - 3 dx) by t ~ 0.6 s, a peak surge speed of 2.8 m/s, fluid
+# density within [991.7, 1007.8], |v|max ~ 1.1 m/s at the end, no NaN
+END_OUTPUTS = 161        # the initial snapshot and one per 0.01 s to t = 1.6 s
+END_STEPS = (17846, 18206)       # 18,026 +- 1 %
+FAR_WALL_X = 1.575               # 1.6 - 3 dx
+ARRIVAL_S = (0.50, 0.70)         # the first output time with x_front >= FAR_WALL_X
+SURGE_MS = (2.5, 3.1)            # the largest |v|max before that output
+SETTLED_MS = 2.0                 # |v|max at t = 1.6 s stays below
+# The record's density band, +-1 %, is not the JAX package's own: on this
+# deck at its dx 0.0085 (to t = 0.03 s, compare_dam_break.py on the CPU) it
+# reads 1017.21 at t = 0.03 s, as the port does here, and at dx 0.04 (to
+# t = 1.6 s) the extremes the port reads, to 0.01 kg/m^3: both leave the
+# band at the column's first compression and at the wall impact.  The
+# gate on every output is the band of the JAX package's dam-break test
+# (tests/test_physics_validation.py:69-71); the particles outside the
+# record's band are counted and printed.
+RECORD_RHO = (990.0, 1010.0)
+END_RHO = (850.0, 1150.0)
+XT_EVERY = 10                    # rows of the printed X(T) table
+# tests/test_physics_validation.py's 2D front-speed case through either
+# package on the CPU (tests/test_torch_physics_validation.py)
+CPU_FRONT_RATIO = 0.6086415165946446
+
+
+def fixed_rows(state):
+    """The fixed particles' positions in ID order (a copy)."""
+    p = state.particles
+    order = torch.argsort(p.id)
+    keep = (p.id[order] > 0) & (p.ptype[order] == int(T.ParticleType.FIXED))
+    return p.position[order][keep].clone()
+
+
+def xt_table(readings):
+    """The X(T) series as tools/analyze_dambreak.py prints it."""
+    lines = [f"{'t [s]':>8} {'T=t√(2g/L)':>11} {'x_front':>9} {'X=x/L':>7} "
+             f"{'rho_min':>9} {'rho_max':>9} {'|v|_max':>8} {'NaN':>5}"]
+    for r in readings:
+        lines.append(f"{r['t']:8.4f} {r['T']:11.3f} {r['x_front']:9.4f} {r['X']:7.3f} "
+                     f"{r['rho_min']:9.2f} {r['rho_max']:9.2f} {r['vmax']:8.3f} "
+                     f"{r['nan']:5d}")
+    return lines
+
+
+def native_csv_phase(tmp, card):
+    """The main deck's particles written as DualSPHysics CSVs (boundary and
+    fluid, ``Idp`` from 0) and read back: the native reader against the
+    csv-module path bit for bit, each timed; then ``build_simulation`` from
+    the two files on the card: every tensor of its state that of the
+    arrays' assembly, and the native reader served both files."""
+    case = case_3d()
+    (pos, dens, ptype, _, idp), meta, const, kern = case
+    paths = []
+    for kind, name in ((T.ParticleType.FIXED, "Bound"), (T.ParticleType.FLUID, "Fluid")):
+        rows = ptype == int(kind)
+        path = tmp / f"DamBreak3d_Dp0.0085_{name}.csv"
+        with open(path, "w") as fh:
+            fh.write('"Idp","Points:0","Points:1","Points:2","Rhop"\n')
+            fh.writelines(f"{i},{x!r},{y!r},{z!r},{r!r}\n" for i, (x, y, z), r in zip(
+                (idp[rows] - 1).tolist(), pos[rows].tolist(), dens[rows].tolist()))
+        paths.append(str(path))
+    cols = ["Points:0", "Points:1", "Points:2", "Rhop", "Idp"]
+    t0 = time.perf_counter()
+    fast = [native.read_csv_columns(p, cols) for p in paths]
+    native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    slow = [csv_io.read_csv_columns_plain(p, cols) for p in paths]
+    plain_s = time.perf_counter() - t0
+    bitwise = all(a is not None and a.shape == b.shape
+                  and np.array_equal(a.view(np.int64), b.view(np.int64))
+                  for a, b in zip(fast, slow))
+    before = dict(native.calls)
+    geoms = [T.Geometry(paths[0], 1, T.ParticleType.FIXED),
+             T.Geometry(paths[1], 2, T.ParticleType.FLUID)]
+    sim = T.build_simulation(geoms, meta, const, kern, T.ViscosityModel.ARTIFICIAL,
+                             T.DensityDiffusionModel.LINEAR, device="cuda")
+    served = {k: native.calls[k] - before[k] for k in before}
+    same = full_digest(sim.state) == full_digest(assemble(case).state)
+    rec = {"phase": "native_csv", "card": card, "rows": [len(a) for a in slow],
+           "bytes": sum(os.path.getsize(p) for p in paths), "native_s": native_s,
+           "plain_s": plain_s, "native_vs_plain_bitwise": bitwise,
+           "build_simulation_readers": served,
+           "build_simulation_state_vs_arrays_bitwise": same}
+    emit(rec)
+    if not bitwise:
+        fail("native_csv: the native reader and the csv-module path disagree")
+    if served != {"native": 2, "python": 0} or not same:
+        fail(f"native_csv: build_simulation from the CSVs: readers {served}, "
+             f"state as the arrays' {same}")
+
+
+def end_time_main(tmp, card, series_path=None):
+    """``python -m sphexample_tpu_torch.examples.dam_break_3d`` as a user runs
+    it, from t = 0 to its end time 1.6 s (159,712 particles, an output every
+    0.01 s, one checkpoint, at the last counter), with the readings of
+    tools/analyze_dambreak.py reduced on the card at every output; held to
+    the JAX package's record of the same run (the bands above)."""
+    readings, walls = [], {}
+
+    def on_save(counter, state):
+        if counter == 1:
+            walls["start"] = fixed_rows(state)
+        p = state.particles
+        rho = p.density[p.active & (p.ptype == int(T.ParticleType.FLUID))]
+        outside = int(((rho < RECORD_RHO[0]) | (rho > RECORD_RHO[1])).sum())
+        readings.append({"counter": counter, **dam_break_readings(state),
+                         "outside_record_rho": outside})
+
+    sim, rec, kept = cli(
+        "dam_break_3d", ["--checkpoint-every", str(END_OUTPUTS), "--save",
+                         str(tmp / "end_time")], tmp, "end_time_main", card, on_save=on_save)
+    state = sim.state
+    readings.sort(key=lambda r: r["counter"])
+    kept_steps = rec["iteration"]
+    arrival = next((r for r in readings if r["x_front"] >= FAR_WALL_X), None)
+    before = [r["vmax"] for r in readings if arrival is None or r["t"] < arrival["t"]]
+    last = readings[-1]
+    ckpt = kept / f"{END_OUTPUTS}.npz"
+    ckpt_digest = end_digest(load_checkpoint(str(ckpt), state)[0]) if ckpt.is_file() else None
+    walls_still = bool(torch.equal(fixed_rows(state), walls["start"]))
+    rec.update(
+        outputs=len(readings), counters=[readings[0]["counter"], last["counter"]],
+        steps_to_end=kept_steps, step_calls=rec["steps"],
+        replays=rec["retunes"], grid_escapes_regridded=rec["retunes"],
+        particle_steps_per_s=sim.n_live * kept_steps / rec["wall_s"],
+        wall_ms_per_kept_step=1e3 * rec["wall_s"] / kept_steps,
+        dt=float(state.current_dt),
+        arrival_t=arrival["t"] if arrival else None, far_wall_x=FAR_WALL_X,
+        peak_vmax_before_arrival=max(before),
+        vmax_end=last["vmax"], x_front_end=last["x_front"],
+        fluid_rho_min=min(r["rho_min"] for r in readings),
+        fluid_rho_max=max(r["rho_max"] for r in readings),
+        fluid_rows=int((state.particles.ptype == int(T.ParticleType.FLUID)).sum()),
+        outputs_outside_record_rho=sum(r["outside_record_rho"] > 0 for r in readings),
+        most_rows_outside_record_rho=max(r["outside_record_rho"] for r in readings),
+        nan=sum(r["nan"] for r in readings), nonfinite=sum(r["nonfinite"] for r in readings),
+        walls_still=walls_still, end_digest=end_digest(state),
+        checkpoint_end_digest=ckpt_digest,
+        grid_escapes_left=int(state.grid_escapes))
+    del rec["stderr"]
+    emit(rec)
+    shown = readings[::XT_EVERY] + [r for r in (arrival, last) if r is not None]
+    shown = sorted({r["counter"]: r for r in shown}.values(), key=lambda r: r["counter"])
+    print("\n".join(xt_table(shown)), flush=True)
+    if series_path:
+        Path(series_path).parent.mkdir(parents=True, exist_ok=True)
+        Path(series_path).write_text(json.dumps({"card": card, "readings": readings}))
+    if rec["nan"] or rec["nonfinite"]:
+        fail(f"end_time_main: {rec['nan']} NaNs, {rec['nonfinite']} non-finite values")
+    if not (END_RHO[0] < rec["fluid_rho_min"] and rec["fluid_rho_max"] < END_RHO[1]):
+        fail(f"end_time_main: fluid density left {END_RHO}")
+    if not END_STEPS[0] <= kept_steps <= END_STEPS[1] or last["t"] < sim.meta.simulation_time:
+        fail(f"end_time_main: {kept_steps} steps to t = {last['t']}")
+    if arrival is None or not ARRIVAL_S[0] <= arrival["t"] <= ARRIVAL_S[1]:
+        fail(f"end_time_main: the front reached x = {FAR_WALL_X} at "
+             f"{arrival['t'] if arrival else 'no output'}")
+    if not SURGE_MS[0] <= rec["peak_vmax_before_arrival"] <= SURGE_MS[1]:
+        fail(f"end_time_main: peak |v|max before the arrival "
+             f"{rec['peak_vmax_before_arrival']} m/s")
+    if not last["vmax"] < SETTLED_MS:
+        fail(f"end_time_main: |v|max {last['vmax']} m/s at the end")
+    want = {"block": 2 * rec["steps"], "cell": 0, "block_window": 0, "cell_window": 0,
+            "mdbc": 0, "grouping": 0}
+    if rec["launches"] != want:
+        fail(f"end_time_main: launches {rec['launches']} in {rec['steps']} steps")
+    if not walls_still or rec["grid_escapes_left"]:
+        fail("end_time_main: fixed walls moved, or escapes left after the re-grids")
+    if rec["checkpoint_counters"] != [END_OUTPUTS] or ckpt_digest != rec["end_digest"]:
+        fail(f"end_time_main: checkpoints {rec['checkpoint_counters']}, the last one "
+             "not the end state")
+
+
+def dam_break_2d_case(tmp, name, dx, const, t_end, t_out):
+    """tests/test_physics_validation.py's 2D dam break (io/casegen.py) through
+    ``run_simulation`` on the card; the end state and the launch counts."""
+    kern = T.make_kernel(T.KernelFamily.WENDLAND_C2, 2, dx=dx)
+    meta = T.SimulationMetaData(simulation_name=name, save_location=str(tmp / name), dims=2,
+                                simulation_time=t_end, output_times=t_out,
+                                dtype="float32", block_size=256)
+    arrays = dam_break_2d(dx)
+    sim = T.assemble_simulation(*arrays, meta, const, kern, T.ViscosityModel.ARTIFICIAL,
+                                T.DensityDiffusionModel.LINEAR, device="cuda")
+    reset_counts()
+    wall = timed_run(sim)
+    p = sim.state.particles
+    host = {f: getattr(p, f)[p.active].cpu().numpy()
+            for f in ("position", "density", "pressure")}
+    host["fluid"] = p.ptype[p.active].cpu().numpy() == int(T.ParticleType.FLUID)
+    steps = int(sim.state.iteration)
+    rec = {"phase": name, "n": sim.n_live, "steps": steps, "wall_s": wall,
+           "sim_time_s": float(sim.state.total_time), "launches": bs.launches,
+           "other_launches": cw.launches + mm.launches}
+    if rec["launches"] != 2 * steps or rec["other_launches"]:
+        fail(f"{name}: launches {bs.launches} / {rec['other_launches']} in {steps} steps")
+    return arrays, host, rec
+
+
+def physics_2d(tmp, card):
+    """The front-speed and hydrostatic-settling cases of
+    tests/test_physics_validation.py on the card, with their sizes and gates."""
+    arrays, h, rec = dam_break_2d_case(
+        tmp, "front_speed_2d", 0.02,
+        T.SimulationConstants(dx=0.02, c0=34.0, cfl=0.3, alpha=0.02), 0.15, 0.05)
+    fluid0 = arrays[0][arrays[2] == int(T.ParticleType.FLUID)]
+    x = h["position"][h["fluid"], 0]
+    z = h["position"][h["fluid"], 1]
+    rho = h["density"][h["fluid"]]
+    advance = np.quantile(x, 0.99) - fluid0[:, 0].max()
+    ratio = advance / (np.sqrt(9.81 * fluid0[:, 1].max()) * rec["sim_time_s"])
+    rec.update(card=card, front_speed_ratio=float(ratio), cpu_ratio=CPU_FRONT_RATIO,
+               x_max=float(x.max()), z_min=float(z.min()),
+               fluid_rho_min=float(rho.min()), fluid_rho_max=float(rho.max()))
+    emit(rec)
+    if not (0.51 < ratio < 0.71 and x.max() < 1.65 and z.min() > -0.05
+            and rho.min() > 850 and rho.max() < 1150):
+        fail(f"front_speed_2d: ratio {ratio}, or the fluid left the tank or its density band")
+    _, h, rec = dam_break_2d_case(
+        tmp, "hydrostatic_2d", 0.02, T.SimulationConstants(dx=0.02, c0=40.0, cfl=0.4),
+        0.4, 0.1)
+    z = h["position"][h["fluid"], 1]
+    pres = h["pressure"][h["fluid"]]
+    deep = z < np.quantile(z, 0.1)
+    expected = 1000 * 9.81 * (np.quantile(z, 0.95) - np.median(z[deep]))
+    ratio = np.median(pres[deep]) / expected
+    rec.update(card=card, deep_pressure_ratio=float(ratio))
+    emit(rec)
+    if not 0.85 < ratio < 1.15:
+        fail(f"hydrostatic_2d: deep pressure {ratio} of rho g h")
+
+
+def end_time_phases(card, series_path=None):
+    """Phases 19, under a temporary directory removed at the end."""
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_end_"))
+    try:
+        native_csv_phase(tmp, card)
+        torch.cuda.empty_cache()
+        end_time_main(tmp, card, series_path)
+        physics_2d(tmp, card)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main(argv):
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device - this script runs on the card only",
@@ -2362,6 +2659,11 @@ def main(argv):
     ptx = {k: ptxas_report(v) for k, v in _build.build_logs.items()}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "per_source": secs, "ptxas": ptx})
+    t0 = time.perf_counter()
+    if native.get_lib() is None:
+        fail(f"the native CSV reader did not build: {native.build_error}")
+    emit({"phase": "build_native_csv", "seconds": time.perf_counter() - t0,
+          "library": native.target().name})
     ptx_all = {k: v for rep in ptx.values() for k, v in rep.items()}
 
     # 3 - block-sweep parity on the initial lattices; 11 - the cell sweep on
@@ -2808,6 +3110,9 @@ def main(argv):
     main_rec, regrid_end, _ = host_loop_phases(run)
     # 18 - the deck CLIs, the sharded retune, the neighbor list
     cli_phases(main_rec, regrid_end, smi)
+    # 19 - the main deck to its end time, the native reader at full size, the
+    # 2D physics cases
+    end_time_phases(smi, argv[argv.index("--series") + 1] if "--series" in argv else None)
 
     emit({"phase": "elapsed", "seconds": time.perf_counter() - t_start})
     # 15 - the kernel line

@@ -7,8 +7,10 @@ Points:2, i.e. the x-z plane, PreProcess.jl:30-34; Idp is shifted +1 to be
 1-based, :28); ghost-node files carry ``Normal:0..2, Points:0..2`` with
 ghost_point = point + normal (:217-243).
 
-Parsed with the standard ``csv`` module and numpy (no pandas): headers may be
-quoted and space-padded, fields may follow their comma with blanks.
+Read by the port's C++ reader (``io/native.py``) where it builds and the
+file is one it reads as the csv-module path would, else with the standard
+``csv`` module and numpy (no pandas): headers may be quoted and space-padded,
+fields may follow their comma with blanks.
 """
 
 from __future__ import annotations
@@ -19,12 +21,26 @@ from typing import Sequence, Tuple
 import numpy as np
 
 from ..config import Geometry
+from . import native
 
 
 def read_csv_columns(path: str, columns: Sequence[str]) -> np.ndarray:
     """The named columns of a comma-separated file with one header line, as
     float64 [rows, len(columns)].  Raises ``KeyError`` for a missing column
-    and ``ValueError`` for a row that is short or not numeric."""
+    and ``ValueError`` for a row that is short or not numeric.  The native
+    reader serves where it can (the bits of the csv-module path); on None,
+    :func:`read_csv_columns_plain` reads the file.  ``native.calls`` counts
+    which served."""
+    arr = native.read_csv_columns(path, list(columns))
+    if arr is not None:
+        native.calls["native"] += 1
+        return arr
+    native.calls["python"] += 1
+    return read_csv_columns_plain(path, columns)
+
+
+def read_csv_columns_plain(path: str, columns: Sequence[str]) -> np.ndarray:
+    """:func:`read_csv_columns` with the standard ``csv`` module alone."""
     with open(path, newline="") as fh:
         reader = csv.reader(fh, skipinitialspace=True)
         header = [c.strip().strip('"').strip() for c in next(reader)]

@@ -14,6 +14,7 @@ from typing import Dict
 import numpy as np
 import torch
 
+from ..config import ParticleType
 from ..state import gather_state, state_tensors
 
 
@@ -63,3 +64,32 @@ def compare_states(state_a, state_b, n_live: int) -> Dict[str, float]:
         scale = np.abs(b).max() + 1e-30
         out[field] = float(np.abs(a - b).max() / scale)
     return out
+
+
+_FINITE_FIELDS = ("position", "velocity", "acceleration", "density", "pressure")
+
+
+def dam_break_readings(state, L: float = 0.4, g: float = 9.81) -> Dict[str, float]:
+    """The dam-break readings of ``tools/analyze_dambreak.py`` on one state,
+    reduced on the state's device and read back in one copy: time ``t`` and
+    ``T`` = t sqrt(2 g / L), the front ``x_front`` (the fluid's largest x)
+    and ``X`` = x_front / L (``L`` the column's initial width), the fluid's
+    density range, its largest speed ``vmax``, ``nan`` (NaNs in the fluid's
+    density and positions, the tool's count) and ``nonfinite`` (values not
+    finite in position, velocity, acceleration, density or pressure on a
+    live row)."""
+    state = gather_state(state)
+    p = state.particles
+    fluid = p.active & (p.ptype == int(ParticleType.FLUID))
+    rho, pos, vel = p.density[fluid], p.position[fluid], p.velocity[fluid]
+    nonfinite = sum((~torch.isfinite(getattr(p, f)[p.active])).sum() for f in _FINITE_FIELDS)
+    vals = torch.stack([
+        pos[:, 0].max().double(), rho.min().double(), rho.max().double(),
+        torch.sqrt((vel * vel).sum(-1)).max().double(),
+        (torch.isnan(rho).sum() + torch.isnan(pos).sum()).double(),
+        nonfinite.double(), state.total_time.double()]).cpu().tolist()
+    xf, rmin, rmax, vmax, nan, bad, t = vals
+    return {"t": t, "T": t * float(np.sqrt(2 * g / L)), "x_front": xf, "X": xf / L,
+            "rho_min": rmin, "rho_max": rmax, "vmax": vmax, "nan": int(nan),
+            "nonfinite": int(bad)}
+
