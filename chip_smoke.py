@@ -258,6 +258,36 @@ Phases, each printing one JSON line (any failure exits non-zero):
               and gates (front ratio in (0.51, 0.71), printed beside the CPU's;
               deep pressure within 15 % of rho g h), 2 launches per step.
 
+20. the mDBC and moving-body decks to their end times, under a temporary
+              directory removed at the end, on the procedural inputs of
+              procedural_decks.py (the decks' own CSVs are not in the
+              repository), each output read by utils/validation.py:case_readings
+              (tools/analyze_case.py's readings and verdict, reduced on the
+              card), a table of them printed: end_time_mdbc - the
+              duckling_mdbc CLI on the 205,248-row still tank (150,000 fluid,
+              55,248 wall rows with ghost nodes, 1.00 x 0.50 m, 0.30 m deep)
+              from t = 0 to 1.0 s, 51 outputs: the analyzer's OK at every
+              output with --band 950 1100, |v|max <= 0.32 m/s, no NaN or
+              non-finite value, exactly 2 block-sweep launches, 1 mDBC call
+              and its 4 grouping kernels per step, fixed walls bitwise still,
+              no escape left; end_time_square - the moving_square_2d CLI
+              with --dp 0.02 on the 129,536-row box (10 x 5 m, a 1 m square at
+              2.8 m/s) from t = 0 to 2.5 s, 251 outputs: OK at every output
+              with --band 900 1150 --allow-outliers 5 (the JAX package's own
+              count on this case; hard band 775-1275) and the body mean
+              within 1e-3 m of its track, every moving row
+              within 2 steps ulp of its own, exactly 2 block-sweep launches
+              per step; both print wall seconds, ms per step by the wall and
+              by the interval loop, particle-steps/s, steps and replays;
+              coarse_still_tank, coarse_moving_square - compare_case.py's
+              coarse cases through the same CLIs, every output's readings
+              against the JAX package's readings of the same case on the CPU
+              (jax_case_readings.json) within 3 x the port-CPU vs JAX-CPU
+              largest difference plus an f32 floor (TOL_FACTOR, TOL_FLOOR),
+              and the same verdicts; c1_dam_break - the dam_break_3d CLI at dx 0.03
+              to t = 0.7 s (the wall impact), dam_break_readings at every
+              output against the JAX package's run of compare_dam_break.py.
+
 Then the card's name and power limit from nvidia-smi on a line of their own,
 and last ``{"ok": true, "device": {...}}``.
 
@@ -290,6 +320,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+import procedural_decks as pd
 import sphexample_tpu_torch as T
 from sphexample_tpu_torch.core.step import _sweep, make_fixed_steps_fn, sph_step
 from sphexample_tpu_torch.io.casegen import dam_break_2d, dam_break_3d
@@ -2065,6 +2096,15 @@ def cli(deck, argv, tmp, name, card, on_save=None):
     return sim, rec, kept
 
 
+def deck_launches(steps, mdbc_on):
+    """The launch counts a single-device deck on the block sweep takes in
+    ``steps`` steps: 2 block-sweep launches a step and, with mDBC, 1 fused
+    mDBC call and its grouping kernels."""
+    return {"block": 2 * steps, "cell": 0, "block_window": 0, "cell_window": 0,
+            "mdbc": steps if mdbc_on else 0,
+            "grouping": len(GROUP_KERNELS) * steps if mdbc_on else 0}
+
+
 def examples_main(tmp, main_rec, card):
     """The 3D dam break deck as a user runs it, at its default dx (159,712
     particles), CLI_INTERVALS intervals with a checkpoint per counter: the
@@ -2095,8 +2135,7 @@ def examples_main(tmp, main_rec, card):
     if rec["h5py_notice"] != (h5 is None) or (h5 is None) == bool(rec["vtkhdf_files"]):
         fail(f"examples_main: h5py {h5}, notice printed {rec['h5py_notice']}, "
              f"files {rec['vtkhdf_files']}")
-    if rec["launches"] != {"block": 2 * steps, "cell": 0, "block_window": 0,
-                           "cell_window": 0, "mdbc": 0, "grouping": 0}:
+    if rec["launches"] != deck_launches(steps, mdbc_on=False):
         fail(f"examples_main: launches {rec['launches']} in {steps} steps")
     if not rec["paraview_state_file"]:
         fail("examples_main: no ParaView state file")
@@ -2186,9 +2225,7 @@ def examples_mdbc(tmp, card):
                boundary_rows_off_rho0=int((rho_b != 1000.0).sum()),
                grid_escapes=int(state.grid_escapes))
     emit(rec)
-    want = {"block": 2 * steps, "cell": 0, "block_window": 0, "cell_window": 0,
-            "mdbc": steps, "grouping": len(GROUP_KERNELS) * steps}
-    if rec["launches"] != want:
+    if rec["launches"] != deck_launches(steps, mdbc_on=True):
         fail(f"examples_mdbc: launches {rec['launches']} in {steps} steps")
     if sim.cfg.boundary_capacity != nb or not rec["finite"] or not rec["boundary_rows_off_rho0"]:
         fail("examples_mdbc: the deck did not load its ghosts, or mDBC did not fire")
@@ -2558,9 +2595,7 @@ def end_time_main(tmp, card, series_path=None):
              f"{rec['peak_vmax_before_arrival']} m/s")
     if not last["vmax"] < SETTLED_MS:
         fail(f"end_time_main: |v|max {last['vmax']} m/s at the end")
-    want = {"block": 2 * rec["steps"], "cell": 0, "block_window": 0, "cell_window": 0,
-            "mdbc": 0, "grouping": 0}
-    if rec["launches"] != want:
+    if rec["launches"] != deck_launches(rec["steps"], mdbc_on=False):
         fail(f"end_time_main: launches {rec['launches']} in {rec['steps']} steps")
     if not walls_still or rec["grid_escapes_left"]:
         fail("end_time_main: fixed walls moved, or escapes left after the re-grids")
@@ -2635,6 +2670,271 @@ def end_time_phases(card, series_path=None):
         torch.cuda.empty_cache()
         end_time_main(tmp, card, series_path)
         physics_2d(tmp, card)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+# --- 20: the mDBC and moving-body decks to their end times, the coarse cases ---------
+
+# the JAX package's readings of the same procedural cases on the CPU (written by
+# compare_case.py --jax-readings and compare_dam_break.py --out; the card has
+# no JAX): the coarse still tank, the coarse moving square, C1's dam break
+JAX_READINGS = Path(__file__).resolve().with_name("jax_case_readings.json")
+TANK_OUTPUTS = 51        # the initial snapshot and one per 0.02 s to t = 1.0 s
+SQUARE_OUTPUTS = 251     # the initial snapshot and one per 0.01 s to t = 2.5 s
+# the gates of the JAX record's runs of these decks (PERFORMANCE.md:646-667,
+# read with tools/analyze_case.py), which the JAX package's coarse runs of the
+# same procedural cases meet (jax_case_readings.json): the still tank
+# --band 950 1100 and |v|max <= 0.32 m/s; the square --band 900 1150 (hard
+# band 775-1275, the tool's default) and the body mean on its track within
+# the tool's --track-tol 1e-3 m.  The record's --allow-outliers 2 is not the
+# JAX package's own on the full square: continued from the card's state at
+# t = 0.49 s (compare_case.py --square-dp 0.02 --resume), it reads 5 fluid
+# rows outside the band at t = 0.63 s, 1.2-1.5 dp off the body's faces (the
+# transient compression the tool's --allow-outliers help describes); the
+# allowance is that count, under the record's share of the fluid (2 of
+# 33,020 rows, 7 of the case's 122,500)
+TANK_GATE = {"band": (950.0, 1100.0)}
+TANK_VMAX = 0.32
+SQUARE_GATE = {"band": (900.0, 1150.0), "allow_outliers": 5, "track_marker": 3,
+               "speed": SQUARE_SPEED}
+C1_DX, C1_T_END = 0.03, 0.7
+# the card's runs of the cases the JAX package ran on the CPU are held to its
+# readings at every output within TOL_FACTOR times the largest difference
+# between the port's CPU run and the JAX run over the same outputs
+# (``cpu_port_vs_jax`` in jax_case_readings.json), plus a floor at the f32
+# scale of each reading; body positions are compared through the track error
+TOL_FACTOR = 3
+TOL_FLOOR = {"t": 1e-6, "x_front": 1e-4, "rho_min": 0.01, "rho_max": 0.01, "vmax": 1e-3,
+             "body_err": 1e-6}
+
+
+def case_table(readings, every=1):
+    """The readings as tools/analyze_case.py prints them."""
+    track = "body_err" in readings[0]
+    lines = [f"{'t [s]':>8} {'rho_min':>9} {'rho_max':>9} {'|v|_max':>8} {'NaN':>5} "
+             f"{'out':>4}" + ("  body_err" if track else "")]
+    for r in readings[::every] + ([readings[-1]] if (len(readings) - 1) % every else []):
+        lines.append(f"{r['t']:8.3f} {r['rho_min']:9.2f} {r['rho_max']:9.2f} "
+                     f"{r['vmax']:8.2f} {r['nan']:5d} {r['out_band']:4d}"
+                     + (f"  {r['body_err']:9.2e}" if track else "")
+                     + ("" if r["ok"] else "  " + ",".join(r["flags"])))
+    return lines
+
+
+def moving_rows_x(state):
+    """The MOVING rows' x in ID order (a copy, on the device)."""
+    p = state.particles
+    order = torch.argsort(p.id)
+    keep = (p.id[order] > 0) & (p.ptype[order] == int(T.ParticleType.MOVING))
+    return p.position[order][keep][:, 0].clone()
+
+
+def end_time_case(tmp, card, name, deck, argv, gate, outputs, per_row_track=False):
+    """A deck CLI from t = 0 to its end time with ``case_readings`` (the
+    readings and verdict of tools/analyze_case.py, reduced on the card) at
+    every output; with ``per_row_track``, every MOVING row's distance from its
+    prescribed track x0 + 2.8 t against 2 steps ulp (moving_square_checks'
+    band).  Returns (simulation, record, readings)."""
+    from sphexample_tpu_torch.utils.validation import CaseReader
+
+    reader, walls, track = CaseReader(**gate), {}, []
+
+    def on_save(counter, state):
+        if counter == 1:
+            walls["start"] = fixed_rows(state)
+            walls["body"] = moving_rows_x(state)
+        r = reader(state)
+        r["counter"] = counter
+        if per_row_track:
+            x = moving_rows_x(state).double()
+            err, x_max = torch.stack([(x - walls["body"].double() - SQUARE_SPEED * r["t"])
+                                      .abs().max(), x.max()]).tolist()
+            tol = 2 * int(state.iteration) * float(np.spacing(np.float32(x_max)))
+            track.append((err, tol))
+            r.update(row_track_err=float(err), row_track_tol=tol)
+
+    sim, rec, _ = cli(deck, argv, tmp, name, card, on_save=on_save)
+    readings = sorted(reader.readings, key=lambda r: r["counter"])
+    state = sim.state
+    steps = rec["iteration"]
+    rec.update(
+        outputs=len(readings), t_end=readings[-1]["t"], steps_to_end=steps,
+        step_calls=rec["steps"], replays=rec["retunes"],
+        particle_steps_per_s=sim.n_live * steps / rec["wall_s"],
+        wall_ms_per_kept_step=1e3 * rec["wall_s"] / steps, dt=float(state.current_dt),
+        fluid_rho_min=min(r["rho_min"] for r in readings),
+        fluid_rho_max=max(r["rho_max"] for r in readings),
+        vmax_max=max(r["vmax"] for r in readings),
+        most_rows_out_band=max(r["out_band"] for r in readings),
+        bad_snapshots=reader.bad, nan=sum(r["nan"] for r in readings),
+        nonfinite=sum(r["nonfinite"] for r in readings),
+        walls_still=bool(torch.equal(fixed_rows(state), walls["start"])),
+        grid_escapes_left=int(state.grid_escapes), end_digest=end_digest(state), gate=gate)
+    if "body_err" in readings[0]:
+        rec["body_err_max"] = max(r["body_err"] for r in readings)
+    if per_row_track:
+        rec.update(row_track_err_max=max(e for e, _ in track),
+                   row_track_within_band=all(e <= tol for e, tol in track),
+                   row_track_tol_end=track[-1][1])
+    del rec["stderr"]
+    emit(rec)
+    fails = []
+    if rec["nan"] or rec["nonfinite"]:
+        fails.append(f"{rec['nan']} NaNs, {rec['nonfinite']} non-finite values")
+    if rec["outputs"] != outputs or rec["t_end"] < sim.meta.simulation_time:
+        fails.append(f"{rec['outputs']} outputs to t = {rec['t_end']}")
+    if reader.bad:
+        bad = [r for r in readings if not r["ok"]]
+        fails.append(f"{reader.bad} bad snapshots (tools/analyze_case.py's verdict), "
+                     f"the first at t = {bad[0]['t']}: {bad[0]['flags']}")
+    if not rec["walls_still"] or rec["grid_escapes_left"]:
+        fails.append("fixed walls moved, or escapes left after the re-grids")
+    if per_row_track and not rec["row_track_within_band"]:
+        fails.append(f"a moving row off its track by {rec['row_track_err_max']} m")
+    return sim, rec, readings, fails
+
+
+def end_time_mdbc(tmp, card):
+    """``python -m sphexample_tpu_torch.examples.duckling_mdbc`` on the full
+    procedural still tank (205,248 rows: 150,000 fluid, 55,248 wall rows with
+    ghost nodes) from t = 0 to 1.0 s: the still-tank gates, 2 block-sweep
+    launches, 1 fused mDBC call and its 4 grouping kernels per step."""
+    case = pd.write_still_tank(str(tmp / "input"), "full")
+    nb, nf = len(case["boundary"]), len(case["fluid"])
+    sim, rec, readings, fails = end_time_case(
+        tmp, card, "end_time_mdbc", "duckling_mdbc",
+        ["--input", str(tmp / "input"), "--save", str(tmp / "end_time_mdbc")],
+        TANK_GATE, TANK_OUTPUTS)
+    print("\n".join(case_table(readings, 5)), flush=True)
+    if rec["launches"] != deck_launches(rec["steps"], mdbc_on=True):
+        fails.append(f"launches {rec['launches']} in {rec['steps']} steps")
+    if sim.n_live != nb + nf or sim.cfg.boundary_capacity != nb:
+        fails.append(f"{sim.n_live} rows, {sim.cfg.boundary_capacity} ghosts: not the "
+                     f"case's {nb + nf}, {nb}")
+    if rec["vmax_max"] > TANK_VMAX:
+        fails.append(f"|v|max {rec['vmax_max']} m/s above {TANK_VMAX}")
+    if fails:
+        fail("end_time_mdbc: " + "; ".join(fails))
+    return rec
+
+
+def end_time_square(tmp, card):
+    """``python -m sphexample_tpu_torch.examples.moving_square_2d --dp 0.02``
+    on the full procedural box (129,536 rows) from t = 0 to 2.5 s: the
+    moving-square gates, the body on its track (the mean within 1e-3 m, every
+    row within 2 steps ulp), 2 block-sweep launches per step."""
+    dp = pd.SQUARE_DP["full"]
+    case = pd.write_moving_square(str(tmp / "input"), dp)
+    n = sum(len(case[k]) for k in ("fixed", "fluid", "square"))
+    sim, rec, readings, fails = end_time_case(
+        tmp, card, "end_time_square", "moving_square_2d",
+        ["--dp", str(dp), "--input", str(tmp / "input"), "--save", str(tmp / "end_time_square")],
+        SQUARE_GATE, SQUARE_OUTPUTS, per_row_track=True)
+    print("\n".join(case_table(readings, 25)), flush=True)
+    if rec["launches"] != deck_launches(rec["steps"], mdbc_on=False):
+        fails.append(f"launches {rec['launches']} in {rec['steps']} steps")
+    if sim.n_live != n:
+        fails.append(f"{sim.n_live} rows, not the case's {n}")
+    if fails:
+        fail("end_time_square: " + "; ".join(fails))
+    return rec
+
+
+def jax_tolerance(jax_run):
+    """Per reading, the tolerance of the card's run against ``jax_run``."""
+    d = jax_run["cpu_port_vs_jax"]
+    return {k: TOL_FACTOR * d[k] + TOL_FLOOR[k] for k in TOL_FLOOR if k in d}
+
+
+def against_jax(label, card_rows, jax_rows, tol):
+    """Card readings held against the JAX package's at every output: the same
+    number of outputs, each reading within ``tol`` (key: absolute tolerance)
+    and, where both carry one, the same verdict."""
+    n = min(len(card_rows), len(jax_rows))
+    diffs = {k: max(abs(a[k] - b[k]) for a, b in zip(card_rows, jax_rows)) for k in tol}
+    worst = {k: max(range(n), key=lambda i: abs(card_rows[i][k] - jax_rows[i][k]))
+             for k in tol}
+    verdicts = sum(a.get("ok") != b.get("ok") for a, b in zip(card_rows, jax_rows))
+    rec = {"phase": label, "outputs": [len(card_rows), len(jax_rows)], "max_abs_diff": diffs,
+           "tolerance": tol, "at_t": {k: jax_rows[i]["t"] for k, i in worst.items()},
+           "verdicts_differ": verdicts,
+           "within": len(card_rows) == len(jax_rows) and not verdicts
+           and all(diffs[k] <= tol[k] for k in tol)}
+    return rec
+
+
+def coarse_case(tmp, card, case, jax_run):
+    """A coarse procedural case (compare_case.py's) through the port's deck
+    CLI on the card, its readings at every output held against the JAX
+    package's run of the same case on the CPU."""
+    from sphexample_tpu_torch.utils.validation import CaseReader
+
+    root = tmp / f"input_{case}"
+    if case == "still_tank":
+        pd.write_still_tank(str(root), "coarse")
+    else:
+        pd.write_moving_square(str(root), pd.SQUARE_DP["coarse"])
+    reader = CaseReader(**jax_run["gate"])
+    argv = [*jax_run["argv"], "--input", str(root), "--save", str(tmp / f"coarse_{case}")]
+    if jax_run.get("t_end_arg") is not None:
+        argv += ["--t-end", repr(jax_run["t_end_arg"])]
+    _, rec, _ = cli(jax_run["deck"], argv, tmp, f"coarse_{case}", card,
+                    on_save=lambda counter, state: reader(state))
+    cmp = against_jax(f"coarse_{case}", reader.readings, jax_run["readings"],
+                      jax_tolerance(jax_run))
+    rec.update(cmp, phase=f"coarse_{case}", steps_to_end=rec["iteration"],
+               jax_steps=jax_run["steps"], jax_n=jax_run["n"], t_end=reader.readings[-1]["t"],
+               bad_snapshots=reader.bad)
+    del rec["stderr"]
+    emit(rec)
+    if not cmp["within"] or rec["n"] != jax_run["n"]:
+        fail(f"coarse_{case}: the card's readings off the JAX package's: {cmp}")
+    if rec["launches"] != deck_launches(rec["steps"], mdbc_on=case == "still_tank"):
+        fail(f"coarse_{case}: launches {rec['launches']} in {rec['steps']} steps")
+
+
+def c1_dam_break(tmp, card, jax_run):
+    """C1: the 3D dam break deck at dx 0.03 to t = 0.7 s (the wall impact)
+    through the port's CLI, ``dam_break_readings`` at every output held
+    against the JAX package's run of compare_dam_break.py at that dx."""
+    readings = []
+    _, rec, _ = cli("dam_break_3d", ["--dx", str(C1_DX), "--t-end", str(C1_T_END),
+                                     "--save", str(tmp / "c1")], tmp, "c1_dam_break", card,
+                    on_save=lambda counter, state: readings.append(dam_break_readings(state)))
+    cmp = against_jax("c1_dam_break", readings, jax_run["readings"], jax_tolerance(jax_run))
+    impact = max(range(min(len(readings), len(jax_run["readings"]))),
+                 key=lambda i: readings[i]["rho_max"] - readings[i]["rho_min"])
+    rec.update(cmp, steps_to_end=rec["iteration"], jax_steps=jax_run["steps"],
+               fluid_rho_min=min(r["rho_min"] for r in readings),
+               fluid_rho_max=max(r["rho_max"] for r in readings),
+               jax_rho_min=min(r["rho_min"] for r in jax_run["readings"]),
+               jax_rho_max=max(r["rho_max"] for r in jax_run["readings"]),
+               widest_t=readings[impact]["t"],
+               widest=[readings[impact]["rho_min"], readings[impact]["rho_max"]],
+               jax_widest=[jax_run["readings"][impact]["rho_min"],
+                           jax_run["readings"][impact]["rho_max"]],
+               nan=sum(r["nan"] for r in readings))
+    del rec["stderr"]
+    emit(rec)
+    if rec["nan"] or not cmp["within"]:
+        fail(f"c1_dam_break: the card's readings off the JAX package's: {cmp}")
+    if rec["launches"] != deck_launches(rec["steps"], mdbc_on=False):
+        fail(f"c1_dam_break: launches {rec['launches']} in {rec['steps']} steps")
+
+
+def case_phases(card):
+    """Phase 20, under a temporary directory removed at the end."""
+    jax_runs = json.loads(JAX_READINGS.read_text())
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_cases_"))
+    try:
+        end_time_mdbc(tmp, card)
+        torch.cuda.empty_cache()
+        end_time_square(tmp, card)
+        torch.cuda.empty_cache()
+        for case in ("still_tank", "moving_square"):
+            coarse_case(tmp, card, case, jax_runs[case])
+        c1_dam_break(tmp, card, jax_runs[f"dam_break_dx{C1_DX}"])
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -3113,6 +3413,9 @@ def main(argv):
     # 19 - the main deck to its end time, the native reader at full size, the
     # 2D physics cases
     end_time_phases(smi, argv[argv.index("--series") + 1] if "--series" in argv else None)
+    # 20 - the mDBC and moving-body decks to their end times, the coarse cases
+    # and C1 against the JAX package's readings
+    case_phases(smi)
 
     emit({"phase": "elapsed", "seconds": time.perf_counter() - t_start})
     # 15 - the kernel line

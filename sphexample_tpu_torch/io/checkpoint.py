@@ -29,8 +29,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from ..state import (SimulationState, gather_state, pad_capacity, state_from_numpy,
-                     state_tensors, state_to_numpy)
+from ..state import (SimulationState, gather_state, pad_capacity, split_state,
+                     state_from_numpy, state_tensors, state_to_numpy)
 
 # telemetry that older checkpoints of the JAX package lack; zero re-accumulates
 _OPTIONAL = ("grid_escapes",)
@@ -108,33 +108,50 @@ def _load_into(data, template: SimulationState) -> Tuple[SimulationState, int]:
 
 
 def resume_simulation(sim, path: str):
-    """Resume ``sim`` (a single-device simulation, on its own device) from
-    ``path``: grows its capacity to the checkpoint's when that is larger,
-    adopts the checkpoint's grid when it records one (a run that re-gridded),
-    then loads.  Returns ``(sim, start_counter)``; pass the counter to
-    ``run_simulation(sim, start_counter=...)``."""
+    """Resume ``sim`` from ``path``: grows its capacity to the checkpoint's
+    when that is larger, adopts the checkpoint's grid when it records one (a
+    run that re-gridded), then loads.  Returns ``(sim, start_counter)``; pass
+    the counter to ``run_simulation(sim, start_counter=...)``.
+
+    A sharded ``sim`` (a tuple of slab states) takes the checkpoint's global
+    arrays cut into its slabs, with its mesh and halo, as the JAX function
+    does (its sharded interval function takes the loaded global state); the
+    checkpoint's capacity must not exceed the sharded capacity."""
     from ..core.driver import Simulation
     from ..ops.cell_list import Grid
 
-    if isinstance(sim.state, tuple):
-        raise NotImplementedError(
-            "resuming a sharded simulation is not ported yet: resume the "
-            "single-device simulation, then shard it")
     with np.load(path) as npz:
         cap = int(npz["capacity"]) if "capacity" in npz else 0
         grid = None
         if "grid_shape" in npz:
             grid = Grid(cmin=tuple(int(v) for v in npz["grid_cmin"]),
                         shape=tuple(int(v) for v in npz["grid_shape"]))
-    state = sim.state
+    sharded = isinstance(sim.state, tuple)
+    state = gather_state(sim.state)
     if cap > state.particles.capacity:
+        if sharded:
+            raise ValueError(
+                f"checkpoint capacity {cap} exceeds the sharded simulation's "
+                f"{state.particles.capacity}: resume the single-device "
+                "simulation, then shard it")
         state = pad_capacity(state, cap)
     cfg = sim.cfg
     if grid is not None and grid != cfg.grid:
         cfg = dataclasses.replace(cfg, grid=grid)
         state = state.replace(cell_start=torch.zeros(
             (grid.ncells + 2,), dtype=torch.int32, device=state.cell_start.device))
+    state, start_counter = load_checkpoint(path, state)
+    if sharded:
+        from ..parallel.mesh import make_sharded_interval_fn
+
+        interval_fn = sim.interval_fn
+        if cfg is not sim.cfg:
+            interval_fn, cfg = make_sharded_interval_fn(cfg, sim.mesh)
+        sim = Simulation(cfg=cfg, state=split_state(state, sim.mesh.devices),
+                         meta=sim.meta, n_live=sim.n_live, interval_fn=interval_fn,
+                         mesh=sim.mesh)
+        return sim, start_counter
     if cfg is not sim.cfg:
         sim = Simulation(cfg=cfg, state=state, meta=sim.meta, n_live=sim.n_live)
-    sim.state, start_counter = load_checkpoint(path, state)
+    sim.state = state
     return sim, start_counter

@@ -214,14 +214,56 @@ def test_a_regridded_run_resumes_on_its_grid(tmp_path):
     assert _digest(fresh.state) == _digest(sim.state)
 
 
-def test_sharded_resume_is_refused(tmp_path):
+def test_sharded_resume_ends_on_the_straight_run(tmp_path):
+    """A checkpoint of a sharded run resumed straight into a sharded
+    simulation (the JAX ``resume_simulation`` takes one too: its sharded
+    interval function runs on the loaded global arrays) and run one interval
+    more ends bit for bit where the uninterrupted sharded run ends; a
+    checkpoint larger than the sharded capacity is refused."""
     from sphexample_tpu_torch.parallel.mesh import make_mesh, shard_simulation
 
-    sim = _stepped()
-    save_checkpoint(str(tmp_path / "a.npz"), sim.state, 2)
-    sharded = shard_simulation(_tiny(T), make_mesh(4, "cpu"))
-    with pytest.raises(NotImplementedError, match="sharded"):
-        resume_simulation(sharded, str(tmp_path / "a.npz"))
+    mesh = make_mesh(4, "cpu")
+    ref = T.run_simulation(shard_simulation(_tiny(T), mesh), max_intervals=2)
+    first = T.run_simulation(shard_simulation(_tiny(T), mesh), max_intervals=1)
+    path = str(tmp_path / "ck.npz")
+    save_checkpoint(path, first.state, 2, grid=first.cfg.grid)
+    sim, counter = resume_simulation(shard_simulation(_tiny(T), mesh), path)
+    assert counter == 2 and isinstance(sim.state, tuple) and len(sim.state) == 4
+    assert sim.cfg.halo == first.cfg.halo and sim.mesh is mesh
+    sim = T.run_simulation(sim, max_intervals=1, start_counter=counter)
+    a, b = T.state_to_numpy(ref.state), T.state_to_numpy(sim.state)
+    assert int(a["iteration"]) == int(b["iteration"]) > 0
+    assert float(a["total_time"]) == float(b["total_time"])
+    for k in ("position", "velocity", "density", "pressure", "id"):
+        np.testing.assert_array_equal(b[f"particles.{k}"], a[f"particles.{k}"], err_msg=k)
+
+    big = _tiny(T, capacity=4096)
+    save_checkpoint(str(tmp_path / "big.npz"), big.state, 2)
+    with pytest.raises(ValueError, match="sharded"):
+        resume_simulation(shard_simulation(_tiny(T), mesh), str(tmp_path / "big.npz"))
+
+
+def test_jax_resumes_a_sharded_simulation(tmp_path):
+    """The reference behaviour the port's sharded resume follows: the JAX
+    ``resume_simulation`` takes a sharded simulation (4 of the conftest's
+    virtual CPU devices, its all-gather path) and ends bit for bit where
+    its uninterrupted sharded run ends."""
+    from sphexample_tpu.io.checkpoint import resume_simulation as j_resume
+    from sphexample_tpu.parallel.mesh import make_mesh as j_mesh
+    from sphexample_tpu.parallel.mesh import shard_simulation as j_shard
+
+    mesh = j_mesh(4)
+    ref = J.run_simulation(j_shard(_tiny(J), mesh), max_intervals=2)
+    first = J.run_simulation(j_shard(_tiny(J), mesh), max_intervals=1)
+    path = str(tmp_path / "ck.npz")
+    j_save(path, first.state, 2, cfg=first.cfg)
+    sim, counter = j_resume(j_shard(_tiny(J), mesh), path)
+    assert counter == 2 and sim.cfg.ctx.is_sharded
+    sim = J.run_simulation(sim, max_intervals=1, start_counter=counter)
+    assert int(sim.state.iteration) == int(ref.state.iteration) > 0
+    for k in ("position", "velocity", "density", "pressure", "id"):
+        np.testing.assert_array_equal(np.asarray(getattr(sim.state.particles, k)),
+                                      np.asarray(getattr(ref.state.particles, k)), err_msg=k)
 
 
 def test_sharded_resume_in_the_cli_order_matches_the_continuous_run(tmp_path):
