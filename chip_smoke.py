@@ -14,7 +14,9 @@ Phases, each printing one JSON line (any failure exits non-zero):
               and the 2D dam break (dx 0.01); relative-to-field-max
               differences must stay below 1e-4;
 4. run      - the 3D dam break at dx 0.0085 (159,712 particles): 10 warm-up
-              steps, then 200 timed steps through ``make_fixed_steps_fn``,
+              steps, then 200 timed steps through ``make_fixed_steps_fn``
+              (its chunk graph captured before the timed steps; its capture
+              and instantiate seconds, nodes per step and memory printed),
               with the physics checks (finite fields, fluid density within
               2% of rho0, the column falling, fixed walls unmoved) and the
               launch count (exactly 2 per step); every run phase prints a
@@ -288,6 +290,27 @@ Phases, each printing one JSON line (any failure exits non-zero):
               to t = 0.7 s (the wall impact), dam_break_readings at every
               output against the JAX package's run of compare_dam_break.py.
 
+21. chunk_graph_main, chunk_graph_mdbc, chunk_graph_moving_square - a chunk
+              of steps as one CUDA graph (``core/step.py:make_chunk_body``)
+              against the eager loop, a plain Python loop of ``sph_step``
+              calls written here: on cells 1, 2 and 4 (the square through the
+              cell sweep), from a state whose fluid falls at 1 m/s, 3
+              intervals of about 90 steps each (a chunk of 64 and part of
+              another; rebuilds inside the chunks) through
+              ``make_interval_fn`` and through the eager loop: the same steps
+              per interval and the same end digest, 2 sweep launches (+ 1
+              mDBC call and 4 grouping kernels) per step, counted where they
+              launch and at every replay (``ops/launch_count.py``), one host
+              read per chunk with
+              ``torch.cuda.set_sync_debug_mode("error")`` on for everything
+              else; it prints the capture and instantiate seconds, nodes per
+              step, the graph's memory, a state copy's ms, ms per step by the
+              wall in turns (eager, graph, graph, eager) and each loop's device
+              ms per step and busy share (profiler).  Phases 19-20 run the
+              graph too (their CLIs call ``run_simulation``): the main deck
+              must take the eager loop's 18,026 steps, the still tank and the
+              square end on its digests (``f98da5ed``, ``dd571990``).
+
 Then the card's name and power limit from nvidia-smi on a line of their own,
 and last ``{"ok": true, "device": {...}}``.
 
@@ -308,12 +331,14 @@ import dataclasses
 import hashlib
 import inspect
 import json
+import math
 import os
 import re
 import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -1033,12 +1058,14 @@ def run_phase(sim, label, mdbc_on, sweep="block", falling=True, rho_band=0.02):
     pos0 = sim.state.particles.position.clone()
     fixed0 = sim.state.particles.ptype == int(T.ParticleType.FIXED)
     state = make_fixed_steps_fn(sim.cfg, WARM_STEPS)(sim.state)
+    fixed = make_fixed_steps_fn(sim.cfg, STEPS)
+    build_graph(fixed, sim.cfg, state)
     torch.cuda.synchronize()
-    rebuilds0 = state.rebuilds
+    rebuilds0 = int(state.rebuilds)
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     t0 = time.perf_counter()
-    state = make_fixed_steps_fn(sim.cfg, STEPS)(state)
+    state = fixed(state)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = {"block": bs.launches, "cell": cw.launches}
@@ -1049,7 +1076,7 @@ def run_phase(sim, label, mdbc_on, sweep="block", falling=True, rho_band=0.02):
     run = {
         "phase": label, "n": n, "steps": STEPS, "wall_s": wall,
         "particle_steps_per_s": n * STEPS / wall, "ms_per_step": 1e3 * wall / STEPS,
-        "device": torch.cuda.get_device_name(0), "rebuilds": state.rebuilds - rebuilds0,
+        "device": torch.cuda.get_device_name(0), "rebuilds": int(state.rebuilds) - rebuilds0,
         "sim_time_s": float(state.total_time), "dt": float(state.current_dt),
         **physics(sim, ids0, pos0, fixed0, state),
         "sweep_kernel": sweep, "launches": sweep_launches,
@@ -1058,6 +1085,7 @@ def run_phase(sim, label, mdbc_on, sweep="block", falling=True, rho_band=0.02):
         "ghosts": sim.cfg.boundary_capacity if mdbc_on else 0,
         "max_occupancy": int(state.max_occupancy), "max_segment": int(state.max_segment),
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
+        **graph_numbers(fixed.chunk),
         "end_digest": end_digest(state),
     }
     emit(run)
@@ -1072,6 +1100,27 @@ def run_phase(sim, label, mdbc_on, sweep="block", falling=True, rho_band=0.02):
     if mdbc_on and run["boundary_rows_off_rho0"] == 0:
         fail(f"{label}: no boundary density moved off rho0 - mDBC did not fire")
     return state, run
+
+
+def build_graph(fixed, cfg, state):
+    """Capture the chunk graph of ``fixed`` (a ``make_fixed_steps_fn``
+    function) before a timed window: a chunk of one step from ``state``
+    (the accumulator at 1 + h, so that the step rebuilds, as a run's first
+    does), whose result is dropped.  That step is the one the chunk runs
+    eagerly before its capture."""
+    dx = torch.full((), 1.0 + cfg.spec.kernel.h, dtype=state.total_time.dtype,
+                    device=state.total_time.device)
+    fixed.chunk(state, math.inf, dx, int(state.iteration) + 1)
+    if fixed.chunk.graph is None:
+        fail("build_graph: the chunk built no graph")
+
+
+def graph_numbers(chunk):
+    """What a chunk's graph (``core/step.py:ChunkGraph``) took to build."""
+    g = chunk.graph
+    return {"graph_steps": g.steps, "graph_capture_s": g.capture_s,
+            "graph_instantiate_s": g.instantiate_s, "graph_nodes_per_step": g.nodes_per_step,
+            "graph_memory_mb": g.memory_bytes / 2**20}
 
 
 def physics(sim, ids0, pos0, fixed0, state):
@@ -1472,7 +1521,7 @@ def end_summary(state):
     """What a later sharded run of the same steps is held against."""
     return {"pos": by_id(state, "position"), "vel": by_id(state, "velocity"),
             "dens": by_id(state, "density"), "total_time": float(state.total_time),
-            "dt": float(state.current_dt), "rebuilds": state.rebuilds}
+            "dt": float(state.current_dt), "rebuilds": int(state.rebuilds)}
 
 
 def in_trajectory_bands(end, ref):
@@ -1506,7 +1555,7 @@ def run_sharded_phase(sim, single_end, label, mdbc_on, sweep="block", falling=Tr
     del g0
     states = make_sharded_fixed_steps_fn(cfg, sim_sh.mesh, WARM_STEPS)(sim_sh.state)
     torch.cuda.synchronize()
-    rebuilds0 = [s.rebuilds for s in states]
+    rebuilds0 = [int(s.rebuilds) for s in states]
     torch.cuda.reset_peak_memory_stats()
     bs.launches = bs.window_launches = 0
     cw.launches = cw.window_launches = 0
@@ -1520,7 +1569,7 @@ def run_sharded_phase(sim, single_end, label, mdbc_on, sweep="block", falling=Tr
     sweep_launches, mdbc_launches = counts[sweep], mm.launches
     group_launches = mm.group_launches
     other_launches = sum(v for k, v in counts.items() if k != sweep)
-    rebuilds = [s.rebuilds - r0 for s, r0 in zip(states, rebuilds0)]
+    rebuilds = [int(s.rebuilds) - r0 for s, r0 in zip(states, rebuilds0)]
     scalars_agree = all(
         float(s.total_time) == float(states[0].total_time)
         and int(s.iteration) == int(states[0].iteration)
@@ -1540,7 +1589,7 @@ def run_sharded_phase(sim, single_end, label, mdbc_on, sweep="block", falling=Tr
         "max_halo": int(state.max_halo), "steps": STEPS, "wall_s": wall,
         "particle_steps_per_s": n * STEPS / wall, "ms_per_step": 1e3 * wall / STEPS,
         "rebuilds_per_rank": rebuilds,
-        "rebuilds_total_per_rank": [s.rebuilds for s in states],
+        "rebuilds_total_per_rank": [int(s.rebuilds) for s in states],
         "rebuilds_total_single_device": single_end["rebuilds"],
         "ranks_agree_on_scalars": scalars_agree,
         "sim_time_s": end["total_time"], "dt": end["dt"],
@@ -1570,7 +1619,7 @@ def run_sharded_phase(sim, single_end, label, mdbc_on, sweep="block", falling=Tr
     if not 0 < run["max_halo"] <= halo:
         fail(f"{label}: max_halo {run['max_halo']} outside (0, halo = {halo}]")
     if (len(set(rebuilds)) != 1 or not scalars_agree
-            or states[0].rebuilds != single_end["rebuilds"]):
+            or int(states[0].rebuilds) != single_end["rebuilds"]):
         fail(f"{label}: the ranks took different branches: rebuilds {rebuilds} "
              f"(single device: {single_end['rebuilds']} in all)")
     if not in_bands:
@@ -1762,8 +1811,10 @@ def run_simulation_main(tmp, run):
     (tmp / "ckpt_sync").mkdir()
     save_sync, record_sync = saver(sync, tmp / "ckpt_sync", None)
     sync_wall = timed_run(sync, save_callback=save_sync, max_intervals=HOST_INTERVALS)
-    # the fixed-steps loop over the same number of steps (no output times)
+    # the fixed-steps loop over the same number of steps (no output times),
+    # its graph captured first
     fixed = make_fixed_steps_fn(sim.cfg, steps)
+    build_graph(fixed, sim.cfg, start)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     fixed(start)
@@ -1780,6 +1831,7 @@ def run_simulation_main(tmp, run):
         "no_save_wall_ms_per_step": 1e3 * bare_wall / steps,
         "sync_save_wall_ms_per_step": 1e3 * sync_wall / steps,
         "fixed_steps_ms_per_step_same_steps": 1e3 * fixed_wall / steps,
+        "interval_graph": graph_numbers(sim.interval_fn.chunk),
         "run_phase_fixed_steps_ms_per_step": run["ms_per_step"],
         "save_section_s": save_s, "save_share_of_wall": save_s / wall,
         "save_callback_s": record["seconds"],
@@ -1855,8 +1907,6 @@ def regrid(tmp):
     """A grid escape on the card: with ``auto_retune=False`` the driver
     raises and leaves the pre-interval state as it was; by default it grows
     the grid and replays the interval on the grown grid."""
-    from sphexample_tpu_torch.core import step as step_mod
-
     sim = assemble(host_case(tmp, "regrid"))
     rec = {"phase": "regrid", **escaping_blob(sim)}
     first = sim.state
@@ -1870,19 +1920,12 @@ def regrid(tmp):
     rec["failed_interval_s"] = time.perf_counter() - t0
     rec["pre_interval_state_unchanged"] = (sim.state is first
                                            and full_digest(first) == digest0)
-    calls = [0]
-    real = step_mod.sph_step
-
-    def counted(cfg, state, dx):
-        calls[0] += 1
-        return real(cfg, state, dx)
-
-    step_mod.sph_step = counted
+    calls, restore = counted_steps()
     reset_counts()
     try:
         wall = timed_run(sim, max_intervals=1)
     finally:
-        step_mod.sph_step = real
+        restore()
     launches = {"block": bs.launches, "cell": cw.launches}
     state, grid = sim.state, sim.cfg.grid
     p = state.particles
@@ -1938,7 +1981,7 @@ def run_simulation_mdbc(tmp):
            **physics(sim, ids0, pos0, fixed0, state),
            "checkpoint_counter": counter,
            "checkpoint_loads_back_equal": all(torch.equal(ta[k], tb[k]) for k in ta)
-           and back.rebuilds == state.rebuilds,
+           and int(back.rebuilds) == int(state.rebuilds),
            "end_digest": end_digest(state)}
     emit(rec)
     physics_gates(sim, rec, "run_simulation_mdbc")
@@ -2090,6 +2133,9 @@ def cli(deck, argv, tmp, name, card, on_save=None):
            "iteration": int(lead.iteration), "sim_time_s": float(lead.total_time),
            "retunes": hg.counts.get("02b Retune neighbor windows", 0),
            "checkpoint_counters": counters, "stderr": err.getvalue()[-2000:],
+           "graph": (graph_numbers(sim.interval_fn.chunk)
+                     if getattr(getattr(sim.interval_fn, "chunk", None), "graph", None)
+                     else None),
            "launches": {"block": bs.launches, "cell": cw.launches,
                         "block_window": bs.window_launches, "cell_window": cw.window_launches,
                         "mdbc": mm.launches, "grouping": mm.group_launches}}
@@ -2260,19 +2306,24 @@ def slab_digests(states):
 
 
 def counted_steps():
-    """Count ``sph_step`` calls (every rank's) until the returned function
-    restores it; returns (calls list, restore)."""
+    """Count the steps every rank's interval loop takes (a replayed interval's
+    included) until the returned function restores the count's hook; returns
+    (calls list, restore).  The steps are read from the iteration the loop
+    reads after each chunk (``core/step.py:_check_interval_progress``): in a
+    chunk graph ``sph_step`` runs only while the graph is captured."""
     from sphexample_tpu_torch.core import step as step_mod
 
     calls = [0]
-    real = step_mod.sph_step
+    lock = threading.Lock()         # the sharded ranks are threads
+    real = step_mod._check_interval_progress
 
-    def counted(cfg, state, dx):
-        calls[0] += 1
-        return real(cfg, state, dx)
+    def counted(t, it, t_out, it_before):
+        with lock:
+            calls[0] += it - it_before
+        return real(t, it, t_out, it_before)
 
-    step_mod.sph_step = counted
-    return calls, lambda: setattr(step_mod, "sph_step", real)
+    step_mod._check_interval_progress = counted
+    return calls, lambda: setattr(step_mod, "_check_interval_progress", real)
 
 
 def sharded_regrid(tmp, regrid_end, card):
@@ -2439,6 +2490,7 @@ def cli_phases(main_rec, regrid_end, card):
 # density within [991.7, 1007.8], |v|max ~ 1.1 m/s at the end, no NaN
 END_OUTPUTS = 161        # the initial snapshot and one per 0.01 s to t = 1.6 s
 END_STEPS = (17846, 18206)       # 18,026 +- 1 %
+END_STEPS_EAGER = 18026          # the eager loop's step count on the card (PERF.md §6)
 FAR_WALL_X = 1.575               # 1.6 - 3 dx
 ARRIVAL_S = (0.50, 0.70)         # the first output time with x_front >= FAR_WALL_X
 SURGE_MS = (2.5, 3.1)            # the largest |v|max before that output
@@ -2587,6 +2639,9 @@ def end_time_main(tmp, card, series_path=None):
         fail(f"end_time_main: fluid density left {END_RHO}")
     if not END_STEPS[0] <= kept_steps <= END_STEPS[1] or last["t"] < sim.meta.simulation_time:
         fail(f"end_time_main: {kept_steps} steps to t = {last['t']}")
+    if kept_steps != END_STEPS_EAGER:
+        fail(f"end_time_main: {kept_steps} steps, not the {END_STEPS_EAGER} of the eager "
+             "loop's runs")
     if arrival is None or not ARRIVAL_S[0] <= arrival["t"] <= ARRIVAL_S[1]:
         fail(f"end_time_main: the front reached x = {FAR_WALL_X} at "
              f"{arrival['t'] if arrival else 'no output'}")
@@ -2694,6 +2749,9 @@ SQUARE_OUTPUTS = 251     # the initial snapshot and one per 0.01 s to t = 2.5 s
 # transient compression the tool's --allow-outliers help describes); the
 # allowance is that count, under the record's share of the fluid (2 of
 # 33,020 rows, 7 of the case's 122,500)
+# the end digests (end_digest) of the eager loop's runs of the two decks on
+# the card (PERF.md §6): the chunk graph must end on them
+TANK_DIGEST_EAGER, SQUARE_DIGEST_EAGER = "f98da5ed", "dd571990"
 TANK_GATE = {"band": (950.0, 1100.0)}
 TANK_VMAX = 0.32
 SQUARE_GATE = {"band": (900.0, 1150.0), "allow_outliers": 5, "track_marker": 3,
@@ -2814,6 +2872,9 @@ def end_time_mdbc(tmp, card):
                      f"case's {nb + nf}, {nb}")
     if rec["vmax_max"] > TANK_VMAX:
         fails.append(f"|v|max {rec['vmax_max']} m/s above {TANK_VMAX}")
+    if not rec["end_digest"].startswith(TANK_DIGEST_EAGER):
+        fails.append(f"end digest {rec['end_digest'][:8]}, not the eager loop's "
+                     f"{TANK_DIGEST_EAGER}")
     if fails:
         fail("end_time_mdbc: " + "; ".join(fails))
     return rec
@@ -2836,6 +2897,9 @@ def end_time_square(tmp, card):
         fails.append(f"launches {rec['launches']} in {rec['steps']} steps")
     if sim.n_live != n:
         fails.append(f"{sim.n_live} rows, not the case's {n}")
+    if not rec["end_digest"].startswith(SQUARE_DIGEST_EAGER):
+        fails.append(f"end digest {rec['end_digest'][:8]}, not the eager loop's "
+                     f"{SQUARE_DIGEST_EAGER}")
     if fails:
         fail("end_time_square: " + "; ".join(fails))
     return rec
@@ -2937,6 +3001,185 @@ def case_phases(card):
         c1_dam_break(tmp, card, jax_runs[f"dam_break_dx{C1_DX}"])
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+# --- 21: a chunk of steps as one CUDA graph against the eager loop ------------------
+
+CHUNK_INTERVALS = 3          # chunk_graph: output intervals per deck
+CHUNK_INTERVAL_STEPS = 90    # about this many steps each: a chunk of 64, then part of one
+
+
+def eager_intervals(cfg, state, t_outs, max_steps=None):
+    """The eager reference of phase 21, written here and not in the package:
+    each interval a plain Python loop of ``sph_step`` calls while
+    ``total_time <= t_out`` (read on the host; at most ``max_steps``), the
+    accumulator set to 1 + h at its start.  Returns (end state, steps per
+    interval)."""
+    h, steps = cfg.spec.kernel.h, []
+    for t_out in t_outs:
+        dx = torch.full((), 1.0 + h, dtype=state.total_time.dtype, device="cuda")
+        it0 = int(state.iteration)
+        while float(state.total_time) <= t_out and (
+                max_steps is None or int(state.iteration) - it0 < max_steps):
+            state, dx = sph_step(cfg, state, dx)
+        steps.append(int(state.iteration) - it0)
+    return state, steps
+
+
+def graph_intervals(interval, state, t_outs):
+    """The same intervals through ``make_interval_fn``'s function (the chunk
+    graph).  Returns (end state, steps per interval)."""
+    steps = []
+    for t_out in t_outs:
+        it0 = int(state.iteration)
+        state = interval(state, t_out)
+        steps.append(int(state.iteration) - it0)
+    return state, steps
+
+
+def walled(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def host_reads_under_sync_debug(interval, state, t_outs):
+    """The graph's intervals with ``torch.cuda.set_sync_debug_mode("error")``
+    on for all but the chunk loop's read after each chunk
+    (``core/step.py:_host_read``), which is counted: any other host read on
+    the path raises.  Returns (end state, reads)."""
+    from sphexample_tpu_torch.core import step as step_mod
+
+    real, reads = step_mod._host_read, [0]
+
+    def counted(s, prev):
+        reads[0] += 1
+        torch.cuda.set_sync_debug_mode(0)
+        try:
+            return real(s, prev)
+        finally:
+            torch.cuda.set_sync_debug_mode("error")
+
+    step_mod._host_read = counted
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for t_out in t_outs:
+            state = interval(state, t_out)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        step_mod._host_read = real
+    return state, reads[0]
+
+
+def device_share(fn, steps):
+    """Device ms per step and busy share of ``fn`` (``steps`` steps) under
+    torch.profiler: kernel time (graph kernels included) over the wall."""
+    ev, wall = profiled(fn)
+    dev_us = sum(e.self_device_time_total for e in ev)
+    if dev_us <= 0:
+        return {"device_ms_per_step": "not measured", "busy_share": "not measured"}
+    return {"device_ms_per_step": dev_us / 1e3 / steps, "busy_share": dev_us / 1e6 / wall,
+            "device_launches_per_step": sum(e.count for e in ev) / steps}
+
+
+def chunk_graph_deck(label, sim, card):
+    """Phase 21 on one deck: CHUNK_INTERVALS intervals of about
+    CHUNK_INTERVAL_STEPS steps from a state whose fluid falls at 1 m/s (so
+    that rebuilds fall inside chunks), through the chunk graph and through
+    the eager loop: the same steps and the same end digest, interval by
+    interval; then the graph's build, its host reads per chunk under
+    sync-debug mode, and both loops' wall and device time in turns."""
+    from sphexample_tpu_torch.core.step import make_interval_fn
+    from sphexample_tpu_torch.state import clone_state
+
+    cfg = sim.cfg
+    p = sim.state.particles
+    down = torch.zeros(p.dims, dtype=p.position.dtype, device=p.device)
+    down[-1] = -1.0
+    fluid = (p.ptype == int(T.ParticleType.FLUID))[:, None]
+    start = sim.state.replace(particles=p.replace(velocity=torch.where(fluid, down, p.velocity)))
+    probe, _ = sph_step(cfg, start, torch.full((), 1e9, dtype=start.total_time.dtype,
+                                               device="cuda"))
+    dt = float(probe.current_dt)
+    t0 = float(start.total_time)
+    t_outs = [t0 + k * CHUNK_INTERVAL_STEPS * dt for k in range(1, CHUNK_INTERVALS + 1)]
+    del probe
+    interval = make_interval_fn(cfg)
+    chunk = interval.chunk
+    cap = cfg.meta.max_steps_per_call
+    reset_counts()
+    (g_end, g_steps), g_first_s = walled(lambda: graph_intervals(interval, start, t_outs))
+    launches = {"block": bs.launches, "cell": cw.launches, "mdbc": mm.launches,
+                "grouping": mm.group_launches}
+    graph = chunk.graph
+    (e_end, e_steps), _ = walled(lambda: eager_intervals(cfg, start, t_outs))
+    steps = sum(g_steps)
+    rebuilds = int(g_end.rebuilds) - int(start.rebuilds)
+    chunks = sum(-(-s // cap) for s in g_steps)
+    s_end, reads = host_reads_under_sync_debug(interval, start, t_outs)
+    # wall per step in turns: eager, graph, graph, eager
+    walls = {"eager": [], "graph": []}
+    for who in ("eager", "graph", "graph", "eager"):
+        run = (lambda: eager_intervals(cfg, start, t_outs)) if who == "eager" else (
+            lambda: graph_intervals(interval, start, t_outs))
+        walls[who].append(1e3 * walled(run)[1] / steps)
+    dev_g = device_share(lambda: graph_intervals(interval, start, t_outs), steps)
+    dev_e = device_share(lambda: eager_intervals(cfg, start, t_outs), steps)
+    rec = {
+        "phase": f"chunk_graph_{label}", "n": sim.n_live, "card": card,
+        "sweep_kernel": cfg.sweep_kernel, "intervals": CHUNK_INTERVALS,
+        "max_steps_per_call": cap, "t_outs": t_outs,
+        "steps_per_interval": g_steps, "eager_steps_per_interval": e_steps,
+        "rebuilds": rebuilds, "rebuilds_inside_chunks": rebuilds - CHUNK_INTERVALS,
+        "graph_end_digest": end_digest(g_end), "eager_end_digest": end_digest(e_end),
+        "sync_debug_end_digest": end_digest(s_end),
+        "capture_s": graph.capture_s, "instantiate_s": graph.instantiate_s,
+        "first_run_s_with_build": g_first_s, "graph_steps": graph.steps,
+        "nodes_per_step": graph.nodes_per_step,
+        "launches_per_step": {k: v / steps for k, v in launches.items() if v},
+        "launches": launches, "chunks": chunks, "host_reads": reads,
+        "host_reads_per_chunk": reads / chunks,
+        "graph_memory_mb": graph.memory_bytes / 2**20,
+        "state_copy_ms": time_cuda(lambda: clone_state(g_end), 20),
+        "wall_ms_per_step_graph": walls["graph"], "wall_ms_per_step_eager": walls["eager"],
+        **{f"graph_{k}": v for k, v in dev_g.items()},
+        **{f"eager_{k}": v for k, v in dev_e.items()},
+    }
+    emit(rec)
+    mdbc_on = cfg.meta.mdbc is T.MDBCMode.SIMPLE
+    want = {"block": 2 * steps if cfg.sweep_kernel == "block" else 0,
+            "cell": 2 * steps if cfg.sweep_kernel == "cell" else 0,
+            "mdbc": steps if mdbc_on else 0,
+            "grouping": len(GROUP_KERNELS) * steps if mdbc_on else 0}
+    if g_steps != e_steps or rec["graph_end_digest"] != rec["eager_end_digest"]:
+        fail(f"chunk_graph_{label}: the graph's steps {g_steps} / end state differ from "
+             f"the eager loop's {e_steps}")
+    if rec["sync_debug_end_digest"] != rec["graph_end_digest"]:
+        fail(f"chunk_graph_{label}: the run under sync-debug mode ended elsewhere")
+    if reads != chunks:
+        fail(f"chunk_graph_{label}: {reads} host reads in {chunks} chunks")
+    if launches != want:
+        fail(f"chunk_graph_{label}: launches {launches} in {steps} steps, not {want}")
+    if not any(s % cap for s in g_steps) or rec["rebuilds_inside_chunks"] < 2:
+        fail(f"chunk_graph_{label}: no interval ended inside a chunk, or fewer than 2 "
+             f"rebuilds inside chunks ({g_steps}, {rebuilds} rebuilds)")
+    return rec
+
+
+def chunk_graph_phases(card):
+    """Phase 21: the chunk graph against the eager loop on the main deck
+    (cell 1), the mDBC deck (cell 2) and the moving square with the cell
+    sweep (cell 4)."""
+    recs = [chunk_graph_deck("main", assemble(case_3d()), card)]
+    torch.cuda.empty_cache()
+    recs.append(chunk_graph_deck("mdbc", assemble_mdbc(case_3d()), card))
+    torch.cuda.empty_cache()
+    recs.append(chunk_graph_deck(
+        "moving_square", assemble_moving_square(moving_square_case(block_sweep=False)), card))
+    torch.cuda.empty_cache()
+    return recs
 
 
 def main(argv):
@@ -3416,6 +3659,8 @@ def main(argv):
     # 20 - the mDBC and moving-body decks to their end times, the coarse cases
     # and C1 against the JAX package's readings
     case_phases(smi)
+    # 21 - a chunk of steps as one CUDA graph, against the eager loop
+    chunk_graph_phases(smi)
 
     emit({"phase": "elapsed", "seconds": time.perf_counter() - t_start})
     # 15 - the kernel line
@@ -3427,26 +3672,33 @@ def main(argv):
     return 0
 
 
-def prof_window(sim, state, steps=20):
-    """Device busy share of ``steps`` steps under torch.profiler (kernel
-    time summed over the window's wall time), and each hand-written kernel's
-    time alone, without its wrapper's pack and collect."""
+def profiled(fn):
+    """``fn()`` under torch.profiler: (the device-side events, the wall
+    seconds).  Device-side events only: an aten op's row repeats the time of
+    the kernels it launched, so summing every row would count them twice."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    run = make_fixed_steps_fn(sim.cfg, steps)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        run(state)
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    # device-side events only: an aten op's row repeats the time of the
-    # kernels it launched, so summing every row would count them twice
-    ev = [e for e in prof.key_averages()
-          if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+    return ([e for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA and not e.is_user_annotation], wall)
+
+
+def prof_window(sim, state, steps=20):
+    """Device busy share of ``steps`` steps of the chunk graph under
+    torch.profiler (kernel time summed over the window's wall time), and,
+    from the same steps run eagerly (the profiler does not name a graph's
+    kernels reliably), the top device ops and each hand-written kernel's
+    time alone, without its wrapper's pack and collect."""
+    run = make_fixed_steps_fn(sim.cfg, steps)
+    build_graph(run, sim.cfg, state)                   # captured before the window
+    ev, wall = profiled(lambda: run(state))
     dev_us = sum(e.self_device_time_total for e in ev)
-    top = sorted(ev, key=lambda e: e.self_device_time_total, reverse=True)[:8]
     if dev_us <= 0:
         return {"profiled_steps": steps, "busy_share": "not measured"}
     out = {
@@ -3454,8 +3706,12 @@ def prof_window(sim, state, steps=20):
         "device_busy_ms": dev_us / 1e3, "busy_share": dev_us / 1e6 / wall,
         "device_ms_per_step": dev_us / 1e3 / steps,
         "device_launches_per_step": sum(e.count for e in ev) / steps,
-        "top_device_ops_ms": {e.key[:60]: e.self_device_time_total / 1e3 for e in top},
     }
+    ev, wall = profiled(lambda: eager_intervals(sim.cfg, state, [math.inf], steps))
+    dev_us = sum(e.self_device_time_total for e in ev)
+    top = sorted(ev, key=lambda e: e.self_device_time_total, reverse=True)[:8]
+    out.update(eager_busy_share=dev_us / 1e6 / wall, eager_device_ms_per_step=dev_us / 1e3 / steps,
+               top_device_ops_ms={e.key[:60]: e.self_device_time_total / 1e3 for e in top})
     for name in ("block_sweep", "cell_sweep", "mdbc_moments"):
         mine = [e for e in ev if f"{name}_kernel" in e.key]
         count = sum(e.count for e in mine)

@@ -364,11 +364,16 @@ class _AsyncSaver:
 
     One worker keeps the snapshots in order (same output files); the queue
     is bounded, so at most ``maxsize`` states wait.  This is safe because
-    nothing writes in place into a state the loop has handed on: every step
-    returns new tensors.  On the card the worker's ``.cpu()`` copies run on
-    its thread's current stream (the default one), behind the kernels
-    already queued there.  Exceptions re-raise on the next enqueue or on
-    close()."""
+    nothing writes in place into a state the loop has handed on.  An eager
+    step returns new tensors.  A chunk (``core/step.py:make_chunk_body``; on
+    the card a CUDA graph that writes its static buffers in place) copies
+    the state it is given into its buffers before it runs and hands out new
+    tensors copied from them after it: no state handed in or out shares
+    storage with what the next replay writes, the saver's snapshots and the
+    pre-interval state ``run_simulation`` keeps for a replay included.  On
+    the card the worker's ``.cpu()`` copies run on its thread's current
+    stream (the default one), behind the kernels already queued there.
+    Exceptions re-raise on the next enqueue or on close()."""
 
     def __init__(self, save_callback, maxsize: int = 2, watchdog=None):
         self._cb = save_callback

@@ -36,31 +36,48 @@ The two sweeps go through ``cfg.sweep_kernel``: ``"block"``
 (``ops/cell_sweep.py``, one block per cell); both compute every model and
 mode.  ``assemble_simulation`` chooses by the JAX package's rule.
 
-The lazy rebuild is a host ``if`` on the displacement accumulator: one
-device-to-host sync per step (the JAX package decides it on the device with
-``lax.cond``).  The rule itself is unchanged - rebuilding every step would
-change the sort order, the stale-cell stencil and so the physics.  In a
-sharded run every rank takes the same branch: the accumulator is built from
-the ``pmax`` of stage 00 alone, so all ranks hold the same value.
+Stage 02, the lazy rebuild (:func:`_lazy_rebuild`), is the JAX package's
+``lax.cond`` on the displacement accumulator.  The rule itself is unchanged -
+rebuilding every step would change the sort order, the stale-cell stencil
+and so the physics.  A plain call of :func:`sph_step` decides it on the host
+(one device-to-host read).  A chunk of steps (:func:`make_chunk_body`, the
+JAX ``lax.while_loop``) decides it on the device: on the card the chunk is
+one CUDA graph (``csrc/chunk_graph.cu``) in which every step is the body of
+an IF node on ``total_time <= t_out`` and the rebuild the body of an IF node
+on ``dx_acc >= h``, both compared in f64 as the host compares them, and
+:func:`make_chunk_loop` reads the host once per chunk.  The JAX package
+compares in the state's dtype; a value between f32(h) and h is where the two
+could part (ROADMAP §C).  In a sharded run every rank takes the same branch:
+the accumulator is built from the ``pmax`` of stage 00 alone, so all ranks
+hold the same value; the sharded ranks stay on the host loop
+(:func:`make_chunk_body` chooses by ``cfg.ctx``), since a graph cannot
+capture the host barrier at which they meet.
 """
 
 from __future__ import annotations
 
+import ctypes
+import dataclasses
+import gc
 import math
+import time
 from dataclasses import dataclass
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
 from ..config import MDBCMode, ShiftingMode, SimulationMetaData
 from ..models import equations as eq
 from ..ops import cell_list as cl
+from ..ops import launch_count
 from ..ops.block_sweep import block_sweep, block_sweep_sharded
 from ..ops.cell_sweep import cell_sweep, cell_sweep_sharded
 from ..ops.interactions import PhysicsSpec
 from ..ops.mdbc import mdbc_density_correction, mdbc_density_correction_sharded
 from ..ops.timestep import adaptive_dt
 from ..parallel.context import SINGLE, CommContext
-from ..state import SimulationState
+from ..state import (Particles, SimulationState, clone_state, copy_state_,
+                     state_leaves)
 from ..utils.watchdog import DeviceWatchdog
 from .motion import MotionTable, progress_motion
 
@@ -80,6 +97,9 @@ class StepConfig:
     # sharded: rows exchanged with each slab neighbour per sweep; 0 = the
     # window is the whole gathered array (parallel/mesh.py sizes it)
     halo: int = 0
+    # stage 02's branch(flag, body) inside a chunk (make_chunk_body gives it
+    # its steps); None: a host ``if`` (_lazy_rebuild)
+    branch: Optional[Callable] = None
 
 
 _SWEEPS = {"block": block_sweep, "cell": cell_sweep}
@@ -135,8 +155,98 @@ def _gravity_acc(cfg: StepConfig, particles, acc):
     return out
 
 
+class Stage02(NamedTuple):
+    """What stage 02 hands on to the rest of the step: the particles (sorted
+    anew after a rebuild), the cell list, the telemetry maxima, the
+    displacement accumulator and the rebuild count."""
+
+    particles: Particles
+    cell_start: torch.Tensor
+    max_occupancy: torch.Tensor
+    max_segment: torch.Tensor
+    occupied_cells: torch.Tensor
+    grid_escapes: torch.Tensor
+    max_halo: torch.Tensor
+    dx_acc: torch.Tensor
+    rebuilds: torch.Tensor
+
+
+def _rebuild(cfg: StepConfig, keep: Stage02) -> Stage02:
+    """The rebuild branch of stage 02 (JAX ``do_rebuild``): re-sort the
+    particles by cell, rebuild the cell list, take the telemetry maxima with
+    ``keep``'s values, reset the accumulator and count the rebuild.  Every
+    result is a new tensor."""
+    kern, ctx = cfg.spec.kernel, cfg.ctx
+    p = keep.particles
+    # grid-escape telemetry: active particles whose UNCLAMPED cell coords
+    # fall outside the static grid would be clamped into edge cells
+    raw = cl.cell_coords(p.position, kern.H_inv)
+    esc = ctx.psum(torch.sum(
+        torch.any(raw != cl.clamp_coords(raw, cfg.grid), dim=-1) & p.active
+    ).to(torch.int32))
+    if ctx.is_sharded and cfg.halo > 0:
+        p, cell_start, occ_new, migration = cl.rebuild_sharded(
+            p, kern.H_inv, cfg.grid, ctx, cfg.halo)
+    else:
+        p, cell_start, occ_new = cl.rebuild(p, kern.H_inv, cfg.grid, ctx)
+    cap = p.capacity
+    base = ctx.rank() * cap
+    p = p.replace(chunk_id=(base + torch.arange(cap, dtype=torch.int32,
+                                                device=p.device)) // cfg.block_size)
+    halo_need = keep.max_halo
+    if ctx.is_sharded and cfg.halo > 0:
+        halo_need = torch.maximum(_halo_need(cfg, p, cell_start, base, migration),
+                                  halo_need)
+    counts = cell_start[1 : cfg.grid.ncells + 1] - cell_start[: cfg.grid.ncells]
+    return Stage02(
+        particles=p, cell_start=cell_start,
+        max_occupancy=torch.maximum(occ_new, keep.max_occupancy),
+        max_segment=torch.maximum(cl.max_row_segment(cell_start, cfg.grid),
+                                  keep.max_segment),
+        occupied_cells=torch.maximum(torch.sum(counts > 0).to(torch.int32),
+                                     keep.occupied_cells),
+        grid_escapes=torch.maximum(esc, keep.grid_escapes),
+        max_halo=halo_need, dx_acc=torch.zeros_like(keep.dx_acc),
+        rebuilds=keep.rebuilds + 1)
+
+
+def _write_stage02(dst: Stage02, src: Stage02) -> None:
+    """``src`` written into ``dst``'s tensors, in place."""
+    pairs = list(zip(dst.particles.tensors(), src.particles.tensors()))
+    pairs += list(zip(dst[1:], src[1:]))
+    for d, s in pairs:
+        d.copy_(s)
+
+
+def _lazy_rebuild(cfg: StepConfig, state: SimulationState, p, dx_acc,
+                  branch=None) -> Stage02:
+    """Stage 02: rebuild the cell list when ``dx_acc >= h`` (the JAX
+    package's ``lax.cond(dx_acc >= kern.h, do_rebuild, no_rebuild, p)``).
+
+    With no ``branch`` (a plain call, the sharded ranks) it is a host ``if``
+    on ``float(dx_acc)``: one device-to-host read, and a rebuild hands on
+    new tensors.  A chunk (:func:`make_chunk_body`) gives its steps a
+    ``branch(flag, body)`` (``StepConfig.branch``): the decision is then
+    ``dx_acc.double() >= h`` on the device, the same f64 comparison, and
+    ``body`` writes the rebuild in place into the tensors that are handed on
+    either way (the chunk's buffers); on the card ``branch`` captures
+    ``body`` as a CUDA graph IF node on the flag, on the CPU it is a host
+    ``if`` on it."""
+    keep = Stage02(p, state.cell_start, state.max_occupancy, state.max_segment,
+                   state.occupied_cells, state.grid_escapes, state.max_halo, dx_acc,
+                   state.rebuilds)
+    h = cfg.spec.kernel.h
+    if branch is not None:
+        branch(dx_acc.double() >= h, lambda: _write_stage02(keep, _rebuild(cfg, keep)))
+        return keep
+    if float(dx_acc) >= h:
+        return _rebuild(cfg, keep)
+    return keep
+
+
 def sph_step(cfg: StepConfig, state: SimulationState, dx_acc):
-    """One symplectic step.  Returns (new_state, new_dx_acc)."""
+    """One symplectic step.  Returns (new_state, new_dx_acc).  Inside a
+    chunk ``cfg.branch`` takes stage 02's decision (:func:`_lazy_rebuild`)."""
     spec = cfg.spec
     c = spec.constants
     kern = spec.kernel
@@ -151,38 +261,9 @@ def sph_step(cfg: StepConfig, state: SimulationState, dx_acc):
     dt = adaptive_dt(p.position, p.velocity, p.acceleration, c, kern, ctx)
     dt2 = dt * 0.5
 
-    # 02 - lazy rebuild when dx >= h (host decision: one sync per step)
-    cell_start = state.cell_start
-    occ, seg, ncc = state.max_occupancy, state.max_segment, state.occupied_cells
-    escapes = state.grid_escapes
-    halo_need = state.max_halo
-    rebuilds = state.rebuilds
-    if float(dx_acc) >= kern.h:
-        # grid-escape telemetry: active particles whose UNCLAMPED cell coords
-        # fall outside the static grid would be clamped into edge cells
-        raw = cl.cell_coords(p.position, kern.H_inv)
-        esc = ctx.psum(torch.sum(
-            torch.any(raw != cl.clamp_coords(raw, cfg.grid), dim=-1) & p.active
-        ).to(torch.int32))
-        if ctx.is_sharded and cfg.halo > 0:
-            p, cell_start, occ_new, migration = cl.rebuild_sharded(
-                p, kern.H_inv, cfg.grid, ctx, cfg.halo)
-        else:
-            p, cell_start, occ_new = cl.rebuild(p, kern.H_inv, cfg.grid, ctx)
-        cap = p.capacity
-        base = ctx.rank() * cap
-        p = p.replace(chunk_id=(base + torch.arange(cap, dtype=torch.int32,
-                                                    device=p.device)) // cfg.block_size)
-        if ctx.is_sharded and cfg.halo > 0:
-            halo_need = torch.maximum(
-                _halo_need(cfg, p, cell_start, base, migration), halo_need)
-        counts = cell_start[1 : cfg.grid.ncells + 1] - cell_start[: cfg.grid.ncells]
-        occ = torch.maximum(occ_new, occ)
-        seg = torch.maximum(cl.max_row_segment(cell_start, cfg.grid), seg)
-        ncc = torch.maximum(torch.sum(counts > 0).to(torch.int32), ncc)
-        escapes = torch.maximum(esc, escapes)
-        dx_acc = torch.zeros_like(dx_acc)
-        rebuilds += 1
+    # 02 - lazy rebuild when dx >= h
+    st = _lazy_rebuild(cfg, state, p, dx_acc, cfg.branch)
+    p, cell_start, dx_acc = st.particles, st.cell_start, st.dx_acc
 
     # -- motion (first half, reference :765)
     pos, vel = progress_motion(cfg.motion, p, state.total_time, dt2)
@@ -266,13 +347,13 @@ def sph_step(cfg: StepConfig, state: SimulationState, dx_acc):
         total_time=state.total_time + dt,
         current_dt=dt,
         iteration=state.iteration + 1,
-        max_occupancy=occ,
-        max_segment=seg,
-        occupied_cells=ncc,
+        max_occupancy=st.max_occupancy,
+        max_segment=st.max_segment,
+        occupied_cells=st.occupied_cells,
         position_half=pos_half,
-        grid_escapes=escapes,
-        max_halo=halo_need,
-        rebuilds=rebuilds,
+        grid_escapes=st.grid_escapes,
+        max_halo=st.max_halo,
+        rebuilds=st.rebuilds,
     )
     return new_state, dx_acc
 
@@ -283,45 +364,359 @@ def _initial_dx_acc(cfg: StepConfig, state: SimulationState):
                       device=state.total_time.device)
 
 
-def _check_interval_progress(state: SimulationState, t_out, it_before: int) -> None:
+def _check_interval_progress(t: float, it: int, t_out, it_before: int) -> None:
     """Fail loudly instead of spinning when the state diverges: a NaN
     ``total_time`` ends the step loop (``t <= t_out`` is false) without
-    crossing the output time."""
-    t = float(state.total_time)
+    crossing the output time.  ``t`` and ``it`` are the state's total time
+    and iteration as the host read them after a chunk."""
     if not math.isfinite(t):
         raise FloatingPointError(
-            f"simulation diverged: total_time is {t} at iteration "
-            f"{int(state.iteration)}"
-        )
-    if t <= float(t_out) and int(state.iteration) == it_before:
+            f"simulation diverged: total_time is {t} at iteration {it}")
+    if t <= float(t_out) and it == it_before:
         raise FloatingPointError(
             f"simulation stalled: no steps taken at t={t} < t_out="
             f"{float(t_out)} (non-finite dt or state)"
         )
 
 
-def make_interval_fn(cfg: StepConfig):
-    """The per-output-interval function: steps while ``total_time <= t_out``
-    (reference SPHCellList.jl:742), with the displacement accumulator freshly
-    set to 1 + h so the first step of every interval rebuilds (:739).  Reads
-    ``total_time`` on the host once per step.
+def _host_read(state: SimulationState, prev_iteration) -> tuple:
+    """The one host read of a chunk: (total_time, iteration, the iteration
+    ``prev_iteration`` held), in one device-to-host copy.  The same copy
+    brings the launch counters of the state's device, where a chunk graph
+    armed them, and folds them into the kernel wrappers' counts
+    (``ops/launch_count.py``)."""
+    dev = state.total_time.device
+    counters = launch_count.counters(dev)
+    vals = torch.stack([state.total_time.double(), state.iteration.double(),
+                        prev_iteration.double()])
+    if counters is not None:
+        vals = torch.cat([vals, counters.double()])
+    read = vals.tolist()
+    if counters is not None:
+        launch_count.fold(dev, read[3:])
+    return read[0], int(read[1]), int(read[2])
 
-    The steps go in chunks of at most ``meta.max_steps_per_call`` (the JAX
-    package's device programs, ``sphexample_tpu/core/step.py:464-513``); the
-    accumulator carries across chunks, so the trajectory is that of one
-    unchunked loop.  Between chunks the host checks progress
-    (:func:`_check_interval_progress`) and fires ``progress(state)`` after
-    every chunk but the last - the analog of the reference's in-interval
-    ProgressMeter spinner (SPHCellList.jl:870-907).  With
-    ``meta.device_call_timeout`` set, a watchdog is armed around every chunk
-    after this function's first (which may build and load the kernels) and
-    warns - or, with ``meta.watchdog_hard``, exits with code 86 so that a
-    supervisor can resume from the last checkpoint - when one blocks longer
-    (utils/watchdog.py).  In a sharded run every rank runs this loop on its
-    slab; rank 0's speaks for the run (progress and watchdog)."""
+
+# steps per replay of a chunk graph when ``meta.max_steps_per_call`` is None
+# (the JAX loop is then unbounded): the graph is replayed until the interval
+# ends, with no progress call in between
+UNBOUNDED_GRAPH_STEPS = 64
+_NO_STOP = 2 ** 31 - 1    # the iteration bound of an interval's chunks
+
+
+def _host_branch(flag, body) -> None:
+    """A chunk's stage 02 branch on CPU tensors: a host ``if`` on the flag."""
+    if bool(flag):
+        body()
+
+
+def _signature(state: SimulationState) -> tuple:
+    return tuple((tuple(a.shape), a.dtype, a.device) for a in state_leaves(state))
+
+
+class _Buffers:
+    """What a chunk owns: the state its steps read and write in place, the
+    displacement accumulator, the output time (f64), the iteration bound and
+    the two decision flags.  Filled from the caller's tensors before a chunk
+    runs and copied out after it, so that no state handed in or out shares
+    storage with them."""
+
+    def __init__(self, state: SimulationState):
+        dev = state.total_time.device
+        self.signature = _signature(state)
+        self.state = clone_state(state)
+        self.dx = torch.zeros((), dtype=state.total_time.dtype, device=dev)
+        self.t_out = torch.zeros((), dtype=torch.float64, device=dev)
+        self.stop = torch.zeros((), dtype=state.iteration.dtype, device=dev)
+        self.live = torch.zeros((), dtype=torch.bool, device=dev)
+        self.rebuild = torch.zeros((), dtype=torch.bool, device=dev)
+
+    def load(self, state, t_out: float, dx_acc, stop: Optional[int]) -> None:
+        copy_state_(self.state, state)
+        self.dx.copy_(dx_acc)
+        self.t_out.fill_(float(t_out))
+        self.stop.fill_(_NO_STOP if stop is None else int(stop))
+
+    def set_live(self) -> None:
+        """The guard of the next step: ``total_time <= t_out`` (in f64, as
+        the eager loop compares on the host) and ``iteration < stop``."""
+        s = self.state
+        self.live.copy_((s.total_time.double() <= self.t_out) & (s.iteration < self.stop))
+
+    def step(self, cfg: StepConfig) -> None:
+        """One step on the buffers, then the next step's guard.  ``cfg``
+        carries the chunk's stage 02 branch (``cfg.branch``)."""
+        new, dx = sph_step(cfg, self.state, self.dx)
+        copy_state_(self.state, new)
+        self.dx.copy_(dx)
+        self.set_live()
+
+    def out(self):
+        return clone_state(self.state), self.dx.clone()
+
+
+class _Pieces:
+    """PyTorch captures into one memory pool, each kept as its
+    ``cudaGraph_t`` (``keep_graph``): the pieces of a chunk graph, captured
+    in the order they run, so that the pool's memory is reused only as a
+    replay would reuse it."""
+
+    def __init__(self):
+        self.pool = torch.cuda.graph_pool_handle()
+        self.graphs = []
+        self.open = None
+
+    def begin(self) -> None:
+        self.open = torch.cuda.CUDAGraph(keep_graph=True)
+        self.open.capture_begin(pool=self.pool)
+
+    def end(self) -> int:
+        g, self.open = self.open, None
+        g.capture_end()
+        self.graphs.append(g)
+        return g.raw_cuda_graph()
+
+    def abort(self) -> None:
+        if self.open is not None:
+            g, self.open = self.open, None
+            try:
+                g.capture_end()
+            except RuntimeError:
+                pass
+
+
+class _StepCapture:
+    """Stage 02's branch while a step is captured: the flag goes into the
+    chunk's ``rebuild`` buffer, the step's head piece ends, the rebuild is
+    captured as its own piece (the IF node's body) and the tail piece
+    begins."""
+
+    def __init__(self, pieces: _Pieces, flag_buf):
+        self.pieces, self.flag_buf = pieces, flag_buf
+        self.head = self.body = None
+
+    def __call__(self, flag, body) -> None:
+        if self.head is not None:
+            raise RuntimeError("a captured step takes stage 02's branch once")
+        self.flag_buf.copy_(flag)
+        self.head = self.pieces.end()
+        self.pieces.begin()
+        body()
+        self.body = self.pieces.end()
+        self.pieces.begin()
+
+
+class ChunkGraph:
+    """The chunk of ``steps`` guarded steps as one CUDA graph on the card
+    (``csrc/chunk_graph.cu``): one step is captured once, in three pieces
+    (its head up to stage 02's decision, the rebuild, its tail), and the
+    graph holds it ``steps`` times, each under an IF node on the guard and
+    with the rebuild under an IF node on ``dx_acc >= h``.  Nothing in a step
+    depends on its place in the chunk: the buffers are fixed and every
+    temporary dies inside the step.  Built once for a state's shapes,
+    replayed per chunk.  Holds what the chip check reads: ``capture_s``,
+    ``instantiate_s``, ``nodes_per_step`` (the step's three pieces, two set
+    kernels and two IF nodes) and ``memory_bytes`` (the device memory
+    reserved while it was built, its pool included)."""
+
+    def __init__(self, cfg: StepConfig, steps: int, buf: _Buffers):
+        """``buf``: the chunk's buffers, loaded, their next step live.  That
+        step runs first, eagerly, on a side stream (the warm-up: what the
+        step caches on the device is made before the capture, a rebuild
+        included when the chunk starts an interval); then the next step is
+        captured on the same stream, which runs nothing."""
+        from ..ops._build import load_all, load_library
+
+        dev = buf.state.total_time.device
+        self.steps, self.device, self.buf = steps, dev, buf
+        load_all()
+        self._lib = lib = load_library("chunk_graph")
+        launch_count.arm(dev)
+        mem0 = torch.cuda.memory_reserved(dev)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        pieces = _Pieces()
+        # a graph freed by the garbage collector during the capture would
+        # destroy CUDA objects while the stream captures: collect first, and
+        # not while capturing
+        gc.collect()
+        gc.disable()
+        try:
+            with torch.cuda.device(dev), torch.cuda.stream(side):
+                buf.step(dataclasses.replace(cfg, branch=_host_branch))
+                side.synchronize()
+                try:
+                    head, step_head, body, tail = self._capture(cfg, pieces)
+                except BaseException:
+                    pieces.abort()          # on the capture's own stream
+                    raise
+        except Exception as e:
+            raise RuntimeError(f"chunk graph capture failed: {e}") from e
+        finally:
+            gc.enable()
+            torch.cuda.current_stream(dev).wait_stream(side)
+        self._pieces = pieces.graphs      # their pool backs the graph's memory
+        graph, exe = ctypes.c_void_p(), ctypes.c_void_p()
+        t0 = time.perf_counter()
+        err = lib.sph_chunk_graph_build(steps, head, step_head, body, tail,
+                                        buf.live.data_ptr(), buf.rebuild.data_ptr(),
+                                        ctypes.byref(graph), ctypes.byref(exe))
+        if err != 0:
+            raise RuntimeError("chunk graph instantiation failed: "
+                               f"{lib.sph_chunk_graph_error_string(err).decode()}")
+        self._graph, self._exec = graph.value, exe.value
+        err = lib.sph_chunk_graph_upload(self._exec, torch.cuda.current_stream(dev).cuda_stream)
+        if err != 0:
+            raise RuntimeError("chunk graph upload failed: "
+                               f"{lib.sph_chunk_graph_error_string(err).decode()}")
+        torch.cuda.synchronize(dev)
+        self.instantiate_s = time.perf_counter() - t0
+        self.nodes_per_step = 4 + sum(self._nodes(g) for g in (step_head, body, tail))
+        self.memory_bytes = torch.cuda.memory_reserved(dev) - mem0
+
+    def _capture(self, cfg, pieces):
+        """Capture, on the current (side) stream, the chunk's first guard
+        and one step in its three pieces.  Returns their graphs (guard, step
+        head, rebuild, step tail)."""
+        buf = self.buf
+        t0 = time.perf_counter()
+        pieces.begin()
+        buf.set_live()
+        head = pieces.end()
+        split = _StepCapture(pieces, buf.rebuild)
+        pieces.begin()
+        buf.step(dataclasses.replace(cfg, branch=split))
+        tail = pieces.end()
+        if split.body is None:
+            raise RuntimeError("stage 02 was not captured as a branch")
+        self.capture_s = time.perf_counter() - t0
+        return head, split.head, split.body, tail
+
+    def _nodes(self, graph) -> int:
+        n = ctypes.c_int()
+        self._lib.sph_chunk_graph_nodes(graph, ctypes.byref(n))
+        return n.value
+
+    def replay(self):
+        """One replay on the current stream of the loaded buffers, then the
+        buffers out into new tensors.  No host read."""
+        stream = torch.cuda.current_stream(self.device).cuda_stream
+        err = self._lib.sph_chunk_graph_launch(self._exec, stream)
+        if err != 0:
+            raise RuntimeError("chunk graph launch failed: "
+                               f"{self._lib.sph_chunk_graph_error_string(err).decode()}")
+        return self.buf.out()
+
+    def __del__(self):
+        # an executable still running is freed when it completes (CUDA's
+        # rule); no synchronisation here, which a capture would not allow
+        lib = getattr(self, "_lib", None)
+        if lib is not None and getattr(self, "_exec", None):
+            lib.sph_chunk_graph_destroy(self._graph, self._exec)
+
+
+def make_chunk_body(cfg: StepConfig):
+    """One chunk: at most ``meta.max_steps_per_call`` steps
+    (:data:`UNBOUNDED_GRAPH_STEPS` when None) while ``total_time <= t_out``
+    (JAX ``make_chunk_body``, ``sphexample_tpu/core/step.py:437-461``).
+    Returns ``chunk(state, t_out, dx_acc, stop=None) -> (state, dx_acc)``;
+    ``stop`` also ends it at that iteration (:func:`make_fixed_steps_fn`).
+    The chunk copies the state it is given into buffers of its own
+    (:class:`_Buffers`), steps them in place and hands out new tensors
+    copied from them.
+
+    On the card every chunk is one replay of a :class:`ChunkGraph`: every
+    step is the body of an IF node on ``total_time <= t_out``, evaluated on
+    the device in f64, and stage 02's rebuild the body of an IF node on
+    ``dx_acc >= h``; a skipped step leaves every buffer as it was.  No host
+    read happens in a chunk: the caller reads the state once after it.  The
+    first chunk that takes a step (and the first for a state of other
+    shapes) builds the graph: it reads the guard on the host, runs its first
+    step eagerly (the warm-up) and the rest of its steps in the graph.  A
+    capture or instantiation that fails raises; the eager loop is never run
+    in its place.  CPU tensors: the same guarded steps run eagerly on the
+    same buffers, each decision a host ``if``.  ``chunk.graph`` is the
+    graph (None before the card's first chunk), ``chunk.buffers`` the
+    buffers.
+
+    A sharded config (``cfg.ctx``) gets :func:`_eager_chunk` instead: its
+    ranks are threads that meet at a host barrier inside the step, which a
+    graph cannot hold."""
+    if cfg.ctx.is_sharded:
+        return _eager_chunk(cfg)
+    steps = cfg.meta.max_steps_per_call or UNBOUNDED_GRAPH_STEPS
+    host_cfg = dataclasses.replace(cfg, branch=_host_branch)
+
+    def chunk(state, t_out, dx_acc, stop=None):
+        dev = state.total_time.device
+        if dev.type not in ("cuda", "cpu"):
+            raise ValueError(f"unsupported device {dev}")
+        if chunk.buffers is None or chunk.buffers.signature != _signature(state):
+            chunk.graph = None
+            chunk.buffers = _Buffers(state)
+        buf = chunk.buffers
+        buf.load(state, t_out, dx_acc, stop)
+        if chunk.graph is not None:
+            return chunk.graph.replay()
+        buf.set_live()
+        if dev.type == "cuda":
+            if not bool(buf.live):
+                return buf.out()
+            it0 = int(buf.state.iteration)
+            chunk.graph = ChunkGraph(cfg, steps, buf)     # runs the first step
+            # the rest of this chunk: ``steps`` in all from ``it0``
+            buf.stop.fill_(min(_NO_STOP if stop is None else int(stop), it0 + steps))
+            buf.set_live()
+            return chunk.graph.replay()
+        for _ in range(steps):
+            if not bool(buf.live):
+                break
+            buf.step(host_cfg)
+        return buf.out()
+
+    chunk.graph = chunk.buffers = None
+    return chunk
+
+
+def _eager_chunk(cfg: StepConfig):
+    """A chunk as a host loop of ``sph_step`` calls, each step's guard and
+    its stage 02 decision a host read: what :func:`make_chunk_body` gives a
+    sharded config.  The signature of its chunk."""
     cap = cfg.meta.max_steps_per_call
+
+    def chunk(state, t_out, dx_acc, stop=None):
+        k = 0
+        while (float(state.total_time) <= t_out and (cap is None or k < cap)
+               and (stop is None or int(state.iteration) < stop)):
+            state, dx_acc = sph_step(cfg, state, dx_acc)
+            k += 1
+        return state, dx_acc
+
+    chunk.graph = chunk.buffers = None
+    return chunk
+
+
+def make_chunk_loop(cfg: StepConfig, chunk):
+    """The per-output-interval host loop over ``chunk(state, t_out, dx_acc)``
+    calls (JAX ``make_chunk_loop``, ``sphexample_tpu/core/step.py:464-513``):
+    the displacement accumulator is set to 1 + h at the interval's start, so
+    that its first step rebuilds (reference :739), and carries across chunks,
+    so the trajectory is that of one unchunked loop.  After every chunk the
+    host reads the state once (:func:`_host_read`: total time, iteration and
+    the launch counters), checks progress (:func:`_check_interval_progress`)
+    and, when ``meta.max_steps_per_call`` bounds the chunks, fires
+    ``progress(state)`` after every chunk but the last - the analog of the
+    reference's in-interval ProgressMeter spinner (SPHCellList.jl:870-907).
+    With ``meta.device_call_timeout`` set, a watchdog is armed around every
+    chunk after this function's first (which may build the kernels and
+    capture the graph) and warns - or, with ``meta.watchdog_hard``, exits
+    with code 86 so that a supervisor can resume from the last checkpoint -
+    when one blocks longer (utils/watchdog.py).  In a sharded run every rank
+    runs this loop on its slab; rank 0's speaks for the run (progress and
+    watchdog).  The returned function's ``chunk`` is ``chunk``."""
     wd_timeout = cfg.meta.device_call_timeout
     lead = cfg.ctx.rank() == 0
+    bounded = cfg.meta.max_steps_per_call is not None
     warm = [False]
 
     def interval(state: SimulationState, t_out: float, progress=None) -> SimulationState:
@@ -332,36 +727,59 @@ def make_interval_fn(cfg: StepConfig):
         try:
             dx = _initial_dx_acc(cfg, state)
             while True:
-                it_before = int(state.iteration)
+                prev = state.iteration
                 if wd is not None and warm[0]:
-                    wd.arm(f"from iteration {it_before}")
-                k = 0
-                while float(state.total_time) <= t_out and (cap is None or k < cap):
-                    state, dx = sph_step(cfg, state, dx)
-                    k += 1
-                done = float(state.total_time) > t_out
+                    wd.arm("from the last chunk's end")
+                state, dx = chunk(state, t_out, dx)
+                t, it, it_before = _host_read(state, prev)
                 if wd is not None:
                     wd.disarm()
                 warm[0] = True
-                _check_interval_progress(state, t_out, it_before)
-                if done:
+                _check_interval_progress(t, it, t_out, it_before)
+                if t > t_out:
                     return state
-                if progress is not None and lead:
+                if progress is not None and lead and bounded:
                     progress(state)
         finally:
             if wd is not None:
                 wd.stop()
 
+    interval.chunk = chunk
     return interval
 
 
+def make_interval_fn(cfg: StepConfig):
+    """The per-output-interval function: steps while ``total_time <= t_out``
+    (reference SPHCellList.jl:742) in chunks of at most
+    ``meta.max_steps_per_call`` - ``make_chunk_loop(cfg,
+    make_chunk_body(cfg))``, as in the JAX package; on the card every chunk
+    of a single-device run is one graph replay and one host read."""
+    return make_chunk_loop(cfg, make_chunk_body(cfg))
+
+
 def make_fixed_steps_fn(cfg: StepConfig, n_steps: int):
-    """Run exactly ``n_steps`` steps (benchmark and test helper)."""
+    """Run exactly ``n_steps`` steps (benchmark and test helper; JAX: one
+    ``fori_loop`` under one ``jit``): chunks of :func:`make_chunk_body` with
+    no output time, bounded at the iteration ``n_steps`` past the start
+    (read once, before the first chunk), until it is reached; one host read
+    per chunk.  A chunk that takes no step (a non-finite ``total_time`` or
+    ``dt``) raises.  The returned function's ``chunk`` is its chunk (on the
+    card its graph is captured at the first call)."""
+    chunk = make_chunk_body(cfg)
 
     def run(state: SimulationState) -> SimulationState:
         dx = _initial_dx_acc(cfg, state)
-        for _ in range(n_steps):
-            state, dx = sph_step(cfg, state, dx)
+        it = int(state.iteration)
+        stop = it + n_steps
+        while it < stop:
+            prev = state.iteration
+            state, dx = chunk(state, math.inf, dx, stop)
+            t, it, it_before = _host_read(state, prev)
+            if it == it_before:
+                raise FloatingPointError(
+                    f"simulation stalled: no steps taken at iteration {it} "
+                    f"(total_time {t}; non-finite dt or state)")
         return state
 
+    run.chunk = chunk
     return run

@@ -11,9 +11,10 @@ The file format is the JAX package's, so that a file written by either
 package loads into the other: every leaf is stored under ``f::`` followed by
 JAX's ``keystr`` of its pytree path (``f::.particles.position``,
 ``f::.cell_start``, ``f::.total_time``, ...), beside ``counter`` and
-``capacity``.  The port adds keys the JAX loader ignores: its host rebuild
-count (``rebuilds``) and the grid the state was stepped on (``grid_cmin``,
-``grid_shape``: a run that re-gridded resumes on its grown grid).  The JAX
+``capacity``.  The port adds keys the JAX loader ignores: its rebuild
+count (``rebuilds``, an int; the state holds it as a device counter) and
+the grid the state was stepped on (``grid_cmin``, ``grid_shape``: a run
+that re-gridded resumes on its grown grid).  The JAX
 package's Pallas tables and their telemetry (``pallas_tables``,
 ``block_tables``, ``max_chunks``) have no counterpart in the port: they are
 skipped on load.  Particle-axis arrays are padded with inactive rows (``id =
@@ -45,7 +46,7 @@ def save_checkpoint(path: str, state, counter: int, grid=None):
     extras = dict(
         counter=np.asarray(counter),
         capacity=np.asarray(state.particles.capacity),
-        rebuilds=np.asarray(state.rebuilds),
+        rebuilds=np.asarray(int(state.rebuilds)),
     )
     if grid is not None:
         extras.update(grid_cmin=np.asarray(grid.cmin), grid_shape=np.asarray(grid.shape))
@@ -103,7 +104,9 @@ def _load_into(data, template: SimulationState) -> Tuple[SimulationState, int]:
             arr = padded
         leaves[name] = arr.astype(dtype, copy=False)
     state = state_from_numpy(leaves, template.particles.device)
-    rebuilds = int(data["rebuilds"]) if "rebuilds" in data else template.rebuilds
+    # an int either way: the files store one, and the state holds it on its
+    # device (SimulationState.__post_init__)
+    rebuilds = int(data["rebuilds"]) if "rebuilds" in data else int(template.rebuilds)
     return state.replace(rebuilds=rebuilds), int(data["counter"])
 
 

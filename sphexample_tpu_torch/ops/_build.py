@@ -118,6 +118,14 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.sph_mdbc_scratch_ints.restype = ctypes.c_longlong
         lib.sph_mdbc_error_string.argtypes = [ci]
         lib.sph_mdbc_error_string.restype = ctypes.c_char_p
+    elif name == "chunk_graph":
+        lib.sph_chunk_graph_build.argtypes = [ci] + [vp] * 8
+        lib.sph_chunk_graph_build.restype = ci
+        for fn in ("launch", "upload", "nodes", "destroy"):
+            getattr(lib, f"sph_chunk_graph_{fn}").argtypes = [vp, vp]
+            getattr(lib, f"sph_chunk_graph_{fn}").restype = ci
+        lib.sph_chunk_graph_error_string.argtypes = [ci]
+        lib.sph_chunk_graph_error_string.restype = ctypes.c_char_p
     elif name == "cell_sweep":
         lib.sph_cell_sweep.argtypes = [vp, ci, vp, vp, vp, vp, vp]
         lib.sph_cell_sweep.restype = ci

@@ -6,7 +6,8 @@ wrapper and its plain version (the counterpart of
 tensors and the plain PyTorch sweep (``interactions.pair_sweep``, the same
 math on the same inputs) only for CPU tensors.  A CUDA tensor launches the
 kernel or raises: there is no fallback.  ``launches`` counts the kernel
-launches of this process through :func:`block_sweep`.
+launches of this process through :func:`block_sweep`, those a chunk graph
+replays included (``ops/launch_count.py``).
 
 :func:`block_sweep_window` is the same kernel on a self window of a longer
 candidate array, and :func:`block_sweep_sharded` the sweep of one slab of a
@@ -32,7 +33,7 @@ cell kernel's schedule).
 from __future__ import annotations
 
 import ctypes
-import threading
+import sys
 from dataclasses import dataclass
 from typing import Optional
 
@@ -45,14 +46,16 @@ from ..models.kernels import W
 from ..state import Particles
 from .cell_list import Grid, stencil_rows
 from .halo import extend, rebase
+from . import launch_count
 from .interactions import PhysicsSpec, SweepOut, pair_sweep
 
 # kernel launches in this process (chip_smoke.py resets and reads them): the
-# single-device entry, and the windowed entries of the sharded path.  Slabs
-# run as threads, so the counts are kept under a lock.
+# single-device entry, and the windowed entries of the sharded path; counted
+# where the kernel launches, replays of a captured launch included
+# (ops/launch_count.py)
 launches = 0
 window_launches = 0
-_count_lock = threading.Lock()
+launch_count.register(sys.modules[__name__], "launches", "window_launches")
 # The largest particle capacity ``assemble_simulation`` gives to this sweep; above it a
 # deck takes the cell sweep (ops/cell_sweep.py), as it does in the JAX
 # package, whose block kernel encodes row offsets in 21 bits.  The CUDA
@@ -521,7 +524,6 @@ def launch_pack(spec, grid, particles, cell_start, pack, self_off: int, dtype,
                 window: bool) -> SweepOut:
     """Launch the kernel on a ready pack: selves are its rows ``[self_off,
     self_off + N)``, N the rows of ``particles`` (cell, active)."""
-    global launches, window_launches
     n, dims = particles.capacity, grid.dims
     variant = kernel_variant(spec, dims)
     if self_off < 0 or self_off + n > pack.shape[0]:
@@ -545,9 +547,6 @@ def launch_pack(spec, grid, particles, cell_start, pack, self_off: int, dtype,
     if err != 0:
         raise RuntimeError(
             f"block_sweep launch failed: {lib.sph_error_string(err).decode()}")
-    with _count_lock:
-        if window:
-            window_launches += 1
-        else:
-            launches += 1
+    launch_count.add(sys.modules[__name__], "window_launches" if window else "launches",
+                     1, dev)
     return collect(out, particles.active, dtype, dims, spec)

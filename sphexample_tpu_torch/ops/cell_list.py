@@ -23,6 +23,7 @@ stencil row ever visits them.
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Tuple
 
@@ -62,7 +63,11 @@ class Grid:
         return tuple(s)
 
 
+@functools.lru_cache(maxsize=None)
 def _i32(values, device):
+    """``values`` (a tuple) as an int32 tensor on ``device``, made once: a
+    copy from the host per call would block it, and a captured graph cannot
+    hold one.  Never written in place."""
     return torch.tensor(values, dtype=torch.int32, device=device)
 
 
@@ -113,8 +118,12 @@ def host_cell_keys(positions: np.ndarray, inv_cutoff: float, grid: Grid) -> np.n
 
 def segment_starts(keys, ncells: int):
     """``cell_start[k] = number of keys < k`` as ``[ncells + 2]`` int32, from
-    a histogram + cumsum (integer-exact, independent of input order)."""
-    cnt = torch.bincount(keys.long() + 1, minlength=ncells + 2)
+    a histogram + cumsum (integer-exact, independent of input order).  The
+    histogram is a scatter-add: ``torch.bincount`` reads the largest key on
+    the host first."""
+    idx = keys.long() + 1
+    cnt = torch.zeros(ncells + 2, dtype=torch.int64, device=keys.device)
+    cnt.scatter_add_(0, idx, torch.ones_like(idx))
     return torch.cumsum(cnt, 0).to(torch.int32)
 
 

@@ -11,7 +11,8 @@ plain PyTorch) - and the plain PyTorch sweep
 (``interactions.pair_sweep``, the same math on the same inputs) only for CPU
 tensors.  A CUDA tensor launches the kernel or raises: there is no fallback.
 ``launches`` counts the kernel launches of this process through
-:func:`cell_sweep`; :func:`cell_sweep_window` (a self window of a longer
+:func:`cell_sweep`, those a chunk graph replays included
+(``ops/launch_count.py``); :func:`cell_sweep_window` (a self window of a longer
 candidate array) and :func:`cell_sweep_sharded` (one slab of a sharded run,
 the counterpart of ``pallas_pair_sweep_sharded``) count in
 ``window_launches``.
@@ -26,7 +27,7 @@ of the output are shared (``block_sweep.MODEL_FIELDS``, ``collect``).
 from __future__ import annotations
 
 import ctypes
-import threading
+import sys
 
 import torch
 
@@ -34,15 +35,17 @@ from ..config import KernelOutputMode, ShiftingMode, ViscosityModel
 from ..state import Particles
 from .block_sweep import (MODEL_FIELDS, WARP, Schedule, _pass_union, collect,
                           model_params, n_sums, sweep_fields, sweep_sharded)
+from . import launch_count
 from .cell_list import Grid
 from .interactions import PhysicsSpec, SweepOut, pair_sweep
 
 # kernel launches in this process (chip_smoke.py resets and reads them): the
-# single-device entry, and the windowed entries of the sharded path; under a
-# lock, since slabs run as threads
+# single-device entry, and the windowed entries of the sharded path; counted
+# where the kernel launches, replays of a captured launch included
+# (ops/launch_count.py)
 launches = 0
 window_launches = 0
-_count_lock = threading.Lock()
+launch_count.register(sys.modules[__name__], "launches", "window_launches")
 
 
 class CellSweepParams(ctypes.Structure):
@@ -170,7 +173,6 @@ def launch_pack(spec, grid, particles, cell_start, pack, self_off: int, dtype,
                 window: bool) -> SweepOut:
     """Launch the kernel on a ready pack: selves are its rows ``[self_off,
     self_off + N)``, N the rows of ``particles`` (active)."""
-    global launches, window_launches
     n, dims = particles.capacity, grid.dims
     variant = kernel_variant(spec, dims)
     if self_off < 0 or self_off + n > pack.shape[0]:
@@ -196,9 +198,6 @@ def launch_pack(spec, grid, particles, cell_start, pack, self_off: int, dtype,
     if err != 0:
         raise RuntimeError("cell_sweep launch failed: "
                            f"{lib.sph_cell_sweep_error_string(err).decode()}")
-    with _count_lock:
-        if window:
-            window_launches += 1
-        else:
-            launches += 1
+    launch_count.add(sys.modules[__name__], "window_launches" if window else "launches",
+                     1, dev)
     return collect(out, particles.active, dtype, dims, spec)

@@ -33,7 +33,8 @@ modes, one C call each:
 A CUDA tensor launches the kernel or raises: there is no fallback.
 ``launches`` counts the moment kernels launched (one per stage 04 on the
 card), ``group_launches`` the grouping kernels launched before them (four
-per call), both as the C call reports them.  The
+per call), both as the C call reports them, those a chunk graph replays
+included (``ops/launch_count.py``).  The
 kernel reads the f32 position, density and motion limiter (any other dtype is
 cast first) and sums in f32.  :func:`ghost_groups` is the plain mirror of the
 grouping, for the tests and for ``chip_smoke.py``'s counts.
@@ -42,20 +43,22 @@ grouping, for the tests and for ``chip_smoke.py``'s counts.
 from __future__ import annotations
 
 import ctypes
-import threading
+import sys
 
 import torch
 
 from ..config import KernelFamily
 from ..models import kernels as K
+from . import launch_count
 from .cell_list import Grid, cell_coords, clamp_coords, linearize, row_segments
 from .interactions import PhysicsSpec, candidates
 
 # kernel launches in this process (chip_smoke.py resets and reads them);
-# under a lock, since the slabs of a sharded run are threads
+# counted where the C call launches them, replays of a captured call included
+# (ops/launch_count.py)
 launches = 0
 group_launches = 0
-_count_lock = threading.Lock()
+launch_count.register(sys.modules[__name__], "launches", "group_launches")
 # ghosts per gather of the plain version: bounds its transient footprint
 GHOST_CHUNK = 4096
 DET_THRESHOLD = 1e-3     # |det A| below it: Shepard or keep (reference :606)
@@ -321,7 +324,6 @@ def _launch(spec, grid, B, ghost, bidx, gvalid, position, density, motion_limite
     """One C call: moments mode (``bidx`` None: ``ghost`` is the f32 [B, D]
     slots) or fused mode (``ghost`` the particles' ghost points, ``own`` =
     (their position, their density, the output density))."""
-    global launches, group_launches
     from ._build import load_library
 
     lib = load_library("mdbc_moments")
@@ -345,9 +347,9 @@ def _launch(spec, grid, B, ghost, bidx, gvalid, position, density, motion_limite
             pos.data_ptr(), rho.data_ptr(), ml.data_ptr(), cs.data_ptr(), ptr(own_pos),
             ptr(own_rho), ptr(out_rho), ptr(decision), ptr(moments), scratch.data_ptr(),
             stream, ctypes.addressof(launched))
-    with _count_lock:
-        group_launches += launched[0]
-        launches += launched[1]
+    me = sys.modules[__name__]
+    launch_count.add(me, "group_launches", launched[0], pos.device)
+    launch_count.add(me, "launches", launched[1], pos.device)
     if err != 0:
         raise RuntimeError("mdbc_moments launch failed: "
                            f"{lib.sph_mdbc_error_string(err).decode()}")

@@ -149,7 +149,14 @@ def make_sharded_fn(cfg: StepConfig, mesh: Mesh, make_fn: Callable,
 def make_sharded_interval_fn(cfg: StepConfig, mesh: Mesh,
                              timeout: float = DEFAULT_TIMEOUT):
     """The per-output-interval function of a sharded run: every rank steps
-    its slab while ``total_time <= t_out``."""
+    its slab while ``total_time <= t_out``.
+
+    Each rank's chunk is the eager one, not the single-device CUDA graph:
+    ``core/step.py:make_chunk_body`` chooses it because ``cfg.ctx`` is
+    sharded.  The ranks are threads that meet at a host barrier inside every
+    step (``parallel/context.py``), and a graph cannot capture a host
+    barrier, so a sharded step still reads the host in stage 02 and in the
+    loop's guard."""
     return make_sharded_fn(cfg, mesh, make_interval_fn, timeout)
 
 

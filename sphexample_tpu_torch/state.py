@@ -193,9 +193,15 @@ class SimulationState:
     # over every rebuild.  It must stay <= the halo (``StepConfig.halo``);
     # ``run_simulation`` raises when it does not.  0 on a single device.
     max_halo: torch.Tensor        # scalar int32
-    # Host-side count of lazy rebuilds taken (the rebuild decision is made
-    # on the host in the port).  Not part of the JAX state.
-    rebuilds: int = 0
+    # Lazy rebuilds taken: a scalar int32 counter on the state's device
+    # (a chunk's graph adds to it; an int given here is put there).  Not
+    # part of the JAX state.
+    rebuilds: Optional[torch.Tensor] = None
+
+    def __post_init__(self):
+        if not isinstance(self.rebuilds, torch.Tensor):
+            self.rebuilds = torch.full((), int(self.rebuilds or 0), dtype=torch.int32,
+                                       device=self.total_time.device)
 
     def replace(self, **kwargs) -> "SimulationState":
         return dataclasses.replace(self, **kwargs)
@@ -241,6 +247,7 @@ def split_state(state: SimulationState, devices) -> tuple:
         cut = lambda a: a[r * C:(r + 1) * C].to(dev, copy=True)  # noqa: E731
         slabs.append(dataclasses.replace(
             state, particles=state.particles.map(cut),
+            rebuilds=state.rebuilds.to(dev, copy=True),
             **{k: cut(getattr(state, k)) for k in _SLAB_TENSORS},
             **{k: getattr(state, k).to(dev, copy=True) for k in _STATE_TENSORS
                if k not in _SLAB_TENSORS}))
@@ -259,7 +266,7 @@ def gather_state(states, device=None) -> SimulationState:
                              for f in fields})
     first = states[0]
     return dataclasses.replace(
-        first, particles=particles,
+        first, particles=particles, rebuilds=first.rebuilds.to(dev),
         **{k: cat(lambda s, k=k: getattr(s, k)) for k in _SLAB_TENSORS},
         **{k: getattr(first, k).to(dev) for k in _STATE_TENSORS
            if k not in _SLAB_TENSORS})
@@ -290,6 +297,31 @@ def state_tensors(state: SimulationState) -> Dict[str, torch.Tensor]:
     out = {f"particles.{f}": getattr(state.particles, f) for f in _PARTICLE_FIELDS}
     out.update({k: getattr(state, k) for k in _STATE_TENSORS})
     return out
+
+
+def state_leaves(state: SimulationState) -> tuple:
+    """Every tensor of a single-device state, ``rebuilds`` included, in a
+    fixed order (:func:`clone_state`, :func:`copy_state_`)."""
+    return (state.particles.tensors() + tuple(getattr(state, k) for k in _STATE_TENSORS)
+            + (state.rebuilds,))
+
+
+def clone_state(state: SimulationState) -> SimulationState:
+    """A copy of ``state`` that shares no storage with it."""
+    leaves = [a.clone() for a in state_leaves(state)]
+    n = len(_PARTICLE_FIELDS)
+    return SimulationState(particles=Particles.from_tensors(leaves[:n]),
+                           **dict(zip(_STATE_TENSORS, leaves[n:-1])),
+                           rebuilds=leaves[-1])
+
+
+def copy_state_(dst: SimulationState, src: SimulationState) -> None:
+    """Write every tensor of ``src`` into the same tensor of ``dst``, in
+    place (shapes and dtypes must agree); a tensor that is already ``dst``'s
+    is skipped."""
+    for d, s in zip(state_leaves(dst), state_leaves(src)):
+        if d is not s:
+            d.copy_(s)
 
 
 def state_to_numpy(state) -> Dict[str, np.ndarray]:

@@ -17,7 +17,11 @@ their plain versions and against the single-device kernels, the window
 entries' input checks, and 4-slab runs as thread ranks on the cards visible.
 The host loop: a grid escape re-gridded and replayed on the card, a card
 state's checkpoint round trip, and ``check_determinism`` for the block sweep,
-the cell sweep and the mDBC kernel.  A CUDA kernel has no CPU mode, so
+the cell sweep and the mDBC kernel.  The chunk graph
+(``core/step.py:make_chunk_body``): bit for bit the eager loop on a 3D
+deck, an mDBC deck and a moving deck, a replay under sync-debug mode, a
+failed capture raising, the launch counts after replays, a handed-out state
+unchanged by the next replay.  A CUDA kernel has no CPU mode, so
 these tests are marked ``gpu`` and skip without a card.  They import no JAX,
 so they also run where JAX is absent:
 
@@ -1129,7 +1133,7 @@ def test_four_slab_run_on_the_card(cuda, mdbc_on, block):
     assert mod.window_launches == w0 + 2 * steps * 4
     assert mod.launches == s0 and other.window_launches == o0
     assert mm.launches == m0 + (steps * 4 if mdbc_on else 0)
-    assert len({s.rebuilds for s in states}) == 1 and states[0].rebuilds == one.rebuilds
+    assert len({int(s.rebuilds) for s in states}) == 1 and states[0].rebuilds == one.rebuilds
     four = gather_state(states, cuda)
     assert 0 < int(four.max_halo) <= cfg.halo
     assert float(four.total_time) == float(one.total_time)
@@ -1307,13 +1311,15 @@ def test_regrid_replay_on_the_card(cuda, monkeypatch):
     sim = _escape_on(cuda)
     grid0 = sim.cfg.grid
     calls = []
-    real = step.sph_step
+    real = step._check_interval_progress
 
-    def counted(cfg, state, dx):
-        calls.append(1)
-        return real(cfg, state, dx)
+    def counted(t, it, t_out, it_before):
+        # the steps of every chunk, the failed interval's included: under the
+        # chunk graph ``sph_step`` runs only while the graph is captured
+        calls.extend([1] * (it - it_before))
+        return real(t, it, t_out, it_before)
 
-    monkeypatch.setattr(step, "sph_step", counted)
+    monkeypatch.setattr(step, "_check_interval_progress", counted)
     before = bs.launches
     T.run_simulation(sim, max_intervals=1)
     torch.cuda.synchronize()
@@ -1367,3 +1373,197 @@ def test_determinism_of_the_kernels(cuda, mdbc_on, block):
     assert check_determinism(sim, n_steps=5)
     assert mod.launches - s0 == 2 * 5 * 2 and other.launches == o0
     assert mm.launches - m0 == (10 if mdbc_on else 0)
+
+
+# --- the chunk graph: a chunk of steps as one CUDA graph (core/step.py) ------------
+
+
+def _dam_break(device, cap=8):
+    pos, dens, ptype, grp, idp = dam_break_3d(DX)
+    const = T.SimulationConstants(dx=DX, c0=33.14, alpha=0.1, m0=1000 * DX**3, cfl=0.2)
+    kern = T.make_kernel(T.KernelFamily.WENDLAND_C2, 3, h=float(np.sqrt(3 * DX**2)))
+    meta = T.SimulationMetaData(simulation_name="gpu_chunk", save_location=".", dims=3,
+                                max_steps_per_call=cap)
+    return T.assemble_simulation(pos + 0.0037, dens, ptype, grp, idp, meta, const, kern,
+                                 T.ViscosityModel.ARTIFICIAL,
+                                 T.DensityDiffusionModel.LINEAR, device=device)
+
+
+def _falling(sim, speed=5.0):
+    """The start state with the fluid falling at ``speed``: a rebuild every
+    few steps."""
+    p = sim.state.particles
+    v = p.velocity.clone()
+    v[:, -1] = torch.where(p.ptype == int(T.ParticleType.FLUID), -speed, 0.0)
+    return sim.state.replace(particles=p.replace(velocity=v))
+
+
+def _eager(cfg, state, t_outs):
+    """The reference: each interval a plain loop of ``sph_step`` calls."""
+    from sphexample_tpu_torch.core.step import sph_step
+
+    for t_out in t_outs:
+        dx = torch.full((), 1.0 + cfg.spec.kernel.h, dtype=state.total_time.dtype,
+                        device=state.total_time.device)
+        while float(state.total_time) <= t_out:
+            state, dx = sph_step(cfg, state, dx)
+    return state
+
+
+def _leaves_equal(a, b):
+    from sphexample_tpu_torch.state import state_leaves
+
+    return all(torch.equal(x, y) for x, y in zip(state_leaves(a), state_leaves(b)))
+
+
+def _t_outs(sim, state, n=3, steps=20):
+    dt = float(sim.cfg.spec.constants.cfl) * sim.cfg.spec.kernel.h / sim.cfg.spec.constants.c0
+    t0 = float(state.total_time)
+    return [t0 + k * steps * dt for k in range(1, n + 1)]
+
+
+@pytest.mark.parametrize("deck", ["dam_break", "mdbc", "moving_square"])
+def test_chunk_graph_is_the_eager_loop_bit_for_bit(cuda, deck):
+    """Three intervals of 20 or more steps in chunks of 8 through
+    ``make_interval_fn`` (the chunk graph, rebuilds inside chunks,
+    intervals that end inside one) and through a plain loop of ``sph_step``
+    calls: every tensor bit for bit."""
+    from sphexample_tpu_torch.core.step import make_interval_fn
+
+    if deck == "dam_break":
+        sim = _dam_break(cuda)
+        start = _falling(sim)
+    elif deck == "mdbc":
+        sim = _tall_column(cuda, mdbc_on=True)
+        start = _falling(sim)
+    else:
+        sim, _, _ = _moving_square(cuda, block_sweep=True)
+        start = _falling(sim)
+    cfg = dataclasses.replace(sim.cfg, meta=T.replace(sim.meta, max_steps_per_call=8))
+    interval = make_interval_fn(cfg)
+    t_outs = _t_outs(sim, start)
+    state = start
+    for t_out in t_outs:
+        state = interval(state, t_out)
+    ref = _eager(cfg, start, t_outs)
+    assert int(state.iteration) == int(ref.iteration) >= 60
+    # at least 2 rebuilds more than the intervals' first steps: inside chunks
+    assert int(state.rebuilds) == int(ref.rebuilds) > len(t_outs) + 1
+    assert _leaves_equal(state, ref)
+    assert interval.chunk.graph is not None and interval.chunk.graph.steps == 8
+
+
+def test_chunk_replay_reads_the_host_once(cuda, monkeypatch):
+    """After its capture, an interval in chunks runs under
+    ``set_sync_debug_mode("error")`` with the one host read per chunk
+    (``_host_read``) let through and counted: no other read is on the path."""
+    from sphexample_tpu_torch.core import step
+
+    sim = _dam_break(cuda)
+    start = _falling(sim)
+    interval = step.make_interval_fn(sim.cfg)
+    t_outs = _t_outs(sim, start, n=2)
+    first = interval(start, t_outs[0])
+    reads, real = [0], step._host_read
+
+    def counted(s, prev):
+        reads[0] += 1
+        torch.cuda.set_sync_debug_mode(0)
+        try:
+            return real(s, prev)
+        finally:
+            torch.cuda.set_sync_debug_mode("error")
+
+    monkeypatch.setattr(step, "_host_read", counted)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        end = interval(first, t_outs[1])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    steps = int(end.iteration) - int(first.iteration)
+    assert steps > 8 and reads[0] == -(-steps // 8)
+
+
+def test_failed_capture_raises_and_runs_nothing(cuda, monkeypatch):
+    """A capture that fails raises, naming the cause; the eager loop does not
+    run in its place: only the chunk's first step ran (eagerly, on the
+    chunk's buffers, before the capture: 2 sweep launches), the state handed
+    in is unchanged, and a later capture works."""
+    from sphexample_tpu_torch.core import step
+
+    sim = _dam_break(cuda)
+    before = [a.clone() for a in (sim.state.particles.position, sim.state.total_time)]
+    real = step._write_stage02
+
+    def broken(dst, src):
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("injected fault in the rebuild")
+        real(dst, src)
+
+    monkeypatch.setattr(step, "_write_stage02", broken)
+    b0 = bs.launches
+    with pytest.raises(RuntimeError, match="chunk graph capture failed: injected"):
+        step.make_interval_fn(sim.cfg)(sim.state, 0.001)
+    assert bs.launches == b0 + 2
+    assert torch.equal(sim.state.particles.position, before[0])
+    assert torch.equal(sim.state.total_time, before[1])
+    monkeypatch.setattr(step, "_write_stage02", real)
+    out = step.make_interval_fn(sim.cfg)(sim.state, 0.001)
+    assert float(out.total_time) > 0.001
+    assert bs.launches - b0 == 2 + 2 * int(out.iteration)
+
+
+def test_launch_counts_follow_the_replays(cuda, monkeypatch):
+    """The wrappers count where they launch, and a captured launch counts at
+    every replay that runs it (``ops/launch_count.py``): N steps through the
+    graph count N times 2 sweeps, 1 mDBC call and its 4 grouping kernels,
+    and a count made inside the rebuild's IF body counts the rebuilds that
+    ran, not the steps."""
+    from sphexample_tpu_torch.core import step
+    from sphexample_tpu_torch.ops import launch_count
+
+    sim = _tall_column(cuda, mdbc_on=True)
+    cfg = dataclasses.replace(sim.cfg, meta=T.replace(sim.meta, max_steps_per_call=8))
+    real = step._rebuild
+    monkeypatch.setattr(bs, "window_launches", 0)
+
+    def rebuild(cfg, keep):
+        # a launch of the rebuild's own, counted as a wrapper counts one
+        launch_count.add(bs, "window_launches", 1, keep.dx_acc.device)
+        return real(cfg, keep)
+
+    monkeypatch.setattr(step, "_rebuild", rebuild)
+    start = _falling(sim)
+    b0, m0, g0 = bs.launches, mm.launches, mm.group_launches
+    n = 3 * 8 + 5        # three whole replays and part of a fourth
+    fixed = make_fixed_steps_fn(cfg, n)
+    state = fixed(start)
+    assert fixed.chunk.graph is not None
+    assert int(state.iteration) == int(start.iteration) + n
+    assert bs.launches - b0 == 2 * n
+    assert mm.launches - m0 == n and mm.group_launches - g0 == 4 * n
+    rebuilds = int(state.rebuilds) - int(start.rebuilds)
+    assert 1 < rebuilds < n and bs.window_launches == rebuilds
+
+
+def test_saver_snapshot_unchanged_by_the_next_replay(cuda):
+    """A state the chunk loop hands out (what the asynchronous saver holds,
+    and what ``run_simulation`` keeps for a replay) shares no storage with
+    the graph's buffers, and the next interval's replays leave it as it
+    was."""
+    from sphexample_tpu_torch.core.step import make_interval_fn
+    from sphexample_tpu_torch.state import state_leaves
+
+    sim = _dam_break(cuda)
+    start = _falling(sim)
+    interval = make_interval_fn(sim.cfg)
+    t_outs = _t_outs(sim, start, n=2)
+    snap = interval(start, t_outs[0])
+    kept = [a.clone() for a in state_leaves(snap)]
+    buf = interval.chunk.buffers
+    owned = {a.untyped_storage().data_ptr() for a in state_leaves(buf.state)}
+    assert not owned & {a.untyped_storage().data_ptr() for a in state_leaves(snap)}
+    nxt = interval(snap, t_outs[1])
+    torch.cuda.synchronize()
+    assert int(nxt.iteration) > int(snap.iteration)
+    assert all(torch.equal(a, b) for a, b in zip(kept, state_leaves(snap)))

@@ -181,7 +181,8 @@ def test_build_is_lazy():
     """Importing the port builds nothing; the build helpers find the sources."""
     from sphexample_tpu_torch.ops import _build
 
-    assert list(_build.sources()) == ["block_sweep", "cell_sweep", "mdbc_moments"]
+    assert list(_build.sources()) == ["block_sweep", "cell_sweep", "chunk_graph",
+                                      "mdbc_moments"]
     # a library's name carries its source, the shared headers and the flags
     assert _build._target("mdbc_moments").name.startswith("libmdbc_moments-")
     assert not _build._libs
