@@ -311,6 +311,25 @@ Phases, each printing one JSON line (any failure exits non-zero):
               must take the eager loop's 18,026 steps, the still tank and the
               square end on its digests (``f98da5ed``, ``dd571990``).
 
+22. chunk_graph_sharded_main, chunk_graph_sharded_mdbc,
+              chunk_graph_sharded_moving_square - phase 21's decks and
+              intervals on 4 slabs of card 0 (the square through the cell
+              sweep, B3s): the sharded interval function, whose chunk of every
+              slab's steps is one CUDA graph replay (its capture under
+              ``set_sync_debug_mode("error")``), against the ranks' eager
+              chunk (``core/step.py:_eager_chunk``, the route of slabs on
+              several cards) in turns (eager, graph, graph, eager): the same
+              steps per interval and end digest, every rank the same rebuilds,
+              2 windowed sweep launches (+ 1 mDBC call and 4 grouping kernels)
+              a step a slab counted at the replays, one host read per chunk
+              under sync-debug mode; it prints the route, capture and
+              instantiate seconds, nodes per step, the graph's memory, wall ms
+              per step in turns (every turn on the same digest) and each
+              chunk's device ms per step and busy share: the graph's by CUDA
+              events around its launches (its slabs' branches overlap, so a
+              kernel sum would count time twice), the eager chunk's by the
+              profiler over the first interval.
+
 Then the card's name and power limit from nvidia-smi on a line of their own,
 and last ``{"ok": true, "device": {...}}``.
 
@@ -338,7 +357,6 @@ import shutil
 import subprocess
 import sys
 import tempfile
-import threading
 import time
 from pathlib import Path
 
@@ -347,7 +365,8 @@ import torch
 
 import procedural_decks as pd
 import sphexample_tpu_torch as T
-from sphexample_tpu_torch.core.step import _sweep, make_fixed_steps_fn, sph_step
+from sphexample_tpu_torch.core.step import (_eager_chunk, _initial_dx_acc, _sweep,
+                                            make_chunk_loop, make_fixed_steps_fn, sph_step)
 from sphexample_tpu_torch.io.casegen import dam_break_2d, dam_break_3d
 from sphexample_tpu_torch.io import csv_io, native
 from sphexample_tpu_torch.io.checkpoint import (load_checkpoint, resume_simulation,
@@ -1107,10 +1126,10 @@ def build_graph(fixed, cfg, state):
     function) before a timed window: a chunk of one step from ``state``
     (the accumulator at 1 + h, so that the step rebuilds, as a run's first
     does), whose result is dropped.  That step is the one the chunk runs
-    eagerly before its capture."""
-    dx = torch.full((), 1.0 + cfg.spec.kernel.h, dtype=state.total_time.dtype,
-                    device=state.total_time.device)
-    fixed.chunk(state, math.inf, dx, int(state.iteration) + 1)
+    eagerly before its capture.  A sharded ``state``: the tuple of slab
+    states, the graph of every slab's step."""
+    lead = state[0] if isinstance(state, tuple) else state
+    fixed.chunk(state, math.inf, _initial_dx_acc(cfg, state), int(lead.iteration) + 1)
     if fixed.chunk.graph is None:
         fail("build_graph: the chunk built no graph")
 
@@ -1554,6 +1573,8 @@ def run_sharded_phase(sim, single_end, label, mdbc_on, sweep="block", falling=Tr
     fixed0 = g0.particles.ptype == int(T.ParticleType.FIXED)
     del g0
     states = make_sharded_fixed_steps_fn(cfg, sim_sh.mesh, WARM_STEPS)(sim_sh.state)
+    fixed = make_sharded_fixed_steps_fn(cfg, sim_sh.mesh, STEPS)
+    build_graph(fixed, cfg, states)
     torch.cuda.synchronize()
     rebuilds0 = [int(s.rebuilds) for s in states]
     torch.cuda.reset_peak_memory_stats()
@@ -1561,7 +1582,7 @@ def run_sharded_phase(sim, single_end, label, mdbc_on, sweep="block", falling=Tr
     cw.launches = cw.window_launches = 0
     mm.launches = mm.group_launches = 0
     t0 = time.perf_counter()
-    states = make_sharded_fixed_steps_fn(cfg, sim_sh.mesh, STEPS)(states)
+    states = fixed(states)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = {"block": bs.window_launches, "cell": cw.window_launches}
@@ -1584,7 +1605,7 @@ def run_sharded_phase(sim, single_end, label, mdbc_on, sweep="block", falling=Tr
     C = p.capacity // N_SLABS
     run = {
         "phase": label, "n": n, "slabs": N_SLABS, "cards": torch.cuda.device_count(),
-        "slab_devices": [str(d) for d in sim_sh.mesh.devices],
+        "slab_devices": [str(d) for d in sim_sh.mesh.devices], "chunk": fixed.chunk.route,
         "slab_rows": C, "halo": halo, "window_rows": C + 2 * halo if halo else p.capacity,
         "max_halo": int(state.max_halo), "steps": STEPS, "wall_s": wall,
         "particle_steps_per_s": n * STEPS / wall, "ms_per_step": 1e3 * wall / STEPS,
@@ -1603,9 +1624,13 @@ def run_sharded_phase(sim, single_end, label, mdbc_on, sweep="block", falling=Tr
         "vs_single_device_bitwise": all(v == 0.0 for v in diffs.values()),
         "vs_single_device_in_bands": in_bands,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
+        **(graph_numbers(fixed.chunk) if fixed.chunk.graph is not None else {}),
     }
     emit(run)
     physics_gates(sim, run, label, rho_band, falling)
+    if run["chunk"] != chunk_route(sim_sh.mesh) or (run["chunk"] == "graph") != (
+            fixed.chunk.graph is not None):
+        fail(f"{label}: the chunk took the {run['chunk']} route on {run['slab_devices']}")
     if (sweep_launches != 2 * STEPS * N_SLABS or other_launches != 0 or single_entry != 0):
         fail(f"{label}: windowed {sweep}-sweep launches {sweep_launches} != 2 x {STEPS} "
              f"steps x {N_SLABS} slabs, or another sweep entry was launched "
@@ -1626,6 +1651,13 @@ def run_sharded_phase(sim, single_end, label, mdbc_on, sweep="block", falling=Tr
         fail(f"{label}: the sharded end state left the trajectory bands of the "
              f"single-device run: {diffs}")
     return sim_sh, states, state, run
+
+
+def chunk_route(mesh):
+    """The chunk route a sharded run must take on ``mesh``: one graph of
+    every slab's steps when all slabs lie on one card, else the eager
+    chunk (``core/step.py:make_chunk_body``)."""
+    return "graph" if len(set(mesh.devices)) == 1 else "eager"
 
 
 def exchange_phase(sim_sh, states, label="exchange", reps=50):
@@ -2126,16 +2158,16 @@ def cli(deck, argv, tmp, name, card, on_save=None):
     slabs = len(sim.state) if isinstance(sim.state, tuple) else 1
     lead = sim.state[0] if slabs > 1 else sim.state
     hg = sim.hourglass
-    steps = calls[0] // slabs
+    steps = calls[0]
+    chunk = getattr(sim.interval_fn, "chunk", None)
     rec = {"phase": name, "deck": deck, "argv": argv, "n": sim.n_live, "card": card,
            "wall_s": wall, "steps": steps, "wall_ms_per_step": 1e3 * wall / steps,
            "loop_ms_per_step": 1e3 * hg.totals["00 SimulationLoop"] / steps,
            "iteration": int(lead.iteration), "sim_time_s": float(lead.total_time),
            "retunes": hg.counts.get("02b Retune neighbor windows", 0),
            "checkpoint_counters": counters, "stderr": err.getvalue()[-2000:],
-           "graph": (graph_numbers(sim.interval_fn.chunk)
-                     if getattr(getattr(sim.interval_fn, "chunk", None), "graph", None)
-                     else None),
+           "chunk": getattr(chunk, "route", None),
+           "graph": graph_numbers(chunk) if getattr(chunk, "graph", None) else None,
            "launches": {"block": bs.launches, "cell": cw.launches,
                         "block_window": bs.window_launches, "cell_window": cw.window_launches,
                         "mdbc": mm.launches, "grouping": mm.group_launches}}
@@ -2227,6 +2259,8 @@ def examples_shard(tmp, main_kept, card):
     if rec["launches"] != want or counter != 2:
         fail(f"examples_shard: launches {rec['launches']} in {steps} steps on {N_SLABS} "
              "slabs")
+    if rec["chunk"] != chunk_route(sim.mesh) or (rec["chunk"] == "graph") != bool(rec["graph"]):
+        fail(f"examples_shard: the chunk took the {rec['chunk']} route")
     if not (in_bands and (rec["halo"] == 0 or 0 < rec["max_halo"] <= rec["halo"])):
         fail(f"examples_shard: off the single-device CLI run: {diffs}")
 
@@ -2306,20 +2340,19 @@ def slab_digests(states):
 
 
 def counted_steps():
-    """Count the steps every rank's interval loop takes (a replayed interval's
-    included) until the returned function restores the count's hook; returns
-    (calls list, restore).  The steps are read from the iteration the loop
-    reads after each chunk (``core/step.py:_check_interval_progress``): in a
-    chunk graph ``sph_step`` runs only while the graph is captured."""
+    """Count the steps the interval loop takes (a replayed interval's
+    included; a sharded run's loop steps every slab at once) until the
+    returned function restores the count's hook; returns (calls list,
+    restore).  The steps are read from the iteration the loop reads after
+    each chunk (``core/step.py:_check_interval_progress``): in a chunk graph
+    ``sph_step`` runs only while the graph is captured."""
     from sphexample_tpu_torch.core import step as step_mod
 
     calls = [0]
-    lock = threading.Lock()         # the sharded ranks are threads
     real = step_mod._check_interval_progress
 
     def counted(t, it, t_out, it_before):
-        with lock:
-            calls[0] += it - it_before
+        calls[0] += it - it_before
         return real(t, it, t_out, it_before)
 
     step_mod._check_interval_progress = counted
@@ -2354,7 +2387,11 @@ def sharded_regrid(tmp, regrid_end, card):
            "halo_before": halo0, "halo_after": sim_sh.cfg.halo, "same_mesh": sim_sh.mesh == mesh0,
            "replays": hg.counts.get("02b Retune neighbor windows", 0),
            "retune_s": hg.totals.get("02b Retune neighbor windows", 0.0), "wall_s": wall,
-           "rank_steps_taken": calls[0], "steps_kept": int(state.iteration),
+           "chunk": sim_sh.interval_fn.chunk.route,
+           "graph": (graph_numbers(sim_sh.interval_fn.chunk)
+                     if sim_sh.interval_fn.chunk.graph is not None else None),
+           "steps_taken": calls[0], "rank_steps_taken": calls[0] * N_SLABS,
+           "steps_kept": int(state.iteration),
            "wall_ms_per_step_kept": 1e3 * wall / max(int(state.iteration), 1),
            "launches": launches, "grid_escapes": int(state.grid_escapes),
            "max_halo": int(state.max_halo),
@@ -2372,8 +2409,10 @@ def sharded_regrid(tmp, regrid_end, card):
     if rec["grid_escapes"] or not (sim_sh.cfg.halo == 0
                                    or 0 < rec["max_halo"] <= sim_sh.cfg.halo):
         fail("sharded_regrid: escapes or a halo overrun left after the replay")
-    if launches != {"block": 0, "block_window": 2 * calls[0], "cell": 0}:
-        fail(f"sharded_regrid: launches {launches} in {calls[0]} rank steps")
+    if launches != {"block": 0, "block_window": 2 * rec["rank_steps_taken"], "cell": 0}:
+        fail(f"sharded_regrid: launches {launches} in {rec['rank_steps_taken']} rank steps")
+    if rec["chunk"] != chunk_route(sim_sh.mesh) or (rec["chunk"] == "graph") != bool(rec["graph"]):
+        fail(f"sharded_regrid: the chunk took the {rec['chunk']} route")
     if not in_bands:
         fail(f"sharded_regrid: off the single-device regrid run: {diffs}")
     simg = unsharded(sim_sh)
@@ -2412,7 +2451,10 @@ def sharded_halo_retune(tmp, card):
            "halo_assembled": halo_full, "halo_cut": HALO_CUT, "failed_max_halo": needs[:1],
            "jax_floor": floor, "slab_rows": C, "halo_after": sim_sh.cfg.halo,
            "replays": sim_sh.hourglass.counts.get("02b Retune neighbor windows", 0),
-           "wall_s": wall, "rank_steps_taken": calls[0], "steps_kept": int(state.iteration),
+           "wall_s": wall,
+           "chunk": getattr(getattr(sim_sh.interval_fn, "chunk", None), "route", None),
+           "steps_taken": calls[0], "rank_steps_taken": calls[0] * N_SLABS,
+           "steps_kept": int(state.iteration),
            "max_halo": int(state.max_halo), "window_launches": bs.window_launches,
            "finite": bool(torch.isfinite(state.particles.position).all())}
     emit(rec)
@@ -2423,9 +2465,11 @@ def sharded_halo_retune(tmp, card):
         fail(f"sharded_halo_retune: halo {sim_sh.cfg.halo} below the floor {floor}")
     if not (state.iteration > 0 and rec["max_halo"] <= sim_sh.cfg.halo and rec["finite"]):
         fail("sharded_halo_retune: the replayed interval did not complete")
-    if bs.window_launches != 2 * calls[0]:
-        fail(f"sharded_halo_retune: {bs.window_launches} window launches in {calls[0]} "
-             "rank steps")
+    if bs.window_launches != 2 * rec["rank_steps_taken"]:
+        fail(f"sharded_halo_retune: {bs.window_launches} window launches in "
+             f"{rec['rank_steps_taken']} rank steps")
+    if rec["chunk"] != chunk_route(sim_sh.mesh):
+        fail(f"sharded_halo_retune: the chunk took the {rec['chunk']} route")
 
 
 def neighbor_list_phase(sim, card):
@@ -3012,14 +3056,15 @@ CHUNK_INTERVAL_STEPS = 90    # about this many steps each: a chunk of 64, then p
 def eager_intervals(cfg, state, t_outs, max_steps=None):
     """The eager reference of phase 21, written here and not in the package:
     each interval a plain Python loop of ``sph_step`` calls while
-    ``total_time <= t_out`` (read on the host; at most ``max_steps``), the
-    accumulator set to 1 + h at its start.  Returns (end state, steps per
-    interval)."""
+    ``total_time <= t_out`` (read on the host and compared in the state's
+    dtype, as the JAX loop compares; at most ``max_steps``), the accumulator
+    set to 1 + h at its start.  Returns (end state, steps per interval)."""
     h, steps = cfg.spec.kernel.h, []
     for t_out in t_outs:
         dx = torch.full((), 1.0 + h, dtype=state.total_time.dtype, device="cuda")
         it0 = int(state.iteration)
-        while float(state.total_time) <= t_out and (
+        t_end = torch.tensor(t_out, dtype=state.total_time.dtype).item()
+        while float(state.total_time) <= t_end and (
                 max_steps is None or int(state.iteration) - it0 < max_steps):
             state, dx = sph_step(cfg, state, dx)
         steps.append(int(state.iteration) - it0)
@@ -3027,13 +3072,15 @@ def eager_intervals(cfg, state, t_outs, max_steps=None):
 
 
 def graph_intervals(interval, state, t_outs):
-    """The same intervals through ``make_interval_fn``'s function (the chunk
-    graph).  Returns (end state, steps per interval)."""
+    """The same intervals through an interval function (``make_interval_fn``'s:
+    the chunk graph; sharded, the tuple of slab states).  Returns (end state,
+    steps per interval)."""
     steps = []
+    lead = (lambda s: s[0]) if isinstance(state, tuple) else (lambda s: s)
     for t_out in t_outs:
-        it0 = int(state.iteration)
+        it0 = int(lead(state).iteration)
         state = interval(state, t_out)
-        steps.append(int(state.iteration) - it0)
+        steps.append(int(lead(state).iteration) - it0)
     return state, steps
 
 
@@ -3177,6 +3224,186 @@ def chunk_graph_phases(card):
     recs.append(chunk_graph_deck("mdbc", assemble_mdbc(case_3d()), card))
     torch.cuda.empty_cache()
     recs.append(chunk_graph_deck(
+        "moving_square", assemble_moving_square(moving_square_case(block_sweep=False)), card))
+    torch.cuda.empty_cache()
+    return recs
+
+
+# --- 22: the sharded chunk as one CUDA graph against the ranks' eager chunk ----------
+
+class capture_under_sync_debug:
+    """While active, every chunk graph's capture (``ChunkGraph._on_ranks``
+    without ``sync``: the ranks' threads capturing) runs under
+    ``torch.cuda.set_sync_debug_mode("error")``: a host read in the
+    captured step raises.  ``count`` is the captures seen."""
+
+    def __enter__(self):
+        from sphexample_tpu_torch.core import step as step_mod
+
+        self.cls, self.real, self.count = step_mod.ChunkGraph, step_mod.ChunkGraph._on_ranks, 0
+        real, me = self.real, self
+
+        def on_ranks(graph, fn, sync):
+            if sync:
+                return real(graph, fn, sync)
+            me.count += 1
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return real(graph, fn, sync)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+
+        self.cls._on_ranks = on_ranks
+        return self
+
+    def __exit__(self, *exc):
+        self.cls._on_ranks = self.real
+
+
+def launch_device_share(graph, fn, steps):
+    """Device ms per step and busy share of ``fn`` (``steps`` steps through
+    the chunk graph ``graph``) by CUDA events around every launch of the
+    graph (its whole run on the card, the gaps between its nodes included)
+    over the host clock's wall: the sharded graph's slabs run on concurrent
+    branches, so the profiler's kernel time sums overlapping kernels, and
+    the profiler is kept off the sharded graph."""
+    real, spans = graph.launch, []
+
+    def timed():
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        real()
+        b.record()
+        spans.append((a, b))
+
+    graph.launch = timed
+    try:
+        _, wall = walled(fn)
+    finally:
+        del graph.launch
+    dev_ms = sum(a.elapsed_time(b) for a, b in spans)
+    return {"device_ms_per_step": dev_ms / steps, "busy_share": dev_ms / 1e3 / wall,
+            "launches_timed": len(spans)}
+
+
+def chunk_graph_sharded_deck(label, sim, card):
+    """Phase 22 on one deck: its fluid falling at 1 m/s, cut into N_SLABS
+    slabs of card 0, CHUNK_INTERVALS intervals of about CHUNK_INTERVAL_STEPS
+    steps through the sharded interval function (a chunk of every slab's
+    steps as one CUDA graph replay, its capture under sync-debug mode) and
+    through the ranks' eager chunk (``core/step.py:_eager_chunk``: the
+    route of slabs on several cards, a host read a step): the same steps
+    and end digest, interval by interval; the graph's build, its launches
+    counted at the replays, its host reads per chunk under sync-debug mode,
+    and both chunks' wall (in turns: eager, graph, graph, eager; every turn
+    held against the graph's first run) and device time (the graph's by
+    CUDA events around its launches, the eager chunk's by the profiler over
+    the first interval, to keep the phase short)."""
+    from sphexample_tpu_torch.state import gather_state as gather
+
+    t_phase = time.perf_counter()
+    digest = lambda states: end_digest(gather(states, "cuda:0"))  # noqa: E731
+
+    p = sim.state.particles
+    down = torch.zeros(p.dims, dtype=p.position.dtype, device=p.device)
+    down[-1] = -1.0
+    fluid = (p.ptype == int(T.ParticleType.FLUID))[:, None]
+    sim.state = sim.state.replace(particles=p.replace(
+        velocity=torch.where(fluid, down, p.velocity)))
+    probe, _ = sph_step(sim.cfg, sim.state, torch.full((), 1e9, dtype=sim.state.total_time.dtype,
+                                                       device="cuda"))
+    dt, t0 = float(probe.current_dt), float(sim.state.total_time)
+    t_outs = [t0 + k * CHUNK_INTERVAL_STEPS * dt for k in range(1, CHUNK_INTERVALS + 1)]
+    del probe
+    sim_sh = shard_simulation(sim, make_mesh(N_SLABS, "cuda:0"))
+    cfg, start = sim_sh.cfg, sim_sh.state
+    interval = sim_sh.interval_fn
+    chunk = interval.chunk
+    eager = make_chunk_loop(cfg, _eager_chunk(cfg))
+    cap = cfg.meta.max_steps_per_call
+    reset_counts()
+    with capture_under_sync_debug() as captured:
+        (g_end, g_steps), g_first_s = walled(lambda: graph_intervals(interval, start, t_outs))
+    launches = {"block": bs.launches, "cell": cw.launches, "block_window": bs.window_launches,
+                "cell_window": cw.window_launches, "mdbc": mm.launches,
+                "grouping": mm.group_launches}
+    graph = chunk.graph
+    steps = sum(g_steps)
+    rebuilds = [int(s.rebuilds) - int(s0.rebuilds) for s, s0 in zip(g_end, start)]
+    chunks = sum(-(-k // cap) for k in g_steps)
+    s_end, reads = host_reads_under_sync_debug(interval, start, t_outs)
+    walls, ends = {"eager": [], "graph": []}, {"eager": [], "graph": []}
+    for who in ("eager", "graph", "graph", "eager"):
+        fn = eager if who == "eager" else interval
+        (end, k), wall = walled(lambda: graph_intervals(fn, start, t_outs))
+        ends[who].append((digest(end), k))
+        walls[who].append(1e3 * wall / steps)
+    e_digest, e_steps = ends["eager"][0]
+    dev_g = launch_device_share(graph, lambda: graph_intervals(interval, start, t_outs),
+                                steps)
+    dev_e = device_share(lambda: graph_intervals(eager, start, t_outs[:1]), g_steps[0])
+    rec = {
+        "phase": f"chunk_graph_sharded_{label}", "n": sim_sh.n_live, "card": card,
+        "slabs": N_SLABS, "slab_devices": [str(d) for d in sim_sh.mesh.devices],
+        "chunk": chunk.route, "sweep_kernel": cfg.sweep_kernel, "halo": cfg.halo,
+        "intervals": CHUNK_INTERVALS, "max_steps_per_call": cap, "t_outs": t_outs,
+        "steps_per_interval": g_steps, "eager_steps_per_interval": e_steps,
+        "rebuilds_per_rank": rebuilds, "rebuilds_inside_chunks": rebuilds[0] - CHUNK_INTERVALS,
+        "graph_end_digest": digest(g_end), "eager_end_digest": e_digest,
+        "sync_debug_end_digest": digest(s_end),
+        "turn_end_digests": {k: [d for d, _ in v] for k, v in ends.items()},
+        "captures_under_sync_debug": captured.count,
+        "capture_s": graph.capture_s, "instantiate_s": graph.instantiate_s,
+        "first_run_s_with_build": g_first_s, "graph_steps": graph.steps,
+        "nodes_per_step": graph.nodes_per_step, "graph_memory_mb": graph.memory_bytes / 2**20,
+        "launches_per_step_per_slab": {k: v / steps / N_SLABS for k, v in launches.items()
+                                       if v},
+        "launches": launches, "chunks": chunks, "host_reads": reads,
+        "host_reads_per_chunk": reads / chunks,
+        "wall_ms_per_step_graph": walls["graph"], "wall_ms_per_step_eager": walls["eager"],
+        **{f"graph_{k}": v for k, v in dev_g.items()},
+        **{f"eager_{k}": v for k, v in dev_e.items()},
+        "phase_s": time.perf_counter() - t_phase,
+    }
+    emit(rec)
+    mdbc_on = cfg.meta.mdbc is T.MDBCMode.SIMPLE
+    per = steps * N_SLABS
+    want = {"block": 0, "cell": 0,
+            "block_window": 2 * per if cfg.sweep_kernel == "block" else 0,
+            "cell_window": 2 * per if cfg.sweep_kernel == "cell" else 0,
+            "mdbc": per if mdbc_on else 0,
+            "grouping": len(GROUP_KERNELS) * per if mdbc_on else 0}
+    name = rec["phase"]
+    if chunk.route != "graph" or graph is None or captured.count != 1:
+        fail(f"{name}: the slabs of one card took the {chunk.route} route "
+             f"({captured.count} captures)")
+    if g_steps != e_steps or rec["graph_end_digest"] != rec["eager_end_digest"]:
+        fail(f"{name}: the graph's steps {g_steps} / end state differ from the eager "
+             f"chunk's {e_steps}")
+    if rec["sync_debug_end_digest"] != rec["graph_end_digest"] or any(
+            (d, k) != (rec["graph_end_digest"], g_steps) for v in ends.values() for d, k in v):
+        fail(f"{name}: a run under sync-debug mode or a turn ended elsewhere")
+    if reads != chunks:
+        fail(f"{name}: {reads} host reads in {chunks} chunks")
+    if launches != want:
+        fail(f"{name}: launches {launches} in {steps} steps on {N_SLABS} slabs, not {want}")
+    if len(set(rebuilds)) != 1 or not any(k % cap for k in g_steps) or (
+            rec["rebuilds_inside_chunks"] < 2):
+        fail(f"{name}: the ranks' rebuilds {rebuilds} differ, no interval ended inside a "
+             f"chunk, or fewer than 2 rebuilds inside chunks ({g_steps})")
+    return rec
+
+
+def chunk_graph_sharded_phases(card):
+    """Phase 22: the sharded chunk graph against the ranks' eager chunk on
+    4 slabs of one card: the main deck (cell 1, B2), the mDBC deck (cell 2,
+    B2 + B4 on the halo) and the moving square with the cell sweep (cell 4,
+    B3s)."""
+    recs = [chunk_graph_sharded_deck("main", assemble(case_3d()), card)]
+    torch.cuda.empty_cache()
+    recs.append(chunk_graph_sharded_deck("mdbc", assemble_mdbc(case_3d()), card))
+    torch.cuda.empty_cache()
+    recs.append(chunk_graph_sharded_deck(
         "moving_square", assemble_moving_square(moving_square_case(block_sweep=False)), card))
     torch.cuda.empty_cache()
     return recs
@@ -3661,6 +3888,8 @@ def main(argv):
     case_phases(smi)
     # 21 - a chunk of steps as one CUDA graph, against the eager loop
     chunk_graph_phases(smi)
+    # 22 - the sharded chunk as one CUDA graph, against the ranks' eager chunk
+    chunk_graph_sharded_phases(smi)
 
     emit({"phase": "elapsed", "seconds": time.perf_counter() - t_start})
     # 15 - the kernel line

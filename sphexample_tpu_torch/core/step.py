@@ -44,14 +44,20 @@ and so the physics.  A plain call of :func:`sph_step` decides it on the host
 JAX ``lax.while_loop``) decides it on the device: on the card the chunk is
 one CUDA graph (``csrc/chunk_graph.cu``) in which every step is the body of
 an IF node on ``total_time <= t_out`` and the rebuild the body of an IF node
-on ``dx_acc >= h``, both compared in f64 as the host compares them, and
-:func:`make_chunk_loop` reads the host once per chunk.  The JAX package
-compares in the state's dtype; a value between f32(h) and h is where the two
-could part (ROADMAP §C).  In a sharded run every rank takes the same branch:
-the accumulator is built from the ``pmax`` of stage 00 alone, so all ranks
-hold the same value; the sharded ranks stay on the host loop
-(:func:`make_chunk_body` chooses by ``cfg.ctx``), since a graph cannot
-capture the host barrier at which they meet.
+on ``dx_acc >= h``, and :func:`make_chunk_loop` reads the host once per
+chunk.  Both decisions are made in the state's dtype, as the JAX package
+makes them (``dx_acc >= kern.h`` with a weakly typed ``h``, and ``t_out`` in
+the state's dtype): the device flags, the host ``if`` and the loop's end
+test alike.
+
+In a sharded run every rank takes the same branch: the accumulator is built
+from the ``pmax`` of stage 00 alone and the time from the replicated ``dt``,
+so all ranks hold the same values.  :func:`make_chunk_body` routes a sharded
+config by where its slabs lie: all on one card, the chunk of every slab is
+one CUDA graph (rank 0's flags drive the IF nodes; the collectives are
+captured, ``parallel/context.py:GroupCapture``); on several cards, the
+ranks run the eager chunk (:func:`_eager_chunk`), since the body of a
+conditional node stays on one device.
 """
 
 from __future__ import annotations
@@ -75,7 +81,7 @@ from ..ops.cell_sweep import cell_sweep, cell_sweep_sharded
 from ..ops.interactions import PhysicsSpec
 from ..ops.mdbc import mdbc_density_correction, mdbc_density_correction_sharded
 from ..ops.timestep import adaptive_dt
-from ..parallel.context import SINGLE, CommContext
+from ..parallel.context import SINGLE, CommContext, GroupCapture, run_ranks
 from ..state import (Particles, SimulationState, clone_state, copy_state_,
                      state_leaves)
 from ..utils.watchdog import DeviceWatchdog
@@ -221,25 +227,26 @@ def _write_stage02(dst: Stage02, src: Stage02) -> None:
 def _lazy_rebuild(cfg: StepConfig, state: SimulationState, p, dx_acc,
                   branch=None) -> Stage02:
     """Stage 02: rebuild the cell list when ``dx_acc >= h`` (the JAX
-    package's ``lax.cond(dx_acc >= kern.h, do_rebuild, no_rebuild, p)``).
+    package's ``lax.cond(dx_acc >= kern.h, do_rebuild, no_rebuild, p)``),
+    compared in ``dx_acc``'s dtype as JAX compares it: ``h`` is a Python
+    float, which a tensor comparison takes in the tensor's dtype.
 
-    With no ``branch`` (a plain call, the sharded ranks) it is a host ``if``
-    on ``float(dx_acc)``: one device-to-host read, and a rebuild hands on
-    new tensors.  A chunk (:func:`make_chunk_body`) gives its steps a
-    ``branch(flag, body)`` (``StepConfig.branch``): the decision is then
-    ``dx_acc.double() >= h`` on the device, the same f64 comparison, and
-    ``body`` writes the rebuild in place into the tensors that are handed on
-    either way (the chunk's buffers); on the card ``branch`` captures
-    ``body`` as a CUDA graph IF node on the flag, on the CPU it is a host
-    ``if`` on it."""
+    With no ``branch`` (a plain call, the eager chunk) it is a host ``if``
+    on the flag: one device-to-host read, and a rebuild hands on new
+    tensors.  A chunk (:func:`make_chunk_body`) gives its steps a
+    ``branch(flag, body)`` (``StepConfig.branch``): the flag stays on the
+    device, and ``body`` writes the rebuild in place into the tensors that
+    are handed on either way (the chunk's buffers); on the card ``branch``
+    captures ``body`` as a CUDA graph IF node on the flag, on the CPU it is
+    a host ``if`` on it."""
     keep = Stage02(p, state.cell_start, state.max_occupancy, state.max_segment,
                    state.occupied_cells, state.grid_escapes, state.max_halo, dx_acc,
                    state.rebuilds)
-    h = cfg.spec.kernel.h
+    flag = dx_acc >= cfg.spec.kernel.h
     if branch is not None:
-        branch(dx_acc.double() >= h, lambda: _write_stage02(keep, _rebuild(cfg, keep)))
+        branch(flag, lambda: _write_stage02(keep, _rebuild(cfg, keep)))
         return keep
-    if float(dx_acc) >= h:
+    if bool(flag):
         return _rebuild(cfg, keep)
     return keep
 
@@ -358,10 +365,26 @@ def sph_step(cfg: StepConfig, state: SimulationState, dx_acc):
     return new_state, dx_acc
 
 
-def _initial_dx_acc(cfg: StepConfig, state: SimulationState):
-    # 1 + h: the first step of every run/interval rebuilds (reference :739)
+def _initial_dx_acc(cfg: StepConfig, state):
+    """1 + h in the state's dtype on its device: the first step of every
+    run/interval rebuilds (reference :739).  A sharded state (the tuple of
+    its slab states): one accumulator per slab, on the slab's device."""
+    if isinstance(state, tuple):
+        return tuple(_initial_dx_acc(cfg, s) for s in state)
     return torch.full((), 1.0 + cfg.spec.kernel.h, dtype=state.total_time.dtype,
                       device=state.total_time.device)
+
+
+def _lead(state) -> SimulationState:
+    """The state whose scalars speak for a run: rank 0's slab state of a
+    sharded run (the scalars are replicated), else the state itself."""
+    return state[0] if isinstance(state, tuple) else state
+
+
+def _in_dtype(t_out, dtype) -> float:
+    """The output time as the state's dtype holds it (the JAX driver hands
+    its chunks ``t_out`` in the state's dtype), as a Python float."""
+    return torch.tensor(float(t_out), dtype=dtype).item()
 
 
 def _check_interval_progress(t: float, it: int, t_out, it_before: int) -> None:
@@ -379,20 +402,20 @@ def _check_interval_progress(t: float, it: int, t_out, it_before: int) -> None:
         )
 
 
-def _host_read(state: SimulationState, prev_iteration) -> tuple:
+def _host_read(state, prev_iteration) -> tuple:
     """The one host read of a chunk: (total_time, iteration, the iteration
-    ``prev_iteration`` held), in one device-to-host copy.  The same copy
-    brings the launch counters of the state's device, where a chunk graph
-    armed them, and folds them into the kernel wrappers' counts
+    ``prev_iteration`` held), in one device-to-host copy.  A sharded state
+    is read at rank 0's slab, once for all slabs.  The same copy brings the
+    launch counters of that device, every rank's where a chunk graph armed
+    them, and folds them into the kernel wrappers' counts
     (``ops/launch_count.py``)."""
+    state = _lead(state)
     dev = state.total_time.device
     counters = launch_count.counters(dev)
     vals = torch.stack([state.total_time.double(), state.iteration.double(),
                         prev_iteration.double()])
-    if counters is not None:
-        vals = torch.cat([vals, counters.double()])
-    read = vals.tolist()
-    if counters is not None:
+    read = torch.cat([vals] + [c.double() for c in counters]).tolist()
+    if counters:
         launch_count.fold(dev, read[3:])
     return read[0], int(read[1]), int(read[2])
 
@@ -415,10 +438,11 @@ def _signature(state: SimulationState) -> tuple:
 
 
 class _Buffers:
-    """What a chunk owns: the state its steps read and write in place, the
-    displacement accumulator, the output time (f64), the iteration bound and
-    the two decision flags.  Filled from the caller's tensors before a chunk
-    runs and copied out after it, so that no state handed in or out shares
+    """What a chunk owns for one slab (the whole state on a single device):
+    the state its steps read and write in place, the displacement
+    accumulator, the output time and the iteration bound, and the two
+    decision flags.  Filled from the caller's tensors before a chunk runs
+    and copied out after it, so that no state handed in or out shares
     storage with them."""
 
     def __init__(self, state: SimulationState):
@@ -426,7 +450,7 @@ class _Buffers:
         self.signature = _signature(state)
         self.state = clone_state(state)
         self.dx = torch.zeros((), dtype=state.total_time.dtype, device=dev)
-        self.t_out = torch.zeros((), dtype=torch.float64, device=dev)
+        self.t_out = torch.zeros((), dtype=state.total_time.dtype, device=dev)
         self.stop = torch.zeros((), dtype=state.iteration.dtype, device=dev)
         self.live = torch.zeros((), dtype=torch.bool, device=dev)
         self.rebuild = torch.zeros((), dtype=torch.bool, device=dev)
@@ -434,14 +458,14 @@ class _Buffers:
     def load(self, state, t_out: float, dx_acc, stop: Optional[int]) -> None:
         copy_state_(self.state, state)
         self.dx.copy_(dx_acc)
-        self.t_out.fill_(float(t_out))
+        self.t_out.fill_(float(t_out))      # rounded to the state's dtype
         self.stop.fill_(_NO_STOP if stop is None else int(stop))
 
     def set_live(self) -> None:
-        """The guard of the next step: ``total_time <= t_out`` (in f64, as
-        the eager loop compares on the host) and ``iteration < stop``."""
+        """The guard of the next step: ``total_time <= t_out`` (in the
+        state's dtype, as the JAX loop compares) and ``iteration < stop``."""
         s = self.state
-        self.live.copy_((s.total_time.double() <= self.t_out) & (s.iteration < self.stop))
+        self.live.copy_((s.total_time <= self.t_out) & (s.iteration < self.stop))
 
     def step(self, cfg: StepConfig) -> None:
         """One step on the buffers, then the next step's guard.  ``cfg``
@@ -455,55 +479,27 @@ class _Buffers:
         return clone_state(self.state), self.dx.clone()
 
 
-class _Pieces:
-    """PyTorch captures into one memory pool, each kept as its
-    ``cudaGraph_t`` (``keep_graph``): the pieces of a chunk graph, captured
-    in the order they run, so that the pool's memory is reused only as a
-    replay would reuse it."""
-
-    def __init__(self):
-        self.pool = torch.cuda.graph_pool_handle()
-        self.graphs = []
-        self.open = None
-
-    def begin(self) -> None:
-        self.open = torch.cuda.CUDAGraph(keep_graph=True)
-        self.open.capture_begin(pool=self.pool)
-
-    def end(self) -> int:
-        g, self.open = self.open, None
-        g.capture_end()
-        self.graphs.append(g)
-        return g.raw_cuda_graph()
-
-    def abort(self) -> None:
-        if self.open is not None:
-            g, self.open = self.open, None
-            try:
-                g.capture_end()
-            except RuntimeError:
-                pass
-
-
 class _StepCapture:
-    """Stage 02's branch while a step is captured: the flag goes into the
-    chunk's ``rebuild`` buffer, the step's head piece ends, the rebuild is
-    captured as its own piece (the IF node's body) and the tail piece
-    begins."""
+    """Stage 02's branch of one rank while a step is captured: the flag goes
+    into the rank's ``rebuild`` buffer, the step's head piece ends, the
+    rebuild is captured as its own piece (the IF node's body) and the tail
+    piece begins.  At rank 0 ``head`` and ``body`` hold the pieces."""
 
-    def __init__(self, pieces: _Pieces, flag_buf):
-        self.pieces, self.flag_buf = pieces, flag_buf
+    def __init__(self, capture: GroupCapture, rank: int, flag_buf):
+        self.capture, self.rank, self.flag_buf = capture, rank, flag_buf
         self.head = self.body = None
+        self.taken = False
 
     def __call__(self, flag, body) -> None:
-        if self.head is not None:
+        if self.taken:
             raise RuntimeError("a captured step takes stage 02's branch once")
+        self.taken = True
         self.flag_buf.copy_(flag)
-        self.head = self.pieces.end()
-        self.pieces.begin()
+        self.head = self.capture.end(self.rank)
+        self.capture.begin(self.rank)
         body()
-        self.body = self.pieces.end()
-        self.pieces.begin()
+        self.body = self.capture.end(self.rank)
+        self.capture.begin(self.rank)
 
 
 class ChunkGraph:
@@ -514,52 +510,69 @@ class ChunkGraph:
     with the rebuild under an IF node on ``dx_acc >= h``.  Nothing in a step
     depends on its place in the chunk: the buffers are fixed and every
     temporary dies inside the step.  Built once for a state's shapes,
-    replayed per chunk.  Holds what the chip check reads: ``capture_s``,
-    ``instantiate_s``, ``nodes_per_step`` (the step's three pieces, two set
-    kernels and two IF nodes) and ``memory_bytes`` (the device memory
-    reserved while it was built, its pool included)."""
+    replayed per chunk.
 
-    def __init__(self, cfg: StepConfig, steps: int, buf: _Buffers):
-        """``buf``: the chunk's buffers, loaded, their next step live.  That
-        step runs first, eagerly, on a side stream (the warm-up: what the
-        step caches on the device is made before the capture, a rebuild
-        included when the chunk starts an interval); then the next step is
-        captured on the same stream, which runs nothing."""
+    A sharded chunk (``group``: the ranks of one card) is the same graph
+    with every slab's step in each piece: each piece is captured across the
+    ranks' streams (``parallel/context.py:GroupCapture``), the collectives'
+    events become edges between the ranks' branches, and rank 0's flags
+    drive the IF nodes (every rank holds the same values).  The ranks'
+    threads run only for the warm-up and the capture; a replay is one
+    launch from the calling thread.
+
+    Holds what the chip check reads: ``capture_s``, ``instantiate_s``,
+    ``nodes_per_step`` (the step's three pieces, two set kernels and two IF
+    nodes) and ``memory_bytes`` (the device memory reserved while it was
+    built, its pool included)."""
+
+    def __init__(self, cfgs, steps: int, bufs, group=None):
+        """``cfgs`` and ``bufs``: each rank's config and buffers (one of each
+        on a single device), loaded, their next step live.  That step runs
+        first, eagerly, on the ranks' streams (the warm-up: what the step
+        caches on the device is made before the capture, a rebuild included
+        when the chunk starts an interval); then the next step is captured
+        on the same streams, which run nothing."""
         from ..ops._build import load_all, load_library
 
-        dev = buf.state.total_time.device
-        self.steps, self.device, self.buf = steps, dev, buf
+        dev = bufs[0].state.total_time.device
+        self.steps, self.device, self.bufs, self.group = steps, dev, bufs, group
         load_all()
         self._lib = lib = load_library("chunk_graph")
-        launch_count.arm(dev)
+        launch_count.arm(dev, len(bufs))
         mem0 = torch.cuda.memory_reserved(dev)
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        pieces = _Pieces()
+        if group is None:
+            streams = [torch.cuda.Stream(dev)]
+            capture = GroupCapture(None, streams, "global")
+        else:
+            streams = [group.stream(r) for r in range(group.size)]
+            capture = GroupCapture(group, streams, "relaxed")
+        self._streams = streams
+        host = [dataclasses.replace(c, branch=_host_branch) for c in cfgs]
         # a graph freed by the garbage collector during the capture would
-        # destroy CUDA objects while the stream captures: collect first, and
+        # destroy CUDA objects while the streams capture: collect first, and
         # not while capturing
         gc.collect()
         gc.disable()
         try:
-            with torch.cuda.device(dev), torch.cuda.stream(side):
-                buf.step(dataclasses.replace(cfg, branch=_host_branch))
-                side.synchronize()
-                try:
-                    head, step_head, body, tail = self._capture(cfg, pieces)
-                except BaseException:
-                    pieces.abort()          # on the capture's own stream
-                    raise
+            self._on_ranks(lambda r: bufs[r].step(host[r]), sync=True)
+            t0 = time.perf_counter()
+            try:
+                pieces = self._on_ranks(lambda r: self._capture(cfgs[r], r, capture),
+                                        sync=False)[0]
+            except BaseException:
+                capture.abort()
+                raise
+            self.capture_s = time.perf_counter() - t0
         except Exception as e:
             raise RuntimeError(f"chunk graph capture failed: {e}") from e
         finally:
             gc.enable()
-            torch.cuda.current_stream(dev).wait_stream(side)
-        self._pieces = pieces.graphs      # their pool backs the graph's memory
+        self._pieces = capture.graphs      # their pool backs the graph's memory
+        head, step_head, body, tail = pieces
         graph, exe = ctypes.c_void_p(), ctypes.c_void_p()
         t0 = time.perf_counter()
         err = lib.sph_chunk_graph_build(steps, head, step_head, body, tail,
-                                        buf.live.data_ptr(), buf.rebuild.data_ptr(),
+                                        bufs[0].live.data_ptr(), bufs[0].rebuild.data_ptr(),
                                         ctypes.byref(graph), ctypes.byref(exe))
         if err != 0:
             raise RuntimeError("chunk graph instantiation failed: "
@@ -574,22 +587,37 @@ class ChunkGraph:
         self.nodes_per_step = 4 + sum(self._nodes(g) for g in (step_head, body, tail))
         self.memory_bytes = torch.cuda.memory_reserved(dev) - mem0
 
-    def _capture(self, cfg, pieces):
-        """Capture, on the current (side) stream, the chunk's first guard
-        and one step in its three pieces.  Returns their graphs (guard, step
-        head, rebuild, step tail)."""
-        buf = self.buf
-        t0 = time.perf_counter()
-        pieces.begin()
+    def _on_ranks(self, fn, sync: bool) -> list:
+        """``fn(rank)`` on every rank's stream: the ranks' threads of a
+        group (``run_ranks``), or on a single device this thread on a side
+        stream.  The streams wait on the calling thread's stream first;
+        ``sync`` as in ``run_ranks``."""
+        if self.group is not None:
+            return run_ranks(self.group, fn, sync=sync)
+        caller, side = torch.cuda.current_stream(self.device), self._streams[0]
+        with torch.cuda.device(self.device), torch.cuda.stream(side):
+            side.wait_stream(caller)
+            out = [fn(0)]
+            if sync:
+                side.synchronize()
+        if not sync:
+            caller.wait_stream(side)
+        return out
+
+    def _capture(self, cfg, rank: int, capture: GroupCapture):
+        """Rank ``rank``'s part of the capture, on its stream: the chunk's
+        first guard and one step in its three pieces.  Returns, at rank 0,
+        their graphs (guard, step head, rebuild, step tail)."""
+        buf = self.bufs[rank]
+        capture.begin(rank)
         buf.set_live()
-        head = pieces.end()
-        split = _StepCapture(pieces, buf.rebuild)
-        pieces.begin()
+        head = capture.end(rank)
+        split = _StepCapture(capture, rank, buf.rebuild)
+        capture.begin(rank)
         buf.step(dataclasses.replace(cfg, branch=split))
-        tail = pieces.end()
-        if split.body is None:
+        tail = capture.end(rank)
+        if not split.taken:
             raise RuntimeError("stage 02 was not captured as a branch")
-        self.capture_s = time.perf_counter() - t0
         return head, split.head, split.body, tail
 
     def _nodes(self, graph) -> int:
@@ -597,15 +625,20 @@ class ChunkGraph:
         self._lib.sph_chunk_graph_nodes(graph, ctypes.byref(n))
         return n.value
 
-    def replay(self):
-        """One replay on the current stream of the loaded buffers, then the
-        buffers out into new tensors.  No host read."""
+    def launch(self) -> None:
+        """One launch of the graph on the current stream, on the loaded
+        buffers."""
         stream = torch.cuda.current_stream(self.device).cuda_stream
         err = self._lib.sph_chunk_graph_launch(self._exec, stream)
         if err != 0:
             raise RuntimeError("chunk graph launch failed: "
                                f"{self._lib.sph_chunk_graph_error_string(err).decode()}")
-        return self.buf.out()
+
+    def replay(self) -> list:
+        """One launch, then every rank's buffers out into new tensors:
+        [(state, dx_acc), ...].  No host read."""
+        self.launch()
+        return [b.out() for b in self.bufs]
 
     def __del__(self):
         # an executable still running is freed when it completes (CUDA's
@@ -626,73 +659,134 @@ def make_chunk_body(cfg: StepConfig):
     copied from them.
 
     On the card every chunk is one replay of a :class:`ChunkGraph`: every
-    step is the body of an IF node on ``total_time <= t_out``, evaluated on
-    the device in f64, and stage 02's rebuild the body of an IF node on
-    ``dx_acc >= h``; a skipped step leaves every buffer as it was.  No host
-    read happens in a chunk: the caller reads the state once after it.  The
-    first chunk that takes a step (and the first for a state of other
-    shapes) builds the graph: it reads the guard on the host, runs its first
-    step eagerly (the warm-up) and the rest of its steps in the graph.  A
-    capture or instantiation that fails raises; the eager loop is never run
-    in its place.  CPU tensors: the same guarded steps run eagerly on the
-    same buffers, each decision a host ``if``.  ``chunk.graph`` is the
-    graph (None before the card's first chunk), ``chunk.buffers`` the
-    buffers.
+    step is the body of an IF node on ``total_time <= t_out`` and stage
+    02's rebuild the body of an IF node on ``dx_acc >= h``, both evaluated
+    on the device in the state's dtype; a skipped step leaves every buffer
+    as it was.  No host read happens in a chunk: the caller reads the state
+    once after it.  The first chunk that takes a step (and the first for a
+    state of other shapes) builds the graph: it reads the guard on the
+    host, runs its first step eagerly (the warm-up) and the rest of its
+    steps in the graph.  A capture or instantiation that fails raises; the
+    eager loop is never run in its place.  CPU tensors: the same guarded
+    steps run eagerly on the same buffers, each decision a host ``if``.
 
-    A sharded config (``cfg.ctx``) gets :func:`_eager_chunk` instead: its
-    ranks are threads that meet at a host barrier inside the step, which a
-    graph cannot hold."""
-    if cfg.ctx.is_sharded:
+    A sharded config (``cfg.ctx``, rank 0's context of the group) gets the
+    chunk of all its slabs at once (the counterpart of the JAX package's
+    ``shard_map`` of this function): ``state`` and ``dx_acc`` are tuples,
+    one entry per slab.  Its route is chosen by where the slabs lie:
+
+    * all on one card, or all on the CPU: the buffers above, one set per
+      rank on its device, and on the card one graph that holds every slab's
+      step (``route`` "graph");
+    * on several cards: :func:`_eager_chunk` (``route`` "eager") - the
+      ranks' threads step their slabs with a host read per step, since the
+      body of a conditional node stays on one device.
+
+    ``chunk.graph`` is the graph (None before the card's first chunk),
+    ``chunk.buffers`` the buffers (sharded: a list, one per slab),
+    ``chunk.route`` the route."""
+    group = cfg.ctx.group
+    if group is not None and len(set(group.devices)) > 1:
         return _eager_chunk(cfg)
+    n = group.size if group is not None else 1
+    cfgs = [dataclasses.replace(cfg, ctx=cfg.ctx.for_rank(r)) for r in range(n)]
+    host = [dataclasses.replace(c, branch=_host_branch) for c in cfgs]
     steps = cfg.meta.max_steps_per_call or UNBOUNDED_GRAPH_STEPS
-    host_cfg = dataclasses.replace(cfg, branch=_host_branch)
 
     def chunk(state, t_out, dx_acc, stop=None):
-        dev = state.total_time.device
+        states, dxs = (state, dx_acc) if group is not None else ((state,), (dx_acc,))
+        if len(states) != n:
+            raise ValueError(f"{len(states)} slab states for {n} ranks")
+        dev = states[0].total_time.device
         if dev.type not in ("cuda", "cpu"):
             raise ValueError(f"unsupported device {dev}")
-        if chunk.buffers is None or chunk.buffers.signature != _signature(state):
+        if chunk.slabs is None or [b.signature for b in chunk.slabs] != [
+                _signature(s) for s in states]:
             chunk.graph = None
-            chunk.buffers = _Buffers(state)
-        buf = chunk.buffers
-        buf.load(state, t_out, dx_acc, stop)
+            chunk.slabs = [_Buffers(s) for s in states]
+            chunk.buffers = chunk.slabs if group is not None else chunk.slabs[0]
+        bufs = chunk.slabs
+        for b, s, d in zip(bufs, states, dxs):
+            b.load(s, t_out, d, stop)
         if chunk.graph is not None:
-            return chunk.graph.replay()
-        buf.set_live()
+            return _handed_out(chunk.graph.replay(), group)
+        for b in bufs:
+            b.set_live()
         if dev.type == "cuda":
-            if not bool(buf.live):
-                return buf.out()
-            it0 = int(buf.state.iteration)
-            chunk.graph = ChunkGraph(cfg, steps, buf)     # runs the first step
+            if not bool(bufs[0].live):
+                return _handed_out([b.out() for b in bufs], group)
+            it0 = int(bufs[0].state.iteration)
+            # runs the first step
+            chunk.graph = ChunkGraph(cfgs, steps, bufs, group)
             # the rest of this chunk: ``steps`` in all from ``it0``
-            buf.stop.fill_(min(_NO_STOP if stop is None else int(stop), it0 + steps))
-            buf.set_live()
-            return chunk.graph.replay()
-        for _ in range(steps):
-            if not bool(buf.live):
-                break
-            buf.step(host_cfg)
-        return buf.out()
+            for b in bufs:
+                b.stop.fill_(min(_NO_STOP if stop is None else int(stop), it0 + steps))
+                b.set_live()
+            return _handed_out(chunk.graph.replay(), group)
 
-    chunk.graph = chunk.buffers = None
+        def run(r):
+            for _ in range(steps):
+                if not bool(bufs[r].live):
+                    break
+                bufs[r].step(host[r])
+
+        if group is None:
+            run(0)
+        else:
+            run_ranks(group, run)
+        return _handed_out([b.out() for b in bufs], group)
+
+    chunk.graph = chunk.buffers = chunk.slabs = None
+    chunk.route = "graph"
     return chunk
+
+
+def _handed_out(outs, group):
+    """A chunk's [(state, dx_acc), ...] per slab as it hands them out: the
+    pair itself on a single device, a pair of tuples when sharded."""
+    if group is None:
+        return outs[0]
+    return tuple(o[0] for o in outs), tuple(o[1] for o in outs)
 
 
 def _eager_chunk(cfg: StepConfig):
     """A chunk as a host loop of ``sph_step`` calls, each step's guard and
-    its stage 02 decision a host read: what :func:`make_chunk_body` gives a
-    sharded config.  The signature of its chunk."""
+    its stage 02 decision a host read, in the state's dtype: the route of
+    :func:`make_chunk_body` for a sharded config whose slabs lie on several
+    cards, and the reference that the chunk graph is held against.  A
+    sharded config (rank 0's context): the chunk of all slabs, each rank's
+    loop on its thread (``run_ranks``).  The signature of
+    :func:`make_chunk_body`'s chunk."""
     cap = cfg.meta.max_steps_per_call
 
-    def chunk(state, t_out, dx_acc, stop=None):
-        k = 0
-        while (float(state.total_time) <= t_out and (cap is None or k < cap)
+    def steps(cfg_r, state, t_out, dx_acc, stop):
+        t_end, k = _in_dtype(t_out, state.total_time.dtype), 0
+        while (float(state.total_time) <= t_end and (cap is None or k < cap)
                and (stop is None or int(state.iteration) < stop)):
-            state, dx_acc = sph_step(cfg, state, dx_acc)
+            state, dx_acc = sph_step(cfg_r, state, dx_acc)
             k += 1
         return state, dx_acc
 
+    if not cfg.ctx.is_sharded:
+        def chunk(state, t_out, dx_acc, stop=None):
+            return steps(cfg, state, t_out, dx_acc, stop)
+    else:
+        group = cfg.ctx.group
+        cfgs = [dataclasses.replace(cfg, ctx=cfg.ctx.for_rank(r)) for r in range(group.size)]
+
+        def chunk(states, t_out, dx_acc, stop=None):
+            if len(states) != group.size:
+                raise ValueError(f"{len(states)} slab states for {group.size} ranks")
+            if any(d.type == "cuda" for d in group.devices):
+                from ..ops._build import load_all
+
+                load_all()
+            outs = run_ranks(group, lambda r: steps(cfgs[r], states[r], t_out,
+                                                    dx_acc[r], stop))
+            return _handed_out(outs, group)
+
     chunk.graph = chunk.buffers = None
+    chunk.route = "eager"
     return chunk
 
 
@@ -703,31 +797,32 @@ def make_chunk_loop(cfg: StepConfig, chunk):
     that its first step rebuilds (reference :739), and carries across chunks,
     so the trajectory is that of one unchunked loop.  After every chunk the
     host reads the state once (:func:`_host_read`: total time, iteration and
-    the launch counters), checks progress (:func:`_check_interval_progress`)
-    and, when ``meta.max_steps_per_call`` bounds the chunks, fires
-    ``progress(state)`` after every chunk but the last - the analog of the
-    reference's in-interval ProgressMeter spinner (SPHCellList.jl:870-907).
-    With ``meta.device_call_timeout`` set, a watchdog is armed around every
-    chunk after this function's first (which may build the kernels and
-    capture the graph) and warns - or, with ``meta.watchdog_hard``, exits
-    with code 86 so that a supervisor can resume from the last checkpoint -
-    when one blocks longer (utils/watchdog.py).  In a sharded run every rank
-    runs this loop on its slab; rank 0's speaks for the run (progress and
-    watchdog).  The returned function's ``chunk`` is ``chunk``."""
+    the launch counters; a sharded state at rank 0's slab, once for all),
+    checks progress (:func:`_check_interval_progress`), ends the interval
+    once the time passed ``t_out`` in the state's dtype and, when
+    ``meta.max_steps_per_call`` bounds the chunks, fires ``progress(state)``
+    (rank 0's slab state when sharded) after every chunk but the last - the
+    analog of the reference's in-interval ProgressMeter spinner
+    (SPHCellList.jl:870-907).  With ``meta.device_call_timeout`` set, a
+    watchdog is armed around every chunk after this function's first (which
+    may build the kernels and capture the graph) and warns - or, with
+    ``meta.watchdog_hard``, exits with code 86 so that a supervisor can
+    resume from the last checkpoint - when one blocks longer
+    (utils/watchdog.py).  The returned function's ``chunk`` is ``chunk``."""
     wd_timeout = cfg.meta.device_call_timeout
-    lead = cfg.ctx.rank() == 0
     bounded = cfg.meta.max_steps_per_call is not None
     warm = [False]
 
-    def interval(state: SimulationState, t_out: float, progress=None) -> SimulationState:
+    def interval(state, t_out: float, progress=None):
         wd = None
-        if wd_timeout and lead:
+        if wd_timeout:
             wd = DeviceWatchdog(wd_timeout, hard=cfg.meta.watchdog_hard,
                                 context="device chunk")
         try:
             dx = _initial_dx_acc(cfg, state)
+            t_end = _in_dtype(t_out, _lead(state).total_time.dtype)
             while True:
-                prev = state.iteration
+                prev = _lead(state).iteration
                 if wd is not None and warm[0]:
                     wd.arm("from the last chunk's end")
                 state, dx = chunk(state, t_out, dx)
@@ -735,11 +830,11 @@ def make_chunk_loop(cfg: StepConfig, chunk):
                 if wd is not None:
                     wd.disarm()
                 warm[0] = True
-                _check_interval_progress(t, it, t_out, it_before)
-                if t > t_out:
+                _check_interval_progress(t, it, t_end, it_before)
+                if t > t_end:
                     return state
-                if progress is not None and lead and bounded:
-                    progress(state)
+                if progress is not None and bounded:
+                    progress(_lead(state))
         finally:
             if wd is not None:
                 wd.stop()
@@ -753,7 +848,8 @@ def make_interval_fn(cfg: StepConfig):
     (reference SPHCellList.jl:742) in chunks of at most
     ``meta.max_steps_per_call`` - ``make_chunk_loop(cfg,
     make_chunk_body(cfg))``, as in the JAX package; on the card every chunk
-    of a single-device run is one graph replay and one host read."""
+    of a run whose slabs lie on one card is one graph replay and one host
+    read.  A sharded config: the function of the tuple of slab states."""
     return make_chunk_loop(cfg, make_chunk_body(cfg))
 
 
@@ -764,15 +860,16 @@ def make_fixed_steps_fn(cfg: StepConfig, n_steps: int):
     (read once, before the first chunk), until it is reached; one host read
     per chunk.  A chunk that takes no step (a non-finite ``total_time`` or
     ``dt``) raises.  The returned function's ``chunk`` is its chunk (on the
-    card its graph is captured at the first call)."""
+    card its graph is captured at the first call).  A sharded config: the
+    function of the tuple of slab states."""
     chunk = make_chunk_body(cfg)
 
-    def run(state: SimulationState) -> SimulationState:
+    def run(state):
         dx = _initial_dx_acc(cfg, state)
-        it = int(state.iteration)
+        it = int(_lead(state).iteration)
         stop = it + n_steps
         while it < stop:
-            prev = state.iteration
+            prev = _lead(state).iteration
             state, dx = chunk(state, math.inf, dx, stop)
             t, it, it_before = _host_read(state, prev)
             if it == it_before:

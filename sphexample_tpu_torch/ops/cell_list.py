@@ -277,7 +277,7 @@ def row_segments(coords, grid: Grid, cell_start):
     the grid edge (the reference's Dict miss -> empty range,
     SPHCellList.jl:199-203)."""
     dev = coords.device
-    rows = torch.as_tensor(stencil_rows(grid.dims), device=dev)  # [S, D-1]
+    rows = _i32(tuple(map(tuple, stencil_rows(grid.dims).tolist())), dev)  # [S, D-1]
     shape = _i32(grid.shape, dev)
     strides = _i32(grid.strides, dev)
 

@@ -27,6 +27,13 @@ exception in a rank aborts the barrier, so that no other rank waits for it;
 every wait has a timeout (:func:`run_ranks` re-raises).  A
 ``torch.distributed`` backend of the same methods (one process per card) is
 not written yet.
+
+The collectives can be captured into one CUDA graph when every slab lies on
+one card (:class:`GroupCapture`, used by ``core/step.py:ChunkGraph``): every
+``ready`` and ``done`` event is recorded and waited on inside the capture,
+so each becomes an edge between the ranks' branches of the graph, and the
+barrier only orders the posts and the reads while the step is captured.  A
+replay runs the step with no barrier and no host thread per rank.
 """
 
 from __future__ import annotations
@@ -38,6 +45,14 @@ from typing import Callable, List, Optional, Sequence
 import torch
 
 DEFAULT_TIMEOUT = 120.0   # seconds a rank waits for the others
+
+_local = threading.local()
+
+
+def thread_rank() -> int:
+    """The rank of the calling thread inside :func:`run_ranks`; 0 in any
+    other thread."""
+    return getattr(_local, "rank", 0)
 
 
 class LocalGroup:
@@ -218,29 +233,35 @@ class CommContext:
 SINGLE = CommContext()
 
 
-def run_ranks(group: LocalGroup, fn: Callable[[int], object]) -> list:
+def run_ranks(group: LocalGroup, fn: Callable[[int], object], sync: bool = True) -> list:
     """Run ``fn(rank)`` on one thread per rank, each under its device and its
-    own stream, and return the results in rank order.  The first exception of
-    any rank breaks the barrier (no rank is left waiting), and is re-raised
-    here; a rank that does not finish within the group's timeout after the
-    others raises ``TimeoutError``.  Every rank's stream is synchronised
-    before the results are handed back."""
+    own stream, and return the results in rank order.  Every rank's stream
+    first waits on the caller's current stream of its device (where its
+    inputs were made).  The first exception of any rank breaks the barrier
+    (no rank is left waiting), and is re-raised here; a rank that does not
+    finish within the group's timeout after the others raises
+    ``TimeoutError``.  ``sync``: every rank's stream is synchronised before
+    the results are handed back; else (a capture, which must not block the
+    host) the caller's streams wait on the ranks' streams."""
     n = group.size
     results: List = [None] * n
     errors: List = [None] * n
     group.barrier.reset()
+    callers = {d: torch.cuda.current_stream(d) for d in set(group.devices)
+               if d.type == "cuda"}
 
     def work(rank: int):
         dev = group.devices[rank]
+        _local.rank = rank
         try:
             group.take_turn(rank)
             if dev.type == "cuda":
                 stream = group.stream(rank)
                 with torch.cuda.device(dev), torch.cuda.stream(stream):
-                    # inputs were made on the device's default stream
-                    stream.wait_stream(torch.cuda.default_stream(dev))
+                    stream.wait_stream(callers[dev])
                     results[rank] = fn(rank)
-                    stream.synchronize()
+                    if sync:
+                        stream.synchronize()
             else:
                 results[rank] = fn(rank)
         except BaseException as exc:  # noqa: BLE001 - re-raised by the caller
@@ -271,4 +292,93 @@ def run_ranks(group: LocalGroup, fn: Callable[[int], object]) -> list:
     if hung:
         group.barrier.abort()
         raise TimeoutError(f"ranks did not finish: {hung}")
+    if not sync:
+        for rank, dev in enumerate(group.devices):
+            if dev.type == "cuda":
+                callers[dev].wait_stream(group.stream(rank))
     return results
+
+
+class GroupCapture:
+    """CUDA graphs captured across the streams of ``streams`` - one per rank,
+    every rank on one card - in one memory pool, one piece after another,
+    each a ``torch.cuda.CUDAGraph`` kept as its ``cudaGraph_t``
+    (``keep_graph``).  Rank 0's stream is the origin: :meth:`begin` starts a
+    piece there, and every other rank's stream waits on an event recorded on
+    it after the capture began (the fork), so that its work, and what its
+    allocator hands out, belongs to the same capture; :meth:`end` has the
+    origin wait on an event recorded last on every other rank's stream (the
+    join) and ends the piece.  Every rank calls both at the same point of its
+    program, on its own thread and stream; the ranks meet at the group's
+    barrier to order them.  ``group=None``: one rank, on the calling thread.
+
+    ``mode`` is the capture's ``cudaStreamCaptureMode``.  A group captures
+    in ``"relaxed"`` mode: its ranks are threads of one capture, and in
+    ``"global"`` mode a call that CUDA counts as unsafe in any other thread
+    while it is open (a synchronisation, a copy to the host by the
+    asynchronous saver) would fail; and a capture that a rank's failure left
+    open is ended by the thread that called :func:`run_ranks`
+    (:meth:`abort`), which CUDA allows only in relaxed mode."""
+
+    def __init__(self, group: Optional[LocalGroup], streams: Sequence, mode: str):
+        self.group, self.streams, self.mode = group, list(streams), mode
+        self.pool = torch.cuda.graph_pool_handle()
+        self.graphs: List = []          # their pool backs the pieces' memory
+        self.open = None
+        self._fork = None
+        self._joins: List = [None] * len(self.streams)
+
+    def _meet(self, rank: int) -> None:
+        if self.group is not None:
+            self.group.wait(rank)
+
+    def begin(self, rank: int) -> None:
+        """Start a piece (rank 0) and join it (the other ranks)."""
+        if rank == 0:
+            g = torch.cuda.CUDAGraph(keep_graph=True)
+            g.capture_begin(pool=self.pool, capture_error_mode=self.mode)
+            self.open = g
+            if len(self.streams) > 1:
+                self._fork = torch.cuda.Event()
+                self._fork.record()
+        self._meet(rank)
+        if rank:
+            torch.cuda.current_stream().wait_event(self._fork)
+
+    def end(self, rank: int):
+        """End the piece; returns its ``cudaGraph_t`` at rank 0, else None.
+        No rank goes on before it has ended."""
+        if rank:
+            ev = torch.cuda.Event()
+            ev.record()
+            self._joins[rank] = ev
+        self._meet(rank)
+        raw = None
+        if rank == 0:
+            origin = torch.cuda.current_stream()
+            for ev in self._joins[1:]:
+                origin.wait_event(ev)
+            g, self.open = self.open, None
+            g.capture_end()
+            self.graphs.append(g)
+            raw = g.raw_cuda_graph()
+        self._meet(rank)
+        return raw
+
+    def abort(self) -> None:
+        """End a piece left open by a failure, after every rank has stopped:
+        join every stream still capturing, end on the origin, discard."""
+        if self.open is None:
+            return
+        g, self.open = self.open, None
+        origin = self.streams[0]
+        with torch.cuda.stream(origin):
+            for s in self.streams[1:]:
+                with torch.cuda.stream(s):
+                    joined = torch.cuda.is_current_stream_capturing()
+                if joined:
+                    origin.wait_stream(s)
+            try:
+                g.capture_end()
+            except RuntimeError:
+                pass

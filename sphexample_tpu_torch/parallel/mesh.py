@@ -120,18 +120,26 @@ def size_halo(need: int, C: int, min_halo: int = 0) -> int:
     return 0
 
 
+def sharded_config(cfg: StepConfig, mesh: Mesh, timeout: float = DEFAULT_TIMEOUT) -> StepConfig:
+    """``cfg`` with rank 0's context of a new group of the mesh's ranks: the
+    config that the sharded chunk (``core/step.py:make_chunk_body``) and
+    :func:`make_sharded_fn` take."""
+    return dataclasses.replace(cfg, ctx=CommContext(LocalGroup(mesh.devices, timeout), 0))
+
+
 def make_sharded_fn(cfg: StepConfig, mesh: Mesh, make_fn: Callable,
                     timeout: float = DEFAULT_TIMEOUT):
-    """Run a per-device function of the step on every slab at once.
-    ``make_fn(cfg_r)`` builds rank r's function ``(state, *args) -> state``
-    from the config that carries rank r's context; the result takes and
-    returns the tuple of slab states.  On the card every library is built and
-    loaded before the ranks start.  Returns (function, cfg with rank 0's
+    """Run a per-rank function on every slab at once, each rank on its
+    thread (``run_ranks``): ``make_fn(cfg_r)`` builds rank r's function
+    ``(state, *args) -> result`` from the config that carries rank r's
+    context (a step, a sweep, a collective - not the chunk, which takes all
+    slabs at once); the result takes the tuple of slab states and returns
+    the tuple of results.  On the card every library is built and loaded
+    before the ranks start.  Returns (function, cfg with rank 0's
     context)."""
-    group = LocalGroup(mesh.devices, timeout)
-    ctx = CommContext(group, 0)
-    cfg = dataclasses.replace(cfg, ctx=ctx)
-    fns = [make_fn(dataclasses.replace(cfg, ctx=ctx.for_rank(r)))
+    cfg = sharded_config(cfg, mesh, timeout)
+    group = cfg.ctx.group
+    fns = [make_fn(dataclasses.replace(cfg, ctx=cfg.ctx.for_rank(r)))
            for r in range(mesh.size)]
 
     def run(states, *args):
@@ -148,24 +156,26 @@ def make_sharded_fn(cfg: StepConfig, mesh: Mesh, make_fn: Callable,
 
 def make_sharded_interval_fn(cfg: StepConfig, mesh: Mesh,
                              timeout: float = DEFAULT_TIMEOUT):
-    """The per-output-interval function of a sharded run: every rank steps
-    its slab while ``total_time <= t_out``.
-
-    Each rank's chunk is the eager one, not the single-device CUDA graph:
-    ``core/step.py:make_chunk_body`` chooses it because ``cfg.ctx`` is
-    sharded.  The ranks are threads that meet at a host barrier inside every
-    step (``parallel/context.py``), and a graph cannot capture a host
-    barrier, so a sharded step still reads the host in stage 02 and in the
-    loop's guard."""
-    return make_sharded_fn(cfg, mesh, make_interval_fn, timeout)
+    """The per-output-interval function of a sharded run (JAX
+    ``jit(shard_map(make_chunk_body))`` under ``make_chunk_loop``,
+    ``sphexample_tpu/parallel/mesh.py:105-125``): one chunk loop
+    (``core/step.py:make_chunk_loop``) over the chunk of all slabs at once,
+    one host read per chunk for all of them, progress and the watchdog in
+    that one loop.  On the card, with every slab on one card, each chunk is
+    one replay of one CUDA graph that holds every slab's steps, stage 02
+    and the loop's guard; with slabs on several cards, the ranks' eager
+    chunk (``chunk.route``; ``core/step.py:make_chunk_body``).  Returns
+    (function of the tuple of slab states, cfg with rank 0's context)."""
+    cfg = sharded_config(cfg, mesh, timeout)
+    return make_interval_fn(cfg), cfg
 
 
 def make_sharded_fixed_steps_fn(cfg: StepConfig, mesh: Mesh, n_steps: int,
                                 timeout: float = DEFAULT_TIMEOUT):
-    """Exactly ``n_steps`` steps on every slab (benchmark and test helper);
+    """Exactly ``n_steps`` steps on every slab (benchmark and test helper;
+    ``core/step.py:make_fixed_steps_fn`` over the chunk of all slabs);
     ``cfg`` is a sharded simulation's."""
-    return make_sharded_fn(cfg, mesh, lambda c: make_fixed_steps_fn(c, n_steps),
-                           timeout)[0]
+    return make_fixed_steps_fn(sharded_config(cfg, mesh, timeout), n_steps)
 
 
 def shard_simulation(sim: Simulation, mesh: Optional[Mesh] = None,

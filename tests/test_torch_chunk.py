@@ -2,9 +2,10 @@
 ``make_chunk_loop``), on the CPU: the port's chunk against the JAX package's
 ``make_chunk_body`` and ``make_interval_fn`` on the same seeded states in
 f64, stage 02's helper against the JAX step's rebuild and no-rebuild
-branches, the f64 decisions on a constructed tie, the chunk's buffers kept
-apart from every state it hands in or out, the sharded config's eager chunk,
-the launch counters folded at the chunk's host read, and an old
+branches, the decisions in the state's dtype on a constructed tie (JAX's
+answers), the chunk's buffers kept apart from every state it hands in or
+out, a sharded config's route by where its slabs lie, the launch counters
+folded at the chunk's host read, and an old
 checkpoint's ``int`` rebuild count.  On the card the chunk is a CUDA graph
 (``tests/test_torch_cuda.py``); here the same guarded steps run eagerly on
 the same buffers.  Tolerances: tests/test_sweep.py:103-107."""
@@ -148,8 +149,7 @@ def test_stage02_helper_matches_jax_branches(rebuild, falling):
 
 
 def _tie_h():
-    """A smoothing length whose f32 rounding lies below it, and the case
-    built on it (f32)."""
+    """A smoothing length whose f32 rounding lies below it."""
     for dx in (0.05, 0.045, 0.055, 0.06, 0.04):
         h = float(np.sqrt(3 * dx ** 2))
         if float(np.float32(h)) < h:
@@ -157,34 +157,63 @@ def _tie_h():
     raise AssertionError("no spacing with f32(h) < h")
 
 
-def test_decisions_in_f64_on_a_constructed_tie():
-    """Stage 02 and the chunk's guard compare in f64, as the host loop does:
-    an f32 accumulator equal to f32(h) < h does not rebuild (an f32 compare
-    would), and a total time equal to f32(t_out) > t_out ends the interval
-    (an f32 compare would step on).  The JAX package compares in the state's
-    dtype: the known difference of ROADMAP §C."""
+def tie_case(M, **kw):
+    """The f32 3D dam break on that smoothing length, for either package
+    ``M``, in chunks of 4; and h."""
     dx_case, h = _tie_h()
     pos, dens, ptype, grp, idp = dam_break_3d(dx_case)
-    const = T.SimulationConstants(dx=dx_case, c0=33.14, alpha=0.1, m0=1000 * dx_case ** 3,
+    const = M.SimulationConstants(dx=dx_case, c0=33.14, alpha=0.1, m0=1000 * dx_case ** 3,
                                   cfl=0.2)
-    kern = T.make_kernel(T.KernelFamily.WENDLAND_C2, 3, h=h)
-    meta = T.SimulationMetaData(simulation_name="tie", save_location=".", dims=3,
+    kern = M.make_kernel(M.KernelFamily.WENDLAND_C2, 3, h=h)
+    meta = M.SimulationMetaData(simulation_name="tie", save_location=".", dims=3,
                                 dtype="float32", max_steps_per_call=4)
-    sim = T.assemble_simulation(pos + 0.0037, dens, ptype, grp, idp, meta, const, kern,
-                                T.ViscosityModel.ARTIFICIAL,
-                                T.DensityDiffusionModel.LINEAR, device="cpu")
+    sim = M.assemble_simulation(pos + 0.0037, dens, ptype, grp, idp, meta, const, kern,
+                                M.ViscosityModel.ARTIFICIAL,
+                                M.DensityDiffusionModel.LINEAR, **kw)
+    return sim, h
+
+
+def still(state):
+    """``state`` with ``position_half`` at ``position``: stage 00 adds 0 to
+    the accumulator, so stage 02 sees the accumulator handed in."""
+    return state.replace(position_half=state.particles.position)
+
+
+def test_decisions_in_the_state_dtype_on_a_constructed_tie():
+    """Stage 02 and the chunk's guard compare in the state's dtype, as the
+    JAX package compares (``dx_acc >= kern.h`` with a weakly typed ``h``,
+    ``t_out`` in the state's dtype): an f32 accumulator equal to f32(h) < h
+    rebuilds, and a total time equal to f32(t_out) > t_out steps on - in
+    JAX's ``lax.cond`` and while-loop guard, in the chunk's buffers and in
+    the eager chunk alike."""
+    sim, h = tie_case(T, device="cpu")
+    sim_j, _ = tie_case(J)
     st = S.make_fixed_steps_fn(sim.cfg, 2)(sim.state)
     tie = torch.tensor(np.float32(h))
+    assert float(tie) < h
     assert bool(tie >= h)          # torch's f32 compare with the Python double
     assert bool(jnp.float32(h) >= h)   # the JAX package's compare
+    # stage 02 alone: eager, and in a chunk's buffers
     kept = S._lazy_rebuild(sim.cfg, st, st.particles, tie)
-    assert kept.particles is st.particles and int(kept.rebuilds) == int(st.rebuilds)
+    assert kept.particles is not st.particles and int(kept.rebuilds) == int(st.rebuilds) + 1
     buf = S._Buffers(st)
     buf.load(st, 1.0, tie, None)
     seen = []
     S._lazy_rebuild(sim.cfg, buf.state, buf.state.particles, buf.dx,
                     lambda flag, body: seen.append(bool(flag)))
-    assert seen == [False]
+    assert seen == [True]
+    # a whole step from the tie: JAX's lax.cond rebuilds (the accumulator it
+    # hands on is reset), and so do the port's chunk and eager chunk
+    _, dj = jax.jit(lambda s, d: j_step(sim_j.cfg, s, d))(
+        still(sim_j.state), jnp.float32(h))
+    assert float(dj) == 0.0
+    one = int(st.iteration) + 1
+    for chunk in (S.make_chunk_body(sim.cfg), S._eager_chunk(sim.cfg)):
+        out, dx = chunk(still(st), 1.0, tie, one)
+        assert int(out.rebuilds) == int(st.rebuilds) + 1 and float(dx) == 0.0
+        below = torch.tensor(np.nextafter(np.float32(h), np.float32(0)))
+        out, dx = chunk(still(st), 1.0, below, one)
+        assert int(out.rebuilds) == int(st.rebuilds) and float(dx) == float(below)
 
     t_out = 0.1
     assert float(np.float32(t_out)) > t_out
@@ -192,13 +221,20 @@ def test_decisions_in_f64_on_a_constructed_tie():
     dx = S._initial_dx_acc(sim.cfg, at_tie)
     out, _ = S.make_chunk_body(sim.cfg)(at_tie, t_out, dx)
     eager, _ = S._eager_chunk(sim.cfg)(at_tie, t_out, dx)
-    assert int(out.iteration) == int(eager.iteration) == int(st.iteration)
-    # one representable step below: both step on
-    below = st.replace(total_time=torch.tensor(np.nextafter(np.float32(t_out),
-                                                            np.float32(0))))
-    out, _ = S.make_chunk_body(sim.cfg)(below, t_out, dx)
-    eager, _ = S._eager_chunk(sim.cfg)(below, t_out, dx)
     assert int(out.iteration) == int(eager.iteration) == int(st.iteration) + 1
+    sj = sim_j.state.replace(total_time=jnp.float32(t_out))
+    oj, _ = jax.jit(j_chunk_body(sim_j.cfg))(sj, jnp.asarray(t_out, dtype=jnp.float32),
+                                             jnp.float32(1.0 + h))
+    assert int(oj.iteration) == int(sj.iteration) + 1
+    # one representable step above: nobody steps
+    above = st.replace(total_time=torch.tensor(np.nextafter(np.float32(t_out),
+                                                            np.float32(1))))
+    out, _ = S.make_chunk_body(sim.cfg)(above, t_out, dx)
+    eager, _ = S._eager_chunk(sim.cfg)(above, t_out, dx)
+    assert int(out.iteration) == int(eager.iteration) == int(st.iteration)
+    # the interval loop ends on the same test: a state at f32(t_out) takes a step
+    interval = S.make_interval_fn(sim.cfg)
+    assert int(interval(at_tie, t_out).iteration) == int(st.iteration) + 1
 
 
 def _interval_pair(sim_t, sim_j, t_outs):
@@ -264,21 +300,34 @@ def test_chunk_buffers_share_no_storage():
 
 
 def test_sharded_chunk_is_eager_by_its_context(monkeypatch):
-    """A sharded config gets no chunk graph and no buffers: ``make_chunk_body``
-    gives it the eager chunk by its ``ctx``, and the sharded interval
-    function runs with the buffered chunk and the graph made unusable."""
+    """``make_chunk_body`` routes a sharded config by where its slabs lie
+    (its context's devices): all on the CPU or on one card, the buffered
+    chunk of every slab (on the card one graph); on several cards, the
+    eager chunk.  On the CPU the sharded interval function runs with the
+    eager chunk made unusable, through one set of buffers per slab."""
+    from sphexample_tpu_torch.parallel.context import CommContext, LocalGroup
+
     sim = shard_simulation(_assemble_port(), make_mesh(2, "cpu"))
     chunk = S.make_chunk_body(sim.cfg)
-    assert chunk.__qualname__.startswith("_eager_chunk")
+    assert chunk.route == "graph"
+
+    def routed(*devices):
+        ctx = CommContext(LocalGroup([torch.device(d) for d in devices]), 0)
+        return S.make_chunk_body(dataclasses.replace(sim.cfg, ctx=ctx)).route
+
+    assert routed("cuda:0", "cuda:0", "cuda:0", "cuda:0") == "graph"
+    assert routed("cuda:0", "cuda:1") == routed("cuda:0", "cuda:1", "cuda:0") == "eager"
 
     def refused(*args, **kwargs):
-        raise AssertionError("a sharded rank built chunk buffers or a graph")
+        raise AssertionError("a sharded run on the CPU took the eager chunk")
 
-    monkeypatch.setattr(S, "_Buffers", refused)
-    monkeypatch.setattr(S, "ChunkGraph", refused)
-    states = sim.interval_fn(sim.state, 0.001)
+    monkeypatch.setattr(S, "_eager_chunk", refused)
+    interval = S.make_interval_fn(sim.cfg)
+    states = interval(sim.state, 0.001)
     assert len(states) == 2 and float(states[0].total_time) > 0.001
     assert int(states[0].iteration) == int(states[1].iteration) > 1
+    bufs = interval.chunk.buffers
+    assert len(bufs) == 2 and [b.state.total_time.device.type for b in bufs] == ["cpu"] * 2
 
 
 def test_launch_counters_fold_at_the_host_read(monkeypatch):
@@ -296,11 +345,11 @@ def test_launch_counters_fold_at_the_host_read(monkeypatch):
     for mod, name in ((bs, "launches"), (mm, "group_launches")):
         monkeypatch.setattr(mod, name, 0)
     sim = _assemble_port()
-    assert launch_count.counters("cpu") is None
+    assert launch_count.counters("cpu") == []
     launch_count.add(bs, "launches", 1, "cpu")
     assert bs.launches == 1
     launch_count.arm("cpu")
-    counters = launch_count.counters("cpu")
+    (counters,) = launch_count.counters("cpu")
     assert counters.tolist() == [0] * len(launch_count._slots)
     counters[launch_count._slots.index((bs, "launches"))] += 2 * 5     # 5 replayed steps
     counters[launch_count._slots.index((mm, "group_launches"))] += 4 * 5

@@ -1081,9 +1081,10 @@ def test_window_wrappers_reject_what_the_kernels_do_not_take(cuda):
         halo_mod.extend(SINGLE, pl.position, pl.capacity + 1)
 
 
-def _tall_column(device, mdbc_on, block=True):
+def _tall_column(device, mdbc_on, block=True, margin=4):
     """A tall 2D water column between walls (f32): thin in x, long in z, so
-    that 4 slabs of the sorted order are thicker than one stencil reach."""
+    that 4 slabs of the sorted order are thicker than one stencil reach;
+    ``margin`` cells of grid around it."""
     const = T.SimulationConstants(dx=0.02, c0=40.0, cfl=0.3)
     kern = T.make_kernel(T.KernelFamily.WENDLAND_C2, 2, dx=const.dx)
     dx, nx, nz = const.dx, 6, 220
@@ -1102,7 +1103,7 @@ def _tall_column(device, mdbc_on, block=True):
                          np.tile([[dx, 0.0]], (len(lw), 1)),
                          np.tile([[-dx, 0.0]], (len(rw), 1))])
     meta = T.SimulationMetaData("gpu_column", ".", dims=2, block_size=32,
-                                grid_margin_cells=4, block_sweep=block,
+                                grid_margin_cells=margin, block_sweep=block,
                                 mdbc=T.MDBCMode.SIMPLE if mdbc_on else T.MDBCMode.NONE)
     return T.assemble_simulation(
         pos, np.full(n, 1000.0), ptype, np.ones(n, np.int32), np.arange(1, n + 1), meta,
@@ -1389,13 +1390,18 @@ def _dam_break(device, cap=8):
                                  T.DensityDiffusionModel.LINEAR, device=device)
 
 
+def _fluid_vz(state, vz):
+    """``state`` with the fluid's last velocity component at ``vz``."""
+    p = state.particles
+    v = p.velocity.clone()
+    v[:, -1] = torch.where(p.ptype == int(T.ParticleType.FLUID), vz, 0.0)
+    return state.replace(particles=p.replace(velocity=v))
+
+
 def _falling(sim, speed=5.0):
     """The start state with the fluid falling at ``speed``: a rebuild every
     few steps."""
-    p = sim.state.particles
-    v = p.velocity.clone()
-    v[:, -1] = torch.where(p.ptype == int(T.ParticleType.FLUID), -speed, 0.0)
-    return sim.state.replace(particles=p.replace(velocity=v))
+    return _fluid_vz(sim.state, -speed)
 
 
 def _eager(cfg, state, t_outs):
@@ -1405,7 +1411,9 @@ def _eager(cfg, state, t_outs):
     for t_out in t_outs:
         dx = torch.full((), 1.0 + cfg.spec.kernel.h, dtype=state.total_time.dtype,
                         device=state.total_time.device)
-        while float(state.total_time) <= t_out:
+        # the output time in the state's dtype, as the JAX loop compares
+        t_end = torch.tensor(t_out, dtype=state.total_time.dtype).item()
+        while float(state.total_time) <= t_end:
             state, dx = sph_step(cfg, state, dx)
     return state
 
@@ -1567,3 +1575,119 @@ def test_saver_snapshot_unchanged_by_the_next_replay(cuda):
     torch.cuda.synchronize()
     assert int(nxt.iteration) > int(snap.iteration)
     assert all(torch.equal(a, b) for a, b in zip(kept, state_leaves(snap)))
+
+
+# --- the sharded chunk: every slab's steps in one graph (slabs on one card) ---------
+
+def _capture_under_sync_debug(monkeypatch):
+    """Run every chunk graph's capture (``ChunkGraph._on_ranks`` without
+    ``sync``: the ranks' threads capturing) under
+    ``set_sync_debug_mode("error")``: a host read in it raises."""
+    from sphexample_tpu_torch.core import step
+
+    real, captures = step.ChunkGraph._on_ranks, [0]
+
+    def on_ranks(self, fn, sync):
+        if sync:
+            return real(self, fn, sync)
+        captures[0] += 1
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return real(self, fn, sync)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+    monkeypatch.setattr(step.ChunkGraph, "_on_ranks", on_ranks)
+    return captures
+
+
+@pytest.mark.parametrize("n", [2, 4])
+@pytest.mark.parametrize("mdbc_on,block", [(False, True), (True, True), (False, False)])
+def test_sharded_chunk_graph_is_the_eager_chunk_bit_for_bit(cuda, monkeypatch, n, mdbc_on,
+                                                            block):
+    """The tall column on ``n`` slabs of one card, its fluid thrown up at 24
+    m/s (rebuilds inside chunks), three intervals in chunks of 8: through
+    the sharded interval function (one graph of every slab's steps, its
+    capture under sync-debug mode) and through the ranks' eager chunk (a
+    host read a step): every tensor of every slab bit for bit, 2 windowed
+    sweep launches (+ 1 mDBC call) a step a slab counted at the replays,
+    and, once built, one host read per chunk under sync-debug mode."""
+    from sphexample_tpu_torch.core import step
+    from sphexample_tpu_torch.state import state_leaves
+
+    captures = _capture_under_sync_debug(monkeypatch)
+    # room above the column for its rise (~0.5 m): no grid escape
+    sim = _tall_column(cuda, mdbc_on, block, margin=24)
+    sim.meta = T.replace(sim.meta, max_steps_per_call=8)
+    sim.cfg = dataclasses.replace(sim.cfg, meta=sim.meta)
+    sharded = shard_simulation(sim, make_mesh(n, torch.device("cuda", 0)))
+    interval = sharded.interval_fn
+    assert interval.chunk.route == "graph"
+    start = tuple(_fluid_vz(s, 24.0) for s in sharded.state)
+    t_outs = _t_outs(sim, start[0])
+    mod = bs if block else cw
+    w0, m0 = mod.window_launches, mm.launches
+    graph = start
+    for t_out in t_outs[:2]:
+        graph = interval(graph, t_out)
+    assert captures[0] == 1 and interval.chunk.graph is not None
+    reads, real = [0], step._host_read
+
+    def counted(s, prev):
+        reads[0] += 1
+        torch.cuda.set_sync_debug_mode(0)
+        try:
+            return real(s, prev)
+        finally:
+            torch.cuda.set_sync_debug_mode("error")
+
+    monkeypatch.setattr(step, "_host_read", counted)
+    it1 = int(graph[0].iteration)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        graph = interval(graph, t_outs[2])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    monkeypatch.setattr(step, "_host_read", real)
+    assert reads[0] == -(-(int(graph[0].iteration) - it1) // 8)
+    steps = int(graph[0].iteration) - int(start[0].iteration)
+    assert mod.window_launches - w0 == 2 * steps * n
+    assert mm.launches - m0 == (steps * n if mdbc_on else 0)
+    eager_interval = step.make_chunk_loop(sharded.cfg, step._eager_chunk(sharded.cfg))
+    eager = start
+    for t_out in t_outs:
+        eager = eager_interval(eager, t_out)
+    assert int(graph[0].iteration) == int(eager[0].iteration) >= 60
+    rebuilds = int(graph[0].rebuilds) - int(start[0].rebuilds)
+    assert rebuilds > len(t_outs) + 1 and len({int(s.rebuilds) for s in graph}) == 1
+    for a, b in zip(graph, eager):
+        assert all(torch.equal(x, y) for x, y in zip(state_leaves(a), state_leaves(b)))
+
+
+def test_sharded_failed_capture_raises(cuda, monkeypatch):
+    """A sharded capture that fails in one rank raises, naming the cause,
+    with no eager chunk run in its place; the capture left open is ended,
+    the state handed in is unchanged, and a later capture works."""
+    from sphexample_tpu_torch.core import step
+    from sphexample_tpu_torch.parallel.context import thread_rank
+
+    sharded = shard_simulation(_tall_column(cuda, False),
+                               make_mesh(2, torch.device("cuda", 0)))
+    before = [a.clone() for a in (sharded.state[1].particles.position,
+                                  sharded.state[1].total_time)]
+    real = step._write_stage02
+
+    def broken(dst, src):
+        if torch.cuda.is_current_stream_capturing() and thread_rank() == 1:
+            raise RuntimeError("injected fault in rank 1's rebuild")
+        real(dst, src)
+
+    monkeypatch.setattr(step, "_write_stage02", broken)
+    monkeypatch.setattr(step, "_eager_chunk", None)
+    with pytest.raises(RuntimeError, match="chunk graph capture failed: injected"):
+        sharded.interval_fn(sharded.state, 0.001)
+    assert torch.equal(sharded.state[1].particles.position, before[0])
+    assert torch.equal(sharded.state[1].total_time, before[1])
+    monkeypatch.setattr(step, "_write_stage02", real)
+    out = step.make_interval_fn(sharded.cfg)(sharded.state, 0.001)
+    assert float(out[1].total_time) > 0.001 and out[0].iteration == out[1].iteration
