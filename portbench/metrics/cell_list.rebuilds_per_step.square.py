@@ -1,0 +1,5 @@
+"""``cell_list.rebuilds_per_step``, read in the moving square's cell, where it moves that cell's own rate (``particle_steps_per_s.square``)."""
+
+from portbench.harness import find, load_module
+
+read = load_module(find("metrics", "cell_list.rebuilds_per_step", ".py")).read

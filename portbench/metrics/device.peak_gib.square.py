@@ -1,0 +1,5 @@
+"""``device.peak_gib``, read in the moving square's cell, where it moves that cell's own rate (``particle_steps_per_s.square``)."""
+
+from portbench.harness import find, load_module
+
+read = load_module(find("metrics", "device.peak_gib", ".py")).read
