@@ -48,7 +48,7 @@ from ..ops import cell_list as cl
 from ..ops.block_sweep import BLOCK_CAP_LIMIT
 from ..ops.interactions import PhysicsSpec
 from ..state import SimulationState, allocate_particles, gather_state
-from ..utils.timers import HourGlass
+from ..utils.timers import RECORDER, HourGlass, host_read
 from ..utils.watchdog import DeviceWatchdog
 from .motion import build_motion_table
 from .step import StepConfig, make_interval_fn
@@ -209,16 +209,16 @@ def _overflow_reason(cfg: StepConfig, state) -> Optional[str]:
     window dropped pairs).  The lines of JAX ``_overflow_reason`` that the
     port can trip; it has no candidate windows or chunk tables."""
     state = _replicated(state)
-    esc = int(state.grid_escapes)
+    esc = host_read(state.grid_escapes, int)
     if esc > 0:
         return (
             f"{esc} particle(s) escaped the static cell grid and were "
             f"clamped into edge cells (wrong physics); re-grid with a "
             f"larger bounding box or raise grid_margin_cells"
         )
-    if cfg.halo and int(state.max_halo) > cfg.halo:
+    if cfg.halo and host_read(state.max_halo, int) > cfg.halo:
         return (
-            f"stencil windows reached {int(state.max_halo)} sorted rows past "
+            f"stencil windows reached {host_read(state.max_halo, int)} sorted rows past "
             f"a slab boundary, exceeding the halo capacity {cfg.halo}; "
             f"re-shard with a larger halo"
         )
@@ -476,7 +476,16 @@ def run_simulation(
     re-shards with a grown halo) and **replays the interval from the
     pre-interval state**, otherwise it raises.  ``sim.cfg``, ``sim.state``,
     ``sim.interval_fn`` and ``sim.mesh`` are updated in place;
-    ``sim.hourglass`` holds the wall time of the loop's sections."""
+    ``sim.hourglass`` holds the wall time of the loop's sections.
+
+    While tracing is on (``utils/timers.py:start_trace``) each interval is a
+    span ``driver.interval``, its output counter the spans' interval id,
+    with the children ``driver.pre_read``, ``chunk_loop.interval`` (the
+    chunk loop's spans below it), ``driver.overflow_check``,
+    ``driver.retune``, ``driver.save``, ``driver.log`` and
+    ``driver.end_check``; every read of the device here goes through
+    ``host_read``, which counts it (seven an interval with a log callback,
+    three without, one more sharded, besides the chunk loop's one a chunk)."""
     meta = sim.meta
     state = sim.state
     dtype = _replicated(state).total_time.dtype
@@ -504,56 +513,66 @@ def run_simulation(
     intervals = 0
     try:
         while True:
-            # the output time in the state's dtype, as the JAX loop compares
-            t_out = torch.tensor(meta.output_time_for(counter), dtype=dtype).item()
-            prev_iter = int(_replicated(state).iteration)
-            prev_state = state
-            with hourglass.section("00 SimulationLoop"):
-                state = sim.interval_fn(state, t_out, progress_callback)
+            if RECORDER.on:
+                RECORDER.interval = counter + 1
+            with RECORDER.span("driver.interval"):
+                # the output time in the state's dtype, as the JAX loop compares
+                t_out = torch.tensor(meta.output_time_for(counter), dtype=dtype).item()
+                with RECORDER.span("driver.pre_read"):
+                    prev_iter = host_read(_replicated(state).iteration, int)
+                prev_state = state
+                with hourglass.section("00 SimulationLoop", "chunk_loop.interval"):
+                    state = sim.interval_fn(state, t_out, progress_callback)
 
-            overflow = _overflow_reason(sim.cfg, state)
-            if overflow:
-                if not auto_retune:
-                    raise RuntimeError(overflow)
-                with hourglass.section("02b Retune neighbor windows"):
-                    if isinstance(saver, _AsyncSaver):
-                        saver.drain()  # snapshots queued on the old grid and mesh
-                    new_sim, state = _retune(sim, prev_state, state)
-                    sim.cfg = new_sim.cfg
-                    sim.state = new_sim.state
-                    sim.interval_fn = new_sim.interval_fn
-                    sim.mesh = new_sim.mesh
-                continue  # replay the same interval on the grown grid / halo
+                with RECORDER.span("driver.overflow_check"):
+                    overflow = _overflow_reason(sim.cfg, state)
+                if overflow:
+                    if not auto_retune:
+                        raise RuntimeError(overflow)
+                    with hourglass.section("02b Retune neighbor windows", "driver.retune"):
+                        if isinstance(saver, _AsyncSaver):
+                            saver.drain()  # snapshots queued on the old grid and mesh
+                        new_sim, state = _retune(sim, prev_state, state)
+                        sim.cfg = new_sim.cfg
+                        sim.state = new_sim.state
+                        sim.interval_fn = new_sim.interval_fn
+                        sim.mesh = new_sim.mesh
+                    continue  # replay the same interval on the grown grid / halo
 
-            counter += 1
-            intervals += 1
-            lead = _replicated(state)
-            if saver is not None:
-                with hourglass.section("13 Save Particle Data"):
-                    saver(counter, state)
-            if log_callback is not None:
-                log_callback(dict(
-                    counter=counter,
-                    total_time=float(lead.total_time),
-                    iteration=int(lead.iteration),
-                    steps_in_interval=int(lead.iteration) - prev_iter,
-                    dt=float(lead.current_dt),
-                    wall_time=time.perf_counter() - t_wall0,
-                ))
-            if float(lead.total_time) > meta.simulation_time:
-                break
-            if max_intervals is not None and intervals >= max_intervals:
-                break
+                counter += 1
+                intervals += 1
+                lead = _replicated(state)
+                if saver is not None:
+                    with hourglass.section("13 Save Particle Data", "driver.save"):
+                        saver(counter, state)
+                if log_callback is not None:
+                    with RECORDER.span("driver.log"):
+                        log_callback(dict(
+                            counter=counter,
+                            total_time=host_read(lead.total_time),
+                            iteration=host_read(lead.iteration, int),
+                            steps_in_interval=host_read(lead.iteration, int) - prev_iter,
+                            dt=host_read(lead.current_dt),
+                            wall_time=time.perf_counter() - t_wall0,
+                        ))
+                with RECORDER.span("driver.end_check"):
+                    ended = host_read(lead.total_time) > meta.simulation_time
+                if ended:
+                    break
+                if max_intervals is not None and intervals >= max_intervals:
+                    break
     finally:
         try:
             if isinstance(saver, _AsyncSaver):
-                with hourglass.section("13 Save Particle Data"):
+                with hourglass.section("13 Save Particle Data", "driver.save"):
                     saver.close()
         finally:
             # stop the watchdog even when close() raises - a still-armed
             # hard watchdog would os._exit(86) over the real error
             if save_wd is not None:
                 save_wd.stop()
+            if RECORDER.on:
+                RECORDER.interval = None
 
     sim.state = state
     return sim

@@ -84,6 +84,7 @@ from ..ops.timestep import adaptive_dt
 from ..parallel.context import SINGLE, CommContext, GroupCapture, run_ranks
 from ..state import (Particles, SimulationState, clone_state, copy_state_,
                      state_leaves)
+from ..utils.timers import RECORDER, host_read
 from ..utils.watchdog import DeviceWatchdog
 from .motion import MotionTable, progress_motion
 
@@ -402,22 +403,35 @@ def _check_interval_progress(t: float, it: int, t_out, it_before: int) -> None:
         )
 
 
-def _host_read(state, prev_iteration) -> tuple:
+def _host_read(state, prev_iteration, prev_rebuilds=None) -> tuple:
     """The one host read of a chunk: (total_time, iteration, the iteration
     ``prev_iteration`` held), in one device-to-host copy.  A sharded state
     is read at rank 0's slab, once for all slabs.  The same copy brings the
     launch counters of that device, every rank's where a chunk graph armed
     them, and folds them into the kernel wrappers' counts
-    (``ops/launch_count.py``)."""
+    (``ops/launch_count.py``).  With ``prev_rebuilds`` (while tracing) it
+    also brings the state's rebuild count and the one ``prev_rebuilds``
+    held, and closes the chunk's record in ``utils/timers.py:RECORDER``."""
     state = _lead(state)
     dev = state.total_time.device
     counters = launch_count.counters(dev)
-    vals = torch.stack([state.total_time.double(), state.iteration.double(),
-                        prev_iteration.double()])
-    read = torch.cat([vals] + [c.double() for c in counters]).tolist()
+    vals = [state.total_time.double(), state.iteration.double(), prev_iteration.double()]
+    if prev_rebuilds is not None:
+        vals += [state.rebuilds.double(), prev_rebuilds.double()]
+    read = host_read(torch.cat([torch.stack(vals)] + [c.double() for c in counters]),
+                     torch.Tensor.tolist)
     if counters:
-        launch_count.fold(dev, read[3:])
+        launch_count.fold(dev, read[len(vals):])
+    if prev_rebuilds is not None:
+        RECORDER.chunk_done(int(read[1]) - int(read[2]), int(read[3]) - int(read[4]))
     return read[0], int(read[1]), int(read[2])
+
+
+def _before(state) -> tuple:
+    """What :func:`_host_read` compares the state after a chunk with: the
+    iteration before the chunk and, while tracing, the rebuild count."""
+    lead = _lead(state)
+    return (lead.iteration, lead.rebuilds) if RECORDER.on else (lead.iteration,)
 
 
 # steps per replay of a chunk graph when ``meta.max_steps_per_call`` is None
@@ -634,12 +648,6 @@ class ChunkGraph:
             raise RuntimeError("chunk graph launch failed: "
                                f"{self._lib.sph_chunk_graph_error_string(err).decode()}")
 
-    def replay(self) -> list:
-        """One launch, then every rank's buffers out into new tensors:
-        [(state, dx_acc), ...].  No host read."""
-        self.launch()
-        return [b.out() for b in self.bufs]
-
     def __del__(self):
         # an executable still running is freed when it completes (CUDA's
         # rule); no synchronisation here, which a capture would not allow
@@ -682,6 +690,12 @@ def make_chunk_body(cfg: StepConfig):
       ranks' threads step their slabs with a host read per step, since the
       body of a conditional node stays on one device.
 
+    While tracing is on (``utils/timers.py``) the chunk records the spans
+    ``chunk.load`` (the buffers filled), ``chunk.launch``, ``chunk.out``
+    (the state copied out) and ``graph.build``, and around a replay on the
+    card four CUDA events on the calling stream: before and after the
+    load, after the launch, after the copies out.
+
     ``chunk.graph`` is the graph (None before the card's first chunk),
     ``chunk.buffers`` the buffers (sharded: a list, one per slab),
     ``chunk.route`` the route."""
@@ -706,24 +720,42 @@ def make_chunk_body(cfg: StepConfig):
             chunk.slabs = [_Buffers(s) for s in states]
             chunk.buffers = chunk.slabs if group is not None else chunk.slabs[0]
         bufs = chunk.slabs
-        for b, s, d in zip(bufs, states, dxs):
-            b.load(s, t_out, d, stop)
-        if chunk.graph is not None:
-            return _handed_out(chunk.graph.replay(), group)
-        for b in bufs:
-            b.set_live()
-        if dev.type == "cuda":
-            if not bool(bufs[0].live):
+        timed = RECORDER.on and chunk.graph is not None    # a replay's events
+        if timed:
+            RECORDER.chunk_mark(0, dev)
+        with RECORDER.span("chunk.load"):
+            for b, s, d in zip(bufs, states, dxs):
+                b.load(s, t_out, d, stop)
+        if chunk.graph is None:
+            for b in bufs:
+                b.set_live()
+            if dev.type == "cpu":
+                return host_chunk(bufs)
+            if not host_read(bufs[0].live, bool):
                 return _handed_out([b.out() for b in bufs], group)
-            it0 = int(bufs[0].state.iteration)
-            # runs the first step
-            chunk.graph = ChunkGraph(cfgs, steps, bufs, group)
+            it0 = host_read(bufs[0].state.iteration, int)
+            with RECORDER.span("graph.build"):
+                # runs the first step
+                chunk.graph = ChunkGraph(cfgs, steps, bufs, group)
             # the rest of this chunk: ``steps`` in all from ``it0``
             for b in bufs:
                 b.stop.fill_(min(_NO_STOP if stop is None else int(stop), it0 + steps))
                 b.set_live()
-            return _handed_out(chunk.graph.replay(), group)
+        if timed:
+            RECORDER.chunk_mark(1, dev)
+        with RECORDER.span("chunk.launch"):
+            chunk.graph.launch()
+        if timed:
+            RECORDER.chunk_mark(2, dev)
+        with RECORDER.span("chunk.out"):
+            outs = [b.out() for b in bufs]
+        if timed:
+            RECORDER.chunk_mark(3, dev)
+        return _handed_out(outs, group)
 
+    def host_chunk(bufs):
+        """The chunk's guarded steps on CPU tensors, each decision a host
+        ``if``."""
         def run(r):
             for _ in range(steps):
                 if not bool(bufs[r].live):
@@ -734,7 +766,8 @@ def make_chunk_body(cfg: StepConfig):
             run(0)
         else:
             run_ranks(group, run)
-        return _handed_out([b.out() for b in bufs], group)
+        with RECORDER.span("chunk.out"):
+            return _handed_out([b.out() for b in bufs], group)
 
     chunk.graph = chunk.buffers = chunk.slabs = None
     chunk.route = "graph"
@@ -808,7 +841,11 @@ def make_chunk_loop(cfg: StepConfig, chunk):
     may build the kernels and capture the graph) and warns - or, with
     ``meta.watchdog_hard``, exits with code 86 so that a supervisor can
     resume from the last checkpoint - when one blocks longer
-    (utils/watchdog.py).  The returned function's ``chunk`` is ``chunk``."""
+    (utils/watchdog.py).  While tracing is on (``utils/timers.py``) every
+    chunk is a span ``chunk`` with the children ``chunk.host_read`` (where
+    the host waits for the card) and ``chunk.progress`` beside the chunk
+    body's own, and the host read also brings the chunk's rebuilds, for the
+    chunk's record.  The returned function's ``chunk`` is ``chunk``."""
     wd_timeout = cfg.meta.device_call_timeout
     bounded = cfg.meta.max_steps_per_call is not None
     warm = [False]
@@ -822,19 +859,22 @@ def make_chunk_loop(cfg: StepConfig, chunk):
             dx = _initial_dx_acc(cfg, state)
             t_end = _in_dtype(t_out, _lead(state).total_time.dtype)
             while True:
-                prev = _lead(state).iteration
+                prev = _before(state)
                 if wd is not None and warm[0]:
                     wd.arm("from the last chunk's end")
-                state, dx = chunk(state, t_out, dx)
-                t, it, it_before = _host_read(state, prev)
-                if wd is not None:
-                    wd.disarm()
-                warm[0] = True
-                _check_interval_progress(t, it, t_end, it_before)
-                if t > t_end:
-                    return state
-                if progress is not None and bounded:
-                    progress(_lead(state))
+                with RECORDER.span("chunk"):
+                    state, dx = chunk(state, t_out, dx)
+                    with RECORDER.span("chunk.host_read"):
+                        t, it, it_before = _host_read(state, *prev)
+                    if wd is not None:
+                        wd.disarm()
+                    warm[0] = True
+                    _check_interval_progress(t, it, t_end, it_before)
+                    if t > t_end:
+                        return state
+                    if progress is not None and bounded:
+                        with RECORDER.span("chunk.progress"):
+                            progress(_lead(state))
         finally:
             if wd is not None:
                 wd.stop()
@@ -866,12 +906,12 @@ def make_fixed_steps_fn(cfg: StepConfig, n_steps: int):
 
     def run(state):
         dx = _initial_dx_acc(cfg, state)
-        it = int(_lead(state).iteration)
+        it = host_read(_lead(state).iteration, int)
         stop = it + n_steps
         while it < stop:
-            prev = _lead(state).iteration
+            prev = _before(state)
             state, dx = chunk(state, math.inf, dx, stop)
-            t, it, it_before = _host_read(state, prev)
+            t, it, it_before = _host_read(state, *prev)
             if it == it_before:
                 raise FloatingPointError(
                     f"simulation stalled: no steps taken at iteration {it} "

@@ -21,7 +21,11 @@ the cell sweep and the mDBC kernel.  The chunk graph
 (``core/step.py:make_chunk_body``): bit for bit the eager loop on a 3D
 deck, an mDBC deck and a moving deck, a replay under sync-debug mode, a
 failed capture raising, the launch counts after replays, a handed-out state
-unchanged by the next replay.  A CUDA kernel has no CPU mode, so
+unchanged by the next replay.  Tracing (``utils/timers.py``): each replay
+timed by its CUDA events within its span, the account of replays, copies
+and gaps closing on the device clock, the host reads counted, and every
+``cudaGraphLaunch`` of a profiler trace inside a ``chunk.launch`` span.
+A CUDA kernel has no CPU mode, so
 these tests are marked ``gpu`` and skip without a card.  They import no JAX,
 so they also run where JAX is absent:
 
@@ -1575,6 +1579,82 @@ def test_saver_snapshot_unchanged_by_the_next_replay(cuda):
     torch.cuda.synchronize()
     assert int(nxt.iteration) > int(snap.iteration)
     assert all(torch.equal(a, b) for a, b in zip(kept, state_leaves(snap)))
+
+
+# --- tracing: spans, host reads and CUDA events around the replays (utils/timers.py) --
+
+
+def _traced(cuda, run, intervals=3):
+    """The falling dam break in chunks of 8, its chunk graph captured by a
+    first interval; then ``intervals`` intervals of ``run_simulation`` with
+    a log callback, tracing on, run by ``run(go)``.  Returns the log
+    records and the recorder."""
+    from sphexample_tpu_torch.utils import timers
+
+    sim = _dam_break(cuda)
+    sim.state = _falling(sim)
+    T.run_simulation(sim, max_intervals=1)
+    logs = []
+
+    def go():
+        T.run_simulation(sim, log_callback=logs.append, max_intervals=intervals,
+                         start_counter=2)
+        torch.cuda.synchronize()
+
+    timers.start_trace()
+    try:
+        run(go)
+    finally:
+        timers.stop_trace()
+    return logs, timers.RECORDER
+
+
+def test_traced_chunks_time_each_replay(cuda):
+    """Every chunk of the traced intervals is a replay timed by its four
+    events: its launch's device time is > 0 and within its ``chunk`` span,
+    the gaps between chunks are > 0, replays, copies and gaps add up to the
+    device clock's span, and the reads are 7 an interval and 1 a chunk."""
+    from sphexample_tpu_torch.utils.timers import HOST_READS
+
+    logs, rec = _traced(cuda, lambda go: go())
+    spans = [s for s in rec.spans if s[0] == "chunk"]
+    assert len(logs) == 3 and len(spans) == len(rec.chunks) >= 2 * len(logs)
+    for (_, a, b, _, interval), (c_int, steps, rebuilds, replay, copy, gap) in zip(
+            spans, rec.chunks):
+        assert c_int == interval and 0 < steps <= 8 and rebuilds >= 0
+        assert 0 < replay <= (b - a) / 1e6 and copy > 0
+    gaps = [c[5] for c in rec.chunks]
+    assert gaps[0] is None and all(g > 0 for g in gaps[1:])
+    total = sum(c[3] + c[4] for c in rec.chunks) + sum(gaps[1:])
+    assert total == pytest.approx(rec.device_span_ms(), rel=1e-2)
+    assert sum(c[1] for c in rec.chunks) == sum(r["steps_in_interval"] for r in logs)
+    assert rec.counters[HOST_READS] == 7 * len(logs) + len(rec.chunks)
+
+
+def test_graph_launches_lie_in_chunk_launch_spans(cuda):
+    """Under ``torch.profiler`` every ``cudaGraphLaunch`` runtime record,
+    placed by ``trace_start_ns()``, lies inside a ``chunk.launch`` span
+    within 20 us: the spans are on the profiler's clock."""
+    from torch.profiler import ProfilerActivity, profile
+
+    held = {}
+
+    def profiled(go):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            go()
+        held["prof"] = prof
+
+    _, rec = _traced(cuda, profiled, intervals=2)
+    prof = held["prof"]
+    t0 = prof.profiler.kineto_results.trace_start_ns()
+    launches = [(a, b) for name, a, b, _, _ in rec.spans if name == "chunk.launch"]
+    records = [e for e in prof.events() if "cudaGraphLaunch" in e.name]
+    assert len(records) == len(launches) > 0
+    slack = 20_000
+    for e in records:
+        a = t0 + 1000 * e.time_range.start
+        b = t0 + 1000 * e.time_range.end
+        assert any(s - slack <= a and b <= t + slack for s, t in launches), (a, b)
 
 
 # --- the sharded chunk: every slab's steps in one graph (slabs on one card) ---------

@@ -2,7 +2,7 @@
 replay on a grid escape (the setup of tests/test_aux.py:477-541: 200
 particles in f64, one launched at 30 m/s through the grid's 2-cell margin),
 ``run_simulation``'s callbacks and sections, the chunked interval, the
-asynchronous saver, the watchdog, ``profile_stages``, and on 4 slabs the
+asynchronous saver, the watchdog, and on 4 slabs the
 sharded retune (a constructed escape re-gridded, re-sharded and replayed,
 against the JAX package's sharded retune on 4 virtual devices) and, with
 ``auto_retune=False``, the refusal of an escape."""
@@ -21,14 +21,13 @@ import torch
 import sphexample_tpu as J
 import sphexample_tpu_torch as T
 from sphexample_tpu.core import driver as jd
-from sphexample_tpu.utils.timers import profile_stages as j_profile_stages
 from sphexample_tpu_torch.core import driver as td
 from sphexample_tpu_torch.core.step import make_interval_fn
 from sphexample_tpu_torch.io.checkpoint import save_checkpoint
 from sphexample_tpu_torch.ops.cell_list import Grid
 from sphexample_tpu_torch.parallel.mesh import make_mesh, shard_simulation
 from sphexample_tpu_torch.state import state_tensors
-from sphexample_tpu_torch.utils.timers import HourGlass, profile_stages
+from sphexample_tpu_torch.utils.timers import HourGlass
 from sphexample_tpu_torch.utils.watchdog import DeviceWatchdog
 
 torch.set_num_threads(1)
@@ -378,18 +377,6 @@ def test_hourglass_sections_and_report():
     assert hg.totals["00 SimulationLoop"] >= 0.01
     rep = hg.report()
     assert re.search(r"00 SimulationLoop\s+2", rep) and "wall clock" in rep
-
-
-def test_profile_stages_names_match_jax():
-    sim_j = tiny(J)
-    sim_t = _tiny_port()
-    names_j = list(j_profile_stages(sim_j.cfg, sim_j.state, iters=1))
-    res = profile_stages(sim_t.cfg, sim_t.state, iters=1)
-    assert list(res) == names_j
-    assert all(v > 0 for v in res.values())
-    sharded = shard_simulation(_tiny_port(), make_mesh(4, "cpu"))
-    with pytest.raises(ValueError, match="single-device"):
-        profile_stages(sharded.cfg, sharded.state[0])
 
 
 def test_sharded_run_raises_on_an_escape_with_the_jax_message():
