@@ -309,7 +309,7 @@ Phases, each printing one JSON line (any failure exits non-zero):
               ms per step and busy share (profiler).  Phases 19-20 run the
               graph too (their CLIs call ``run_simulation``): the main deck
               must take the eager loop's 18,026 steps, the still tank and the
-              square end on its digests (``f98da5ed``, ``dd571990``).
+              square end on its digests (``0560d074``, ``043bef15``).
 
 22. chunk_graph_sharded_main, chunk_graph_sharded_mdbc,
               chunk_graph_sharded_moving_square - phase 21's decks and
@@ -632,14 +632,14 @@ def instances(report, kernel):
             for k, v in report.items() if k == kernel or k.startswith(kernel + "<")}
 
 
-def schedule(sim, p, cs, mod=bs, lo=0, hi=None, sample=300):
+def schedule(sim, p, cs, mod=bs, lo=0, hi=None, sample=300, queue=None):
     """The walk's schedule of this state's sweep (ops/block_sweep.py:
     schedule_stats): groups, warp passes, mean member lanes, tiles, and the
     union rows a lane tests over its own candidates; with ``lo`` / ``hi``
     that of the selves [lo, hi) launched on the whole state as a window.
     ``bodies``: the pair bodies per pass of ``sample`` seeded passes by how
     the compute is batched (ops/block_sweep.py:pass_bodies), divided by the
-    passes."""
+    passes, and the share of their tiles that take the cooperative path."""
     grid = sim.cfg.grid
     hi = p.capacity if hi is None else hi
     sched = (bs.block_schedule(grid, p.map(lambda a: a[lo:hi]), cs) if mod is bs
@@ -648,8 +648,10 @@ def schedule(sim, p, cs, mod=bs, lo=0, hi=None, sample=300):
     n_pass = stats["warp_passes"]
     pick = torch.randperm(n_pass, generator=torch.Generator().manual_seed(0))[:sample]
     bodies = bs.pass_bodies(sched, grid, cs, p.position, sim.cfg.spec.kernel.H2,
-                            pick.to(cs.device), lo)
-    stats["bodies"] = {k: v / bodies["passes"] for k, v in bodies.items() if k != "passes"}
+                            pick.to(cs.device), lo,
+                            queue=queue or bs.walk_queue(bs.n_sums(sim.cfg.spec, grid.dims)))
+    stats["bodies"] = {k: v if k == "cooperative_tiles" else v / bodies["passes"]
+                       for k, v in bodies.items() if k != "passes"}
     stats["bodies"]["sampled_passes"] = bodies["passes"]
     return stats
 
@@ -2794,8 +2796,10 @@ SQUARE_OUTPUTS = 251     # the initial snapshot and one per 0.01 s to t = 2.5 s
 # allowance is that count, under the record's share of the fluid (2 of
 # 33,020 rows, 7 of the case's 122,500)
 # the end digests (end_digest) of the eager loop's runs of the two decks on
-# the card (PERF.md §6): the chunk graph must end on them
-TANK_DIGEST_EAGER, SQUARE_DIGEST_EAGER = "f98da5ed", "dd571990"
+# the card (PERF.md §6): the chunk graph must end on them.  Any change to the
+# rounding of the sweeps' sums moves them; they were last taken when each
+# pair's terms came to be rounded apart from the fold (pair_terms / fold_terms)
+TANK_DIGEST_EAGER, SQUARE_DIGEST_EAGER = "0560d074", "043bef15"
 TANK_GATE = {"band": (950.0, 1100.0)}
 TANK_VMAX = 0.32
 SQUARE_GATE = {"band": (900.0, 1150.0), "allow_outliers": 5, "track_marker": 3,

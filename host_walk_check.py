@@ -61,6 +61,9 @@ HOST_CUDA_H = r"""
 #define __align__(n) __attribute__((aligned(n)))
 #define __shared__ static
 struct float4 { float x, y, z, w; };
+struct int2 { int x, y; };
+inline float4 make_float4(float x, float y, float z, float w) { return {x, y, z, w}; }
+inline int2 make_int2(int x, int y) { return {x, y}; }
 using cudaError_t = int;
 using cudaStream_t = void*;
 constexpr int cudaSuccess = 0;
@@ -79,6 +82,7 @@ inline float __fmul_rn(float a, float b) { return a * b; }
 inline int __ffs(unsigned v) { return v ? __builtin_ctz(v) + 1 : 0; }
 inline int __ffsll(long long v) { return v ? __builtin_ctzll((unsigned long long)v) + 1 : 0; }
 inline int __popc(unsigned v) { return __builtin_popcount(v); }
+inline int __popcll(unsigned long long v) { return __builtin_popcountll(v); }
 inline void __syncwarp(unsigned = 0xffffffffu) { tl_warp->bar.arrive_and_wait(); }
 inline void __syncthreads() { tl_block->arrive_and_wait(); }
 template <class F> inline long long warp_all(long long v, F f) {
@@ -94,6 +98,13 @@ inline unsigned __ballot_sync(unsigned, int p) {
 }
 inline int __shfl_sync(unsigned, int v, int src) {
     return (int)warp_all(v, [src](long long* a) { return a[src]; });
+}
+inline int __shfl_up_sync(unsigned, int v, unsigned d) {
+    const int lane = tl_lane;
+    return (int)warp_all(v, [lane, d](long long* a) { return a[lane >= (int)d ? lane - d : lane]; });
+}
+inline int __reduce_add_sync(unsigned, int v) {
+    return (int)warp_all(v, [](long long* a) { long long r = 0; for (int l = 0; l < 32; ++l) r += a[l]; return r; });
 }
 inline int __reduce_min_sync(unsigned, int v) {
     return (int)warp_all(v, [](long long* a) { return *std::min_element(a, a + 32); });

@@ -22,8 +22,8 @@
 // moving square (about 4 selves a cell) the 32 rows span about 8 cells of one
 // row, and the union of candidates is about 10 cells per stencil row against
 // 3 of one self.  The x span is not capped: a pass costs the filter over the
-// union plus the compute of the busiest lane, so splitting the 32 rows in two
-// passes would pay the compute twice to save part of a cheaper filter (a
+// union plus the compute of its tiles, so splitting the 32 rows in two passes
+// would pay the compute's rounds twice to save part of a cheaper filter (a
 // capped variant was not measured).  For each stencil row the candidate
 // range of a self is [cell_start[key_lo], cell_start[key_hi + 1]) exactly as
 // ops/cell_list.py::row_segments computes it (x-range clamped to the grid
@@ -41,14 +41,15 @@
 // Fields: the wrapper packs per row, in f32, position, velocity, the
 // GUARDED density (padding rows carry 1, never 0) with its reciprocal,
 // pressure and motion limiter (pack_fields in ops/block_sweep.py).  The pair
-// math is csrc/sph_pair_math.cuh (add_pair), shared with the cell sweep as
-// the TPU kernels share ::_pair_math; d2 is summed unfused there, so that in
-// 2D the cutoff is the plain version's bit for bit (the MovingSquare deck's
-// k = sqrt 2 cuts W where it is not yet zero).  A self's candidates are
-// visited in the order of the first version (stencil rows z, y; j
-// ascending), so its sums are the first version's bit for bit, and the cell
-// sweep's.  Summation order differs from the plain version, so results agree
-// with it to f32 rounding, not bit for bit.
+// math is csrc/sph_pair_math.cuh (pair_terms, fold_terms), shared with the
+// cell sweep as the TPU kernels share ::_pair_math; d2 is summed unfused
+// there, so that in 2D the cutoff is the plain version's bit for bit (the
+// MovingSquare deck's k = sqrt 2 cuts W where it is not yet zero).  A self's
+// candidates are visited in the order of the first version (stencil rows z,
+// y; j ascending) and folded in that order on either path of the walk's
+// compute, so its sums are the cell sweep's bit for bit.  Summation order
+// differs from the plain version, so results agree with it to f32 rounding,
+// not bit for bit.
 //
 // The self window (the sharded path; replaces
 // sphexample_tpu/ops/pallas_block_sweep.py::pallas_block_sweep_sharded, the
@@ -82,15 +83,24 @@
 // the design does about it: the first version's warp ran the pair body on
 // every candidate that any of its lanes accepted - about three in four on the
 // main deck, where one in six is needed - and walked ragged per-thread
-// ranges; now the cheap filter runs on full lanes over staged tiles and the
-// body only over each lane's own accepted rows.  Measured on an H100 80GB
-// HBM3 (700 W): 0.440 against 0.466 ms on the main deck, 0.221 against 0.36
-// ms on its quarter slab, 0.71 against 0.63 ms on the mDBC deck - the busiest
-// lane of a tile accepts nearly as many rows as any lane did.  What it
-// leaves: the per-self order (kept for bitwise agreement) forbids splitting
-// one self's work between lanes, and the pass's ~950 candidate rows do not
-// fit a warp's shared memory, so the compute cannot wait for a whole pass,
-// whose busiest lane is near the mean.
+// ranges; the shared walk runs the cheap filter on full lanes over staged
+// tiles and the body only over accepted pairs (0.440 against 0.466 ms on the
+// main deck, 0.221 against 0.36 ms on its quarter slab, 0.71 against 0.63 ms
+// on the mDBC deck; H100 80GB HBM3, 700 W).  A lane's pairs gather in the
+// stencil rows next to its position in the cell, so the busiest lane of a
+// tile holds ~2.8 times the mean on the 3D dam breaks; the walk's compute
+// hands the pairs past about ceil(pairs / 32) rounds to the lanes with spare
+// rounds (csrc/sph_sweep_walk.cuh), each self folding its pairs in its own
+// order: the warp pays ~122 pair bodies a pass on the benchmark's dam break
+// state where it paid ~320 (ops/block_sweep.py:pass_bodies), and B1 alone
+// takes 0.386-0.390 against 0.438-0.450 ms there, 0.0806-0.0817 against
+// 0.0834-0.0837 ms on the 2D moving square at t = 0 (walk_variants.py, the
+// per-lane walk before it in the same turns).  What it leaves: the filter, which tests every
+// row of the union for every lane (~1,000 candidates a pass for ~120 pairs;
+// ~0.29 of the 0.39 ms do not shrink with the bodies), and the walk's shared
+// memory (45.5 KB a block in 3D: 5 blocks an SM, where the per-lane walk's
+// 24 KB of tiles let 7 fit; that walk's pair loop put in this one runs 0.507
+// against its own 0.438 ms on the main deck at t = 0).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -142,10 +152,9 @@ block_sweep_kernel(const SweepParams P,
                    const unsigned char* __restrict__ active,
                    float* __restrict__ out) {
     constexpr int K = n_sums<D, STORE, SHIFT>();
-    constexpr int NV = pack_vectors<D>();
-    __shared__ __align__(16) float4 tiles[WALK_WARPS][2 * WALK_TILE * NV];
     const int lane = threadIdx.x & 31;
     const int warp = threadIdx.x >> 5;
+    WalkShared<D, K>& walk = walk_shared<D, K>(warp);
     const int w0 = blockIdx.x * WALK_THREADS + warp * 32;  // the warp's first self row
     if (w0 >= P.n) return;                                 // the whole warp
     const int r = w0 + lane;                               // self row
@@ -168,6 +177,7 @@ block_sweep_kernel(const SweepParams P,
     L.xl = min(max(rel[0] - 1, 0), P.shape[0] - 1);
     L.xh = min(max(rel[0] + 1, 0), P.shape[0] - 1);
     const Row s = load_row<D>(pack, live ? i : P.self_off + w0);
+    walk_stage_self<D, K>(walk, s, L);
 
     float acc[K];
 #pragma unroll
@@ -182,7 +192,7 @@ block_sweep_kernel(const SweepParams P,
         const int rz = __shfl_sync(FULL_MASK, rel[D - 1], leader);
         L.member = ((pending >> lane) & 1u) && rel[1] == ry && rel[D - 1] == rz;
         pending &= ~__ballot_sync(FULL_MASK, L.member);
-        walk_pass<D, SPS, STORE, SHIFT, FAM, VISC, DIFF>(P, pack, cell_start, tiles[warp],
+        walk_pass<D, SPS, STORE, SHIFT, FAM, VISC, DIFF>(P, pack, cell_start, walk,
                                                         ry, rz, L, s, acc);
     }
     if (in) {
@@ -197,7 +207,9 @@ cudaError_t launch(const SweepParams& P, const float* pack, const int* cell,
                    const int* cell_start, const unsigned char* active,
                    float* out, cudaStream_t stream) {
     const int blocks = (P.n + WALK_THREADS - 1) / WALK_THREADS;
-    block_sweep_kernel<D, FAM, VISC, DIFF, SPS, STORE, SHIFT><<<blocks, WALK_THREADS, 0, stream>>>(
+    constexpr int smem = walk_shared_bytes<D, n_sums<D, STORE, SHIFT>()>();
+    block_sweep_kernel<D, FAM, VISC, DIFF, SPS, STORE, SHIFT><<<blocks, WALK_THREADS, smem,
+                                                                stream>>>(
         P, reinterpret_cast<const float4*>(pack), cell, cell_start, active, out);
     return cudaGetLastError();
 }

@@ -59,13 +59,13 @@
 // rows come out bit for bit as that launch gives them.  Single device:
 // self_off = 0.
 //
-// Pair math: csrc/sph_pair_math.cuh::add_pair, shared with the block sweep
-// as the TPU kernels share ::_pair_math.  Self excluded by index, support
+// Pair math: csrc/sph_pair_math.cuh::pair_terms and fold_terms, shared with
+// the block sweep as the TPU kernels share ::_pair_math.  Self excluded by index, support
 // cutoff d2 <= H2 on the unfused d2 of pair_distance2, the density-diffusion
 // role cell-centric: same_cell = cs <= j < ce of the self's own cell,
-// role_i = same_cell ? i < j : i > j.  A self's candidates are visited in
-// the order of the first version and of the block sweep (stencil rows z, y;
-// j ascending): the same bits as both.  Summation order differs from the
+// role_i = same_cell ? i < j : i > j.  A self's candidates are visited and
+// folded in the order of the first version and of the block sweep (stencil
+// rows z, y; j ascending): the same bits as the block sweep.  Summation order differs from the
 // plain version: agreement to f32 rounding, not bit for bit.
 //
 // Instances: templates on what changes the registers a thread holds - dims
@@ -89,8 +89,11 @@
 // 0.24-0.25 against 0.54 ms on the 2D moving square.  What it leaves: a
 // pair's last pass is part-full (85 % of the lanes are used on that dam
 // break, against 97 % for the block sweep's 32 consecutive rows), the model
-// is chosen at run time, and the busiest lane of a tile sets the compute as
-// in the block sweep.
+// is chosen at run time, and a tile's compute is that of the shared walk, as
+// in the block sweep (csrc/sph_sweep_walk.cuh: about the mean lane's pairs
+// on a tile that hands pairs over, the busiest lane's on one that does not;
+// 0.712-0.748 against 1.116-1.165 ms for the per-lane walk on the 3D dam
+// break cell's state, H100 80GB HBM3, 700 W).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -179,11 +182,10 @@ cell_sweep_kernel(const CellSweepParams P,
                   const int* __restrict__ cell_start,
                   int* __restrict__ list,
                   float* __restrict__ out) {
-    constexpr int NV = pack_vectors<D>();
     constexpr int K = n_sums<D, STORE, SHIFT>();
-    __shared__ __align__(16) float4 tiles[WALK_WARPS][2 * WALK_TILE * NV];
     const int lane = threadIdx.x & 31;
     const int warp = threadIdx.x >> 5;
+    WalkShared<D, K>& walk = walk_shared<D, K>(warp);
     const int count = list[0];
     while (true) {
         int e = 0;
@@ -210,11 +212,12 @@ cell_sweep_kernel(const CellSweepParams P,
             L.xl = max(cx - 1, 0);
             L.xh = min(cx + 1, P.shape[0] - 1);
             const Row s = load_row<D>(pack, L.member ? L.i : lo);
+            walk_stage_self<D, K>(walk, s, L);
             float acc[K];
 #pragma unroll
             for (int k = 0; k < K; ++k) acc[k] = 0.0f;
             walk_pass<D, SPS, STORE, SHIFT, AT_RUN_TIME, AT_RUN_TIME, AT_RUN_TIME>(
-                P, pack, cell_start, tiles[warp], ry, rz, L, s, acc);
+                P, pack, cell_start, walk, ry, rz, L, s, acc);
             if (L.member) {
                 float* o = out + (size_t)(L.i - P.self_off) * K;
 #pragma unroll
@@ -233,6 +236,7 @@ template <int D, bool SPS, bool STORE, bool SHIFT>
 cudaError_t launch(const CellSweepParams& P, const float* pack, const int* cell_start,
                    int* list, float* out, cudaStream_t stream) {
     auto kernel = cell_sweep_kernel<D, SPS, STORE, SHIFT>;
+    constexpr int smem = walk_shared_bytes<D, n_sums<D, STORE, SHIFT>()>();
     // persistent warps: as many blocks as fit on the card at once (looked up
     // once per instance), never more than the groups can use
     static int resident = 0;
@@ -242,7 +246,8 @@ cudaError_t launch(const CellSweepParams& P, const float* pack, const int* cell_
         if (err == cudaSuccess)
             err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
         if (err == cudaSuccess)
-            err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, WALK_THREADS, 0);
+            err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, WALK_THREADS,
+                                                                smem);
         if (err != cudaSuccess) return err;
         resident = max(1, sms * per_sm);
     }
@@ -253,8 +258,8 @@ cudaError_t launch(const CellSweepParams& P, const float* pack, const int* cell_
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
     const int blocks = min(resident, (groups + WALK_WARPS - 1) / WALK_WARPS);
-    kernel<<<blocks, WALK_THREADS, 0, stream>>>(P, reinterpret_cast<const float4*>(pack),
-                                                  cell_start, list, out);
+    kernel<<<blocks, WALK_THREADS, smem, stream>>>(P, reinterpret_cast<const float4*>(pack),
+                                                     cell_start, list, out);
     return cudaGetLastError();
 }
 

@@ -67,3 +67,16 @@ __device__ __forceinline__ Row load_row(const float4* pack, int i) {
     }
     return r;
 }
+
+// the inverse of load_row: row ``i`` of a pack in shared memory
+template <int D>
+__device__ __forceinline__ void store_row(float4* pack, int i, const Row& r) {
+    if constexpr (D == 3) {
+        pack[3 * i] = make_float4(r.x[0], r.x[1], r.x[2], r.rho);
+        pack[3 * i + 1] = make_float4(r.v[0], r.v[1], r.v[2], r.rcp);
+        pack[3 * i + 2] = make_float4(r.p, r.ml, 0.0f, 0.0f);
+    } else {
+        pack[2 * i] = make_float4(r.x[0], r.x[1], r.v[0], r.v[1]);
+        pack[2 * i + 1] = make_float4(r.rho, r.rcp, r.p, r.ml);
+    }
+}

@@ -1,8 +1,8 @@
 // The pair physics both neighbor sweeps share (the counterpart of
 // sphexample_tpu/ops/pallas_sweep.py::_pair_math, which the TPU block and
-// cell-pair kernels share): what one candidate pair adds to a self's K sums.
-// Each kernel keeps its own walk - block_sweep.cu one thread per self,
-// cell_sweep.cu one block per cell with shared tiles - and calls these.
+// cell-pair kernels share): what one candidate pair adds to a self's K sums,
+// as K terms (pair_terms) that fold_terms adds to the sums.  Both kernels
+// reach them through the shared walk of csrc/sph_sweep_walk.cuh.
 //
 // Pair math: the plain form of ops/interactions.py and models/*.py (grad W
 // as a scalar factor times x_ij; pair geometry elementwise, never through
@@ -78,13 +78,17 @@ __device__ __forceinline__ void sps_tau_dot_gw(const Params& P, float s_fac,
     for (int d = 0; d < D; ++d) t[d] += dev_fac * dv[d] * gw2 + iso * gw[d];
 }
 
-// What the pair (s, n) in support (d2 <= H2, n not s) adds to the self's
-// sums acc[0 .. K): xij and d2 from pair_distance2; role_i is the
-// density-diffusion role of the self (the caller's cell-centric rule).
+// What the pair (s, n) in support (d2 <= H2, n not s) adds to the self's K
+// sums, as K increments t[0 .. K): xij and d2 from pair_distance2; role_i is
+// the density-diffusion role of the self (the caller's cell-centric rule).
+// Each increment is formed whole here and rounded on its own; fold_terms
+// adds it to the sum.  No increment is contracted into the accumulator, so
+// a pair's terms are the same bits whichever lane evaluates them, and a
+// self's sums depend only on the order of its folds.
 template <int D, bool SPS, bool STORE, bool SHIFT, int FAM, int VISC, int DIFF, class Params>
-__device__ __forceinline__ void add_pair(const Params& P, const Row& s, const Row& n,
-                                         const float* xij, float d2, bool role_i,
-                                         float* acc) {
+__device__ __forceinline__ void pair_terms(const Params& P, const Row& s, const Row& n,
+                                           const float* xij, float d2, bool role_i,
+                                           float* t) {
     constexpr int K_W = 1 + D;                          // W, grad W
     constexpr int K_C = (1 + D) * (1 + (STORE ? 1 : 0));  // grad C, div r
     const bool cubic = (FAM == AT_RUN_TIME) ? P.family == CUBIC : FAM == CUBIC;
@@ -124,7 +128,7 @@ __device__ __forceinline__ void add_pair(const Params& P, const Row& s, const Ro
         const float vol = P.m0 * (role_i ? n.rcp : s.rcp);
         dr += P.diff_fac * vol * psi_gw * gate;
     }
-    acc[0] += dr;
+    t[0] = dr;
 
     // momentum: -m0 ((p_i + p_j)/(rho_i rho_j) + f_ab) gradW
     float pfac = (s.p + n.p) * (s.rcp * n.rcp);
@@ -144,13 +148,13 @@ __device__ __forceinline__ void add_pair(const Params& P, const Row& s, const Ro
     }
     const float Af = A * fac;
 #pragma unroll
-    for (int d = 0; d < D; ++d) acc[1 + d] += Af * xij[d];
+    for (int d = 0; d < D; ++d) t[1 + d] = Af * xij[d];
     if (viscosity >= VISC_LAMINAR) {
         // 4 m0 nu0 (x.gradW) / ((rho_i + rho_j) + (d2 + eta2)) v_ij
         const float term = P.lam_fac * fac_d2
                            / ((s.rho + n.rho) + (d2 + P.eta2));
 #pragma unroll
-        for (int d = 0; d < D; ++d) acc[1 + d] += term * vij[d];
+        for (int d = 0; d < D; ++d) t[1 + d] += term * vij[d];
     }
     if constexpr (SPS) {
         float dv[D], gw[D], tt[D];
@@ -168,18 +172,26 @@ __device__ __forceinline__ void add_pair(const Params& P, const Row& s, const Ro
         sps_tau_dot_gw<D>(P, P.m0 * s.rcp, n.rho, dv, gw, dv2, gw2, dv_gw, tt);
         const float tf = P.m0 * (s.rcp * n.rcp);
 #pragma unroll
-        for (int d = 0; d < D; ++d) acc[1 + d] += tf * tt[d];
+        for (int d = 0; d < D; ++d) t[1 + d] += tf * tt[d];
     }
     if constexpr (STORE) {
-        acc[K_W] += cubic ? kernel_value<CUBIC>(P, q) : kernel_value<WENDLAND>(P, q);
+        t[K_W] = cubic ? kernel_value<CUBIC>(P, q) : kernel_value<WENDLAND>(P, q);
 #pragma unroll
-        for (int d = 0; d < D; ++d) acc[K_W + 1 + d] += fac * xij[d];
+        for (int d = 0; d < D; ++d) t[K_W + 1 + d] = fac * xij[d];
     }
     if constexpr (SHIFT) {
         // grad C with the self density, div r with the neighbor's
         const float gcf = P.m0 * s.rcp * fac;
 #pragma unroll
-        for (int d = 0; d < D; ++d) acc[K_C + d] += gcf * xij[d];
-        acc[K_C + D] += P.m0 * n.rcp * (-fac_d2) * mlg;
+        for (int d = 0; d < D; ++d) t[K_C + d] = gcf * xij[d];
+        t[K_C + D] = P.m0 * n.rcp * (-fac_d2) * mlg;
     }
+}
+
+// acc[k] += t[k], each sum rounded after each pair (never fused with the
+// terms' products): the one place a pair reaches a self's sums
+template <int K>
+__device__ __forceinline__ void fold_terms(float* acc, const float* t) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) acc[k] = __fadd_rn(acc[k], t[k]);
 }

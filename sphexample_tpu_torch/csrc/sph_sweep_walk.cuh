@@ -21,26 +21,63 @@
 //            tile make a 64-bit word; the own range less the self is one
 //            mask, applied once.  The accepted tile offsets are the set bits:
 //            the lane's compacted list, ascending by construction.
-//   Compute. Every lane walks its own mask lowest bit first and calls
-//            add_pair on the row held in shared memory.  A warp pays the
-//            pair body for the largest per-lane pair count of the tile, not
-//            for every candidate that any lane accepts - on the 3D dam
-//            breaks nearly as much, since a lane's pairs gather in the
-//            stencil rows next to its position in the cell; over a whole
-//            pass the busiest lane is near the mean (PERF.md).
+//   Compute. The tile's pairs are evaluated (pair_terms) and folded into
+//            each self's sums (fold_terms) in R rounds, R chosen per tile
+//            from the accept masks: the fewest rounds >= ceil(all pairs /
+//            32) whose pairs past them fit the queue (walk_queue<K>()
+//            pairs, WALK_TERM_BYTES of terms).  R never passes the busiest
+//            lane's count, where nothing is queued.
+//
+//            Cooperative (R < busiest): every lane evaluates its own first
+//            pairs, up to R, with its self row in registers, and folds them
+//            at once.  The pairs past a lane's R-th go to a queue in shared
+//            memory (owner lane << 6 | offset), at the place an exclusive
+//            warp scan of the excesses gives it: lane-major, ascending.
+//            Lanes with fewer than R pairs take the queued pairs in their
+//            spare rounds (a second scan, packed in the same word, numbers
+//            those rounds), evaluate them with the owner's self row and own
+//            cell (staged in shared memory by walk_stage_self) and write the
+//            K terms to the pair's slot.  After __syncwarp each owner folds
+//            its slots in order: they are its last pairs, so its order
+//            holds.  A tile whose excess would overflow the queue runs more
+//            rounds, so no pair is ever dropped.
+//            Per lane (R = busiest): the same loop with nothing queued;
+//            lanes with fewer pairs idle.  On the 3D dam breaks the busiest
+//            lane holds ~2.8 times the mean over a pass (a lane's pairs
+//            gather in the stencil rows next to its position in the cell);
+//            R is about the mean (ops/block_sweep.py:pass_bodies).
+//
+//            The cooperative path's own cost (the scans, the queue, the
+//            queued terms' round trip) is under one round: on an H100
+//            (700 W), asking it to save two rounds before taking it ran
+//            -0.8 to +3.8 % against one, slower in 16 of 24 kernel-state
+//            pairs of walk_variants.py (B1 and B3, whole and windowed; e.g.
+//            0.0821 against 0.0809 ms on the 2D square, 0.675 against 0.667
+//            on the mDBC deck), so a tile takes it whenever it saves a round.
 //
 // The order: stencil rows z then y, then j ascending within the row - the
-// order of the one-thread-per-self walk this replaces.  Each self's sums are
-// therefore added in the same order as before, and (with the same add_pair
-// and the same pair_distance2) come out the same bits; B1 and B3 keep
-// agreeing bit for bit.  Tile boundaries do not enter the order.
+// order of the one-thread-per-self walk this replaces.  Each self folds its
+// pairs' terms in that order on either path, and a pair's terms come from
+// the one call of pair_terms in the walk, on the same inputs, whichever lane
+// makes it.  So a self's sums do not depend on which path a tile took nor on
+// how the selves were grouped into warps: B1 and B3 agree bit for bit, and a
+// slab with its single launch.  Tile boundaries do not enter the order.
 //
 // Lanes outside the group (another subgroup of the warp, a row past the end,
 // an inactive row) take part in the staging and in every warp-wide step with
-// empty own ranges: their masks stay 0 and their sums untouched.
+// empty own ranges: their masks stay 0 and their sums untouched; on the
+// cooperative path they evaluate other lanes' queued pairs.
 //
-// Resources per warp: 2 x WALK_TILE x 16 NV bytes of tiles (6 KB in 3D, 4 KB
-// in 2D); WALK_WARPS warps a block, all static shared memory.
+// Resources per warp (WalkShared): 2 x WALK_TILE x 16 NV bytes of tiles
+// (6 KB in 3D, 4 KB in 2D), the lanes' self rows (32 x 16 NV bytes) and own
+// cells (256 B), the queued terms (WALK_TERM_BYTES or fewer) and the queue
+// (2 bytes a pair): 11,392 B in 3D at K = 4.  WALK_WARPS warps a block, in
+// dynamic shared memory sized per instance (walk_shared_bytes): 45,568 B a
+// block for the main 3D instance, 5 blocks an SM where the tiles alone let
+// 7 fit.  Smaller footprints measured slower on the dam break (B1 on an
+// H100, 700 W): 32-row tiles with 2,816 or 3,072 B of terms (7 / 6 blocks)
+// 0.436 ms, 48-row tiles with 1,472 B (7 blocks) 0.417, the self rows read
+// from the pack instead of staged (6 blocks) +5-9 %, against 0.387.
 
 #pragma once
 
@@ -53,10 +90,50 @@ static_assert(WALK_TILE == 64, "a tile's accept mask is one 64-bit word");
 constexpr int WALK_WARPS = 4;                 // warps per block
 constexpr int WALK_THREADS = 32 * WALK_WARPS;
 constexpr unsigned FULL_MASK = 0xffffffffu;
+// Bytes of queued pair terms a warp holds: 192 pairs of the main path's 4
+// sums, about as many as its tiles queue (B1 0.3904-0.3915 ms on the dam
+// break against 0.4073 with 2048 bytes; H100, 700 W), within 48 KB a block
+// in every instance.
+constexpr int WALK_TERM_BYTES = 3072;
 
 // float4s per packed row (csrc/sph_kernel_functions.cuh::load_row)
 template <int D>
 __host__ __device__ constexpr int pack_vectors() { return D == 3 ? 3 : 2; }
+
+// queued pairs a tile may hand to other lanes, for K terms a pair
+template <int K>
+__host__ __device__ constexpr int walk_queue() {
+    return WALK_TERM_BYTES / (4 * K) > 8 ? WALK_TERM_BYTES / (4 * K) : 8;
+}
+
+// A warp's shared memory
+template <int D, int K>
+struct WalkShared {
+    float4 tiles[2 * WALK_TILE * pack_vectors<D>()];  // the staged tiles, double-buffered
+    float4 selves[32 * pack_vectors<D>()];            // each lane's self row
+    int2 own_cell[32];                                // and its own cell [s_i, e_i)
+    float terms[K * walk_queue<K>()];                 // term k of queued pair q at k * Q + q
+    unsigned short queue[walk_queue<K>()];            // owner lane << 6 | tile offset
+};
+
+// The block's dynamic shared memory: one WalkShared a warp, sized per
+// instance at the launch.  Under 48 KB a launch needs no attribute.
+template <int D, int K>
+__host__ __device__ constexpr int walk_shared_bytes() {
+    return WALK_WARPS * (int)sizeof(WalkShared<D, K>);
+}
+
+// warp ``warp``'s WalkShared
+template <int D, int K>
+__device__ __forceinline__ WalkShared<D, K>& walk_shared(int warp) {
+    static_assert(walk_shared_bytes<D, K>() <= 48 * 1024, "a launch would need the attribute");
+#if defined(__CUDACC__)
+    extern __shared__ __align__(16) unsigned char walk_smem[];
+#else  // host_walk_check.py's host build: a block's threads share it, blocks run in turn
+    static __align__(16) unsigned char walk_smem[walk_shared_bytes<D, K>()];
+#endif
+    return reinterpret_cast<WalkShared<D, K>*>(walk_smem)[warp];
+}
 
 // A 16-byte copy from device to shared memory: cp.async where the target has
 // it (sm_80 on), a plain copy elsewhere.
@@ -99,7 +176,7 @@ __device__ __forceinline__ unsigned long long low_bits(int n) {
 // What one lane brings to a pass of the walk.
 struct WalkLane {
     bool member;      // its self is in this pass's group
-    int i;            // the self's pack row
+    int i;            // the self's pack row; i - lane is the same on every lane
     int xl, xh;       // its clamped x range [x - 1, x + 1]
     int s_i, e_i;     // its own cell's rows (the density-diffusion role)
 };
@@ -129,12 +206,129 @@ __device__ __forceinline__ bool walk_row(const Params& P, const int* __restrict_
     return ub < ue;
 }
 
+// The position of set bit n (counted from 0) of a word with more than n set bits
+__device__ __forceinline__ int nth_bit(unsigned long long m, int n) {
+    int pos = 0;
+#pragma unroll
+    for (int w = 32; w >= 1; w >>= 1) {
+        const int c = __popcll(m & low_bits(w));
+        if (n >= c) {
+            n -= c;
+            m >>= w;
+            pos += w;
+        }
+    }
+    return pos;
+}
+
+// The lane's self row and own cell, where the lanes that evaluate its queued
+// pairs read them: every lane, before the passes over its self (visible
+// after the walk's first __syncwarp; the last pass ended with one).
+template <int D, int K>
+__device__ __forceinline__ void walk_stage_self(WalkShared<D, K>& sh, const Row& s,
+                                                const WalkLane& L) {
+    const int lane = threadIdx.x & 31;
+    store_row<D>(sh.selves, lane, s);
+    sh.own_cell[lane] = make_int2(L.s_i, L.e_i);
+}
+
+// The compute step of one tile (the header's rule): every accepted pair of
+// the tile's lanes, this lane's accepted offsets in ``take``.  One loop of
+// ``rounds`` rounds and one call of pair_terms serve both paths.
+template <int D, bool SPS, bool STORE, bool SHIFT, int FAM, int VISC, int DIFF, class Params>
+__device__ __forceinline__ void walk_tile_pairs(const Params& P,
+                                                WalkShared<D, n_sums<D, STORE, SHIFT>()>& sh,
+                                                const float4* tile, int t0,
+                                                unsigned long long take, const WalkLane& L,
+                                                const Row& s, float* acc) {
+    constexpr int K = n_sums<D, STORE, SHIFT>();
+    constexpr int Q = walk_queue<K>();
+    const int lane = threadIdx.x & 31;
+    const int mine = __popcll(take);
+    const int busiest = __reduce_max_sync(FULL_MASK, mine);
+    if (busiest == 0) return;
+    // the fewest rounds >= ceil(pairs / 32) whose pairs past them fit the
+    // queue; never more than busiest, where nothing is queued (per lane)
+    int rounds = (__reduce_add_sync(FULL_MASK, mine) + 31) >> 5;
+    while (__reduce_add_sync(FULL_MASK, max(mine - rounds, 0)) > Q) ++rounds;
+    const int own = min(mine, rounds);  // pairs this lane evaluates for itself
+    const int excess = mine - own;      // ... and hands to the queue
+    int first = 0;                      // its first queue entry
+    int steal = 0;                      // the first entry it takes in its spare rounds
+    int queued = 0;                     // the tile's queued pairs
+    if (rounds < busiest) {
+        // exclusive scans of the excess and of the spare rounds, in one word
+        const int v = excess | (rounds - own) << 16;
+        int incl = v;
+#pragma unroll
+        for (int d = 1; d < 32; d <<= 1) {
+            const int u = __shfl_up_sync(FULL_MASK, incl, d);
+            if (lane >= d) incl += u;
+        }
+        queued = __shfl_sync(FULL_MASK, incl, 31) & 0xffff;
+        first = (incl - v) & 0xffff;
+        steal = (incl - v) >> 16;
+        if (excess) {                   // its pairs past its rounds, ascending
+            unsigned long long tail = take & ~low_bits(nth_bit(take, own));
+            for (int q = first; tail != 0ull; ++q) {
+                sh.queue[q] = (unsigned short)(lane << 6 | (__ffsll(tail) - 1));
+                tail &= tail - 1ull;
+            }
+        }
+        __syncwarp();
+    }
+    const int i0 = L.i - lane;          // the self row of lane o is i0 + o
+    unsigned long long rest = take;
+    for (int k = 0; k < rounds; ++k) {
+        int jj, slot = -1, oi = L.i;
+        Row so = s;                     // the pair's self: this lane's, in registers,
+        int2 oc = make_int2(L.s_i, L.e_i);
+        if (k < own) {                  // its own next pair, folded at once
+            jj = __ffsll(rest) - 1;
+            rest &= rest - 1ull;
+        } else {                        // a queued pair of another lane
+            slot = steal + k - own;
+            if (slot >= queued) break;
+            const int e = sh.queue[slot];
+            const int o = e >> 6;
+            jj = e & 63;
+            so = load_row<D>(sh.selves, o);  // ... or its owner's, the same bits
+            oc = sh.own_cell[o];
+            oi = i0 + o;
+        }
+        const int j = t0 + jj;
+        const Row c = load_row<D>(tile, jj);
+        float xij[D];
+        const float d2 = pair_distance2<D>(so, c, xij);
+        const bool same_cell = (j >= oc.x) && (j < oc.y);
+        float t[K];
+        pair_terms<D, SPS, STORE, SHIFT, FAM, VISC, DIFF>(
+            P, so, c, xij, d2, same_cell ? (oi < j) : (oi > j), t);
+        if (slot < 0) {
+            fold_terms<K>(acc, t);
+        } else {
+#pragma unroll
+            for (int kk = 0; kk < K; ++kk) sh.terms[kk * Q + slot] = t[kk];
+        }
+    }
+    if (rounds < busiest) {
+        __syncwarp();                   // every queued pair has its terms
+        for (int q = first; q < first + excess; ++q) {
+            float t[K];
+#pragma unroll
+            for (int kk = 0; kk < K; ++kk) t[kk] = sh.terms[kk * Q + q];
+            fold_terms<K>(acc, t);
+        }
+    }
+}
+
 // One pass of the warp over its group: every member lane adds the pairs of
 // its self ``s`` (pack row L.i) to acc.  Called by all 32 lanes of the warp
-// together; ``tiles`` is the warp's 2 x WALK_TILE x NV float4s.
+// together, after walk_stage_self; ``sh`` is the warp's shared memory.
 template <int D, bool SPS, bool STORE, bool SHIFT, int FAM, int VISC, int DIFF, class Params>
 __device__ __forceinline__ void walk_pass(const Params& P, const float4* __restrict__ pack,
-                                          const int* __restrict__ cell_start, float4* tiles,
+                                          const int* __restrict__ cell_start,
+                                          WalkShared<D, n_sums<D, STORE, SHIFT>()>& sh,
                                           int ry, int rz, const WalkLane& L, const Row& s,
                                           float* acc) {
     constexpr int NV = pack_vectors<D>();
@@ -148,6 +342,7 @@ __device__ __forceinline__ void walk_pass(const Params& P, const float4* __restr
     while (row < S && !walk_row<D>(P, cell_start, row, ry, rz, uxl, uxh, L, ub, ue, jb, je))
         ++row;
     if (row == S) return;
+    float4* tiles = sh.tiles;
     int t0 = ub, buf = 0;
     stage_tile<D>(tiles, pack, t0, min(T, ue - t0), lane);
     stage_commit();
@@ -186,28 +381,8 @@ __device__ __forceinline__ void walk_pass(const Params& P, const float4* __restr
         const int lo = min(max(jb - t0, 0), T), hi = min(max(je - t0, 0), T);
         unsigned long long own = low_bits(hi) & ~low_bits(lo);
         if ((unsigned)(L.i - t0) < (unsigned)T) own &= ~(1ull << (L.i - t0));
-        const unsigned long long take = in_h & own;
-        // lowest bit first, one 32-bit half at a time; one copy of the pair
-        // body (the 2D all-extras body is large)
-        unsigned bits = (unsigned)take, high = (unsigned)(take >> 32);
-        int base = 0;
-        while (true) {
-            if (bits == 0u) {
-                if (high == 0u) break;
-                bits = high;
-                high = 0u;
-                base = 32;
-            }
-            const int jj = base + __ffs(bits) - 1;
-            bits &= bits - 1u;
-            const int j = t0 + jj;
-            const Row c = load_row<D>(tile, jj);
-            float xij[D];
-            const float d2 = pair_distance2<D>(s, c, xij);
-            const bool same_cell = (j >= L.s_i) && (j < L.e_i);
-            add_pair<D, SPS, STORE, SHIFT, FAM, VISC, DIFF>(
-                P, s, c, xij, d2, same_cell ? (L.i < j) : (L.i > j), acc);
-        }
+        walk_tile_pairs<D, SPS, STORE, SHIFT, FAM, VISC, DIFF>(P, sh, tile, t0, in_h & own, L,
+                                                               s, acc);
         __syncwarp();                   // every lane is done with this buffer
         if (!more) break;
         row = nrow;

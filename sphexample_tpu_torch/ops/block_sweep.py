@@ -238,10 +238,29 @@ def check_inputs(grid: Grid, particles: Particles, cell_start, position, density
         raise TypeError(f"position must be floating point, not {position.dtype}")
 
 
-# the walk's shape (csrc/sph_sweep_walk.cuh): the selves of one warp pass, and
-# the packed rows of one staged tile (one bit of a lane's accept mask each)
+# the walk's shape (csrc/sph_sweep_walk.cuh): the selves of one warp pass, the
+# packed rows of one staged tile (one bit of a lane's accept mask each), and
+# the bytes of queued pair terms a warp holds for the cooperative path
 WARP = 32
 WALK_TILE = 64
+WALK_TERM_BYTES = 3072
+
+
+def walk_queue(k: int) -> int:
+    """Pairs a tile may queue for other lanes, for K sums a self
+    (sph_sweep_walk.cuh::walk_queue)."""
+    return max(WALK_TERM_BYTES // (4 * k), 8)
+
+
+def tile_rounds(pairs, queue: Optional[int] = None):
+    """(rounds, cooperative) of a tile whose lanes accept ``pairs`` (a list
+    of ints), by the kernel's rule: the fewest rounds >= ceil(sum / 32) whose
+    pairs past them fit ``queue`` (no limit when None); cooperative when
+    they are fewer than the busiest lane's pairs, else per lane."""
+    r = -(-sum(pairs) // WARP)
+    while queue is not None and sum(max(p - r, 0) for p in pairs) > queue:
+        r += 1
+    return r, r < max(pairs, default=0)
 
 
 @dataclass(frozen=True)
@@ -353,19 +372,25 @@ def walk_candidates(sched: Schedule, grid: Grid, cell_start, position, H2: float
 
 
 def pass_bodies(sched: Schedule, grid: Grid, cell_start, position, H2: float,
-                passes, self_off: int = 0) -> dict:
+                passes, self_off: int = 0, queue: Optional[int] = None) -> dict:
     """Pair bodies a warp runs over the passes ``passes`` (pass ids), by how
     its compute is batched, and the accepted pairs of its busiest and mean
     lane, summed over the passes: ``any_lane`` - the union rows some lane
     accepts (a walk whose lanes step through the union together pays the
     body on each); ``per_tile`` - the busiest lane's accepts in each staged
-    tile of WALK_TILE rows (this walk); ``per_row`` - in each stencil row;
-    ``per_pass`` - over the whole pass; ``mean_lane`` - a lane's average.
+    tile of WALK_TILE rows (the per-lane path on every tile); ``balanced`` -
+    in each tile the rounds of the path the walk takes there
+    (:func:`tile_rounds`, ``queue`` the kernel's walk_queue for the mode's
+    sums); ``per_row`` - the busiest lane's in each stencil row;
+    ``per_pass`` - over the whole pass; ``mean_lane`` - a lane's average;
+    ``cooperative_tiles`` - the share of the staged tiles that take the
+    cooperative path (a share, not a sum).
     Self row r is ``position`` row self_off + r, as in walk_candidates."""
     ub, ue, base, valid = _pass_rows(sched, grid, cell_start)
     cs = cell_start.long()
-    out = {"passes": 0, "any_lane": 0, "per_tile": 0, "per_row": 0, "per_pass": 0,
-           "mean_lane": 0.0}
+    out = {"passes": 0, "any_lane": 0, "per_tile": 0, "balanced": 0, "per_row": 0,
+           "per_pass": 0, "mean_lane": 0.0}
+    tiles = coop = 0
     for q in passes.tolist():
         rows = torch.nonzero(sched.pass_of == q).flatten()
         total = torch.zeros(rows.numel(), dtype=torch.int64, device=rows.device)
@@ -384,12 +409,18 @@ def pass_bodies(sched: Schedule, grid: Grid, cell_start, position, H2: float,
                    & ~(d2 > H2))
             out["any_lane"] += int(acc.any(0).sum())
             out["per_row"] += int(acc.sum(1).max())
-            out["per_tile"] += sum(int(acc[:, t:t + WALK_TILE].sum(1).max())
-                                   for t in range(0, b - a, WALK_TILE))
+            for t in range(0, b - a, WALK_TILE):
+                lanes = acc[:, t:t + WALK_TILE].sum(1).tolist()
+                rounds, take = tile_rounds(lanes, queue)
+                out["per_tile"] += max(lanes)
+                out["balanced"] += rounds
+                tiles += 1
+                coop += int(take)
             total += acc.sum(1)
         out["passes"] += 1
         out["per_pass"] += int(total.max())
         out["mean_lane"] += float(total.double().mean())
+    out["cooperative_tiles"] = coop / tiles if tiles else 0.0
     return out
 
 

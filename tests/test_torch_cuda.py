@@ -54,6 +54,7 @@ from sphexample_tpu_torch.parallel.context import SINGLE
 from sphexample_tpu_torch.parallel.mesh import (make_mesh, make_sharded_fixed_steps_fn,
                                                 shard_simulation)
 from sphexample_tpu_torch.state import Particles, allocate_particles, gather_state
+from walk_tiles import tile_pairs
 
 pytestmark = pytest.mark.gpu
 torch.set_num_threads(1)
@@ -1279,6 +1280,68 @@ def test_walk_windows_of_both_kernels(cuda, dims, case):
                 continue
             for o in outs:
                 assert torch.equal(getattr(o, name), mine[r * C:(r + 1) * C]), (name, r)
+
+
+def _both_paths_state(dims, seed=5):
+    """A dense jittered lattice (about 40 rows a cell in 3D, 36 in 2D) beside
+    a sparse scatter: tiles that take the walk's cooperative path and tiles
+    that keep the per-lane one; a capacity of N_SLABS slabs of an odd length,
+    so that slabs start off a multiple of 32 rows."""
+    rng = np.random.default_rng(seed)
+    kern = T.make_kernel(T.KernelFamily.WENDLAND_C2, dims, dx=DX)
+    a = kern.H / (3.42 if dims == 3 else 6.0)
+    side = 10 if dims == 3 else 30
+    lat = np.stack(np.meshgrid(*([np.arange(side) * a] * dims), indexing="ij"),
+                   axis=-1).reshape(-1, dims)
+    lat = lat + rng.uniform(-0.2, 0.2, size=lat.shape) * a
+    span = side * a
+    sparse = (rng.uniform(0, 1, size=(200, dims)) * span * 2.5
+              + np.r_[span * 1.2, [0.0] * (dims - 1)])
+    pos = np.concatenate([lat, sparse])
+    n = len(pos)
+    slab = (n + 23) // N_SLABS | 1          # odd: slab r starts at r * slab
+    return _state_at(pos, "WENDLAND_C2", N_SLABS * slab) + (n,)
+
+
+@pytest.mark.parametrize("dims", [2, 3])
+@pytest.mark.parametrize("mode", list(WALK_MODES))
+def test_walk_paths_both_kernels_and_slabs(cuda, dims, mode):
+    """Tiles on both compute paths of the walk (checked on the plain mirror:
+    cooperative and per-lane tiles in both kernels' schedules, and a
+    cooperative tile whose rounds the queue's size raised): B1 equals B3 bit
+    for bit and both lie within REL_TOL of the plain f64 sweep; on N_SLABS
+    slabs whose self rows start off a multiple of 32 (so their warps group
+    the rows otherwise than the single launch does) every slab of either
+    kernel is its single launch bit for bit and within REL_TOL of the plain
+    sweep on its window."""
+    const, kern, grid, p64, cs, _, n = _both_paths_state(dims)
+    spec = _full_spec(const, kern, *WALK_MODES[mode])
+    C = p64.capacity // N_SLABS
+    assert C % 32 and (2 * C) % 32
+    queue = bs.walk_queue(bs.n_sums(spec, dims))
+    p32 = _on(p64, "cpu", torch.float32)
+    for sched in (bs.block_schedule(grid, p64, cs), cw.cell_schedule(grid, cs, p64.capacity)):
+        tiles = tile_pairs(sched, grid, cs, p32.position, kern.H2)
+        rule = [bs.tile_rounds(t, queue) for t in tiles]
+        assert any(c for _, c in rule) and not all(c for _, c in rule)
+        # a cooperative tile whose rounds the queue's size raised
+        assert any(c and r > -(-sum(t) // 32) for t, (r, c) in zip(tiles, rule))
+    ref = bs.block_sweep_plain(*_args(spec, grid, p64, cs))
+    g32, cs_g = _on(p64, cuda, torch.float32), cs.to(cuda)
+    blk = bs.block_sweep(*_args(spec, grid, g32, cs_g))
+    cel = cw.cell_sweep(*_args(spec, grid, g32, cs_g))
+    torch.cuda.synchronize()
+    for f in FIELDS:
+        a, b, c = getattr(blk, f), getattr(ref, f), getattr(cel, f)
+        assert (a is None) == (b is None) == (c is None), f
+        if a is None:
+            continue
+        assert torch.equal(a, c), f
+        a = a.double().cpu()
+        assert torch.isfinite(a).all() and not a[~p64.active].any(), f
+        assert float((a - b).abs().max()) <= REL_TOL * float(b.abs().max()), f
+    for mod in (bs, cw):
+        _hold_window(cuda, mod, spec, grid, p64, cs, n, halos=(2 * C, 0))
 
 
 # --- the host loop on the card: re-grid and replay, checkpoints, determinism ------

@@ -10,6 +10,10 @@ what they were.  Crowded, sheet and edge cells (the cases of the card's cell
 tests), cells of more than 32 selves, warps across cell rows, inactive rows
 inside a warp and self windows with ``self_off > 0``."""
 
+import re
+
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -21,6 +25,7 @@ from sphexample_tpu_torch.ops import cell_sweep as cw
 from sphexample_tpu_torch.ops import halo as halo_mod
 from sphexample_tpu_torch.ops.interactions import candidates
 from sphexample_tpu_torch.state import allocate_particles
+from walk_tiles import tile_pairs
 
 torch.set_num_threads(1)
 DX = 0.05
@@ -232,16 +237,22 @@ def test_schedule_stats(dims):
 
 
 @pytest.mark.parametrize("dims", [2, 3])
-@pytest.mark.parametrize("case", ["lattice", "crowded"])
+@pytest.mark.parametrize("case", ["lattice", "crowded", "sheet"])
 def test_pass_bodies(dims, case):
     """The pair bodies a warp runs by compute batching: a lane's accepts add
     up to the walk's accepted pairs; batching over larger spans never costs
     more bodies (tile >= stencil row >= pass >= the mean lane), and no
-    batching costs more than stepping through the union together."""
+    batching costs more than stepping through the union together.  The
+    walk's per-tile choice of path (``balanced``) never costs more than the
+    per-lane path on every tile and never less than ceil(pairs / 32) a tile;
+    it and the cooperative share are those of the rule applied to the
+    tiles' pairs counted from the accepted candidates."""
     kern, grid, p, cs, _ = _state(dims, case)
     for sched in (bs.block_schedule(grid, p, cs), cw.cell_schedule(grid, cs, p.capacity)):
         n_pass = int(sched.pass_row.shape[0])
-        b = bs.pass_bodies(sched, grid, cs, p.position, kern.H2, torch.arange(n_pass))
+        queue = bs.walk_queue(1 + dims)
+        b = bs.pass_bodies(sched, grid, cs, p.position, kern.H2, torch.arange(n_pass),
+                           queue=queue)
         got = bs.walk_candidates(sched, grid, cs, p.position, kern.H2)
         assert b["passes"] == n_pass
         accepted = torch.bincount(sched.pass_of[got[0]], minlength=n_pass)
@@ -249,3 +260,80 @@ def test_pass_bodies(dims, case):
         assert b["mean_lane"] == pytest.approx(float((accepted / members).sum()))
         assert b["any_lane"] >= b["per_tile"] >= b["per_row"] >= b["per_pass"]
         assert b["per_pass"] >= b["mean_lane"] > 0
+        tiles = tile_pairs(sched, grid, cs, p.position, kern.H2)
+        assert sum(map(sum, tiles)) == got[0].numel()
+        assert b["per_tile"] == sum(map(max, tiles))
+        least = sum(-(-sum(t) // bs.WARP) for t in tiles)
+        assert b["per_tile"] >= b["balanced"] >= least
+        rule = [bs.tile_rounds(t, queue) for t in tiles]
+        assert b["balanced"] == sum(r for r, _ in rule)
+        n_tiles = bs.schedule_stats(sched, grid, cs)["tiles"]
+        assert b["cooperative_tiles"] * n_tiles == pytest.approx(sum(c for _, c in rule))
+        for t, (r, c) in zip(tiles, rule):
+            assert -(-sum(t) // bs.WARP) <= r <= max(t)
+            assert c == (r < max(t))
+            assert sum(max(x - r, 0) for x in t) <= queue   # the pairs past the rounds fit
+
+
+@pytest.mark.parametrize("pairs,queue,rounds,cooperative", [
+    ([2] * 32, 8, 2, False),                  # balanced: nothing to hand over
+    ([9] + [1] * 31, None, 2, True),          # one busy lane: ceil(40 / 32) rounds
+    ([40, 40] + [0] * 30, 64, 8, True),       # the queue fits 64 of the 78 past 1 round
+    ([5, 3] + [0] * 30, 8, 1, True),          # idle lanes take the 6 queued pairs
+    ([5, 3] + [0] * 30, 4, 2, True),          # ... 4 of them, in 2 rounds
+    ([1] + [0] * 31, 8, 1, False),
+])
+def test_tile_rounds(pairs, queue, rounds, cooperative):
+    """The walk's rule for a tile: the fewest rounds >= ceil(pairs / 32)
+    whose pairs past them fit the queue, cooperative when that is fewer than
+    the busiest lane's pairs."""
+    assert bs.tile_rounds(pairs, queue) == (rounds, cooperative)
+
+
+def _lattice(dims, rows_per_cell, side):
+    """The decks' initial lattice: sites at (i + 0.5) DX, a quarter of a cell
+    off the cell boundaries, under a kernel whose support (the cell edge)
+    holds about ``rows_per_cell`` rows a cell: the 3D dam break's h = sqrt(3)
+    dx (about 41.6), the moving square's h = k = sqrt(2) dx (4)."""
+    h = DX * (np.sqrt(3.0) if rows_per_cell > 8 else np.sqrt(2.0))
+    kern = T.make_kernel(T.KernelFamily.WENDLAND_C2, dims, h=h,
+                         k=2.0 if rows_per_cell > 8 else np.sqrt(2.0))
+    assert (kern.H / DX) ** dims == pytest.approx(rows_per_cell, rel=0.05)
+    pos = (np.stack(np.meshgrid(*([np.arange(side)] * dims), indexing="ij"),
+                    axis=-1).reshape(-1, dims) + 0.5) * DX
+    n = len(pos)
+    grid = cl.grid_from_positions(pos, kern.H_inv, margin_cells=3)
+    p = allocate_particles(pos, np.full(n, 1000.0), np.ones(n, np.int32),
+                           np.ones(n, np.int32), np.arange(1, n + 1), device="cpu",
+                           dtype=torch.float32, capacity=n)
+    sp, cs, _ = cl.rebuild(p, kern.H_inv, grid)
+    return kern, grid, sp, cs
+
+
+@pytest.mark.parametrize("dims,rows_per_cell,side,least,most", [
+    (3, 41.6, 20, 0.0, 0.6),      # the dam break's crowding: the tiles run ~40 % of it
+    (2, 4.0, 64, 0.7, 1.0),       # the square's: one round saved here and there
+])
+def test_cooperative_share_follows_the_crowding(dims, rows_per_cell, side, least, most):
+    """Most tiles of both decks' lattices can save a round by handing pairs
+    over, and take the cooperative path; what that saves follows the
+    crowding: on a 3D lattice of about 40 rows a cell (a lane's pairs gather
+    in the stencil rows near its position in the cell) the walk runs under
+    0.6 of the per-lane path's bodies, on a 2D lattice of about 4 rows a cell
+    more than 0.7 of them."""
+    kern, grid, p, cs = _lattice(dims, rows_per_cell, side)
+    sched = bs.block_schedule(grid, p, cs)
+    n_pass = int(sched.pass_row.shape[0])
+    pick = torch.randperm(n_pass, generator=torch.Generator().manual_seed(0))[:120]
+    b = bs.pass_bodies(sched, grid, cs, p.position, kern.H2, pick,
+                       queue=bs.walk_queue(1 + dims))
+    assert 0.6 <= b["cooperative_tiles"] <= 1.0
+    assert least * b["per_tile"] < b["balanced"] < most * b["per_tile"]
+
+
+@pytest.mark.parametrize("name", ["WALK_TILE", "WALK_TERM_BYTES"])
+def test_walk_constants_are_the_kernels(name):
+    """The mirrors' constants are the values in csrc/sph_sweep_walk.cuh."""
+    src = (Path(bs.__file__).resolve().parent.parent / "csrc" / "sph_sweep_walk.cuh").read_text()
+    found = re.findall(rf"constexpr int {name} = (-?\d+);", src)
+    assert found == [str(getattr(bs, name))]
