@@ -1,0 +1,5 @@
+"""``device.peak_gib``, read in the 2.2M-row dam break's cell, where the sweep is B3 (``particle_steps_per_s``)."""
+
+from portbench.harness import find, load_module
+
+read = load_module(find("metrics", "device.peak_gib", ".py")).read

@@ -48,7 +48,7 @@ from ..ops import cell_list as cl
 from ..ops.block_sweep import BLOCK_CAP_LIMIT
 from ..ops.interactions import PhysicsSpec
 from ..state import SimulationState, allocate_particles, gather_state
-from ..utils.timers import RECORDER, HourGlass, host_read
+from ..utils.timers import RECORDER, SWEEP_COUNTER, HourGlass, host_read
 from ..utils.watchdog import DeviceWatchdog
 from .motion import build_motion_table
 from .step import StepConfig, make_interval_fn
@@ -483,7 +483,9 @@ def run_simulation(
     with the children ``driver.pre_read``, ``chunk_loop.interval`` (the
     chunk loop's spans below it), ``driver.overflow_check``,
     ``driver.retune``, ``driver.save``, ``driver.log`` and
-    ``driver.end_check``; every read of the device here goes through
+    ``driver.end_check``; each interval, a replay included, counts the
+    sweep kernel it runs under ``driver.sweep.<block|cell>``
+    (``StepConfig.sweep_kernel``); every read of the device here goes through
     ``host_read``, which counts it (seven an interval with a log callback,
     three without, one more sharded, besides the chunk loop's one a chunk)."""
     meta = sim.meta
@@ -515,6 +517,7 @@ def run_simulation(
         while True:
             if RECORDER.on:
                 RECORDER.interval = counter + 1
+                RECORDER.count(SWEEP_COUNTER + sim.cfg.sweep_kernel)
             with RECORDER.span("driver.interval"):
                 # the output time in the state's dtype, as the JAX loop compares
                 t_out = torch.tensor(meta.output_time_for(counter), dtype=dtype).item()

@@ -11,7 +11,8 @@ SimulationLoggerConfiguration.jl:204-217):
   loop (interval compute, retune, snapshot saves), printed as a table.
 * :data:`RECORDER` - the spans of ``core/driver.py:run_simulation`` and of
   the chunk loop (``core/step.py``), the count of their device-to-host
-  reads (``driver.host_reads``, through :func:`host_read`) and, per chunk
+  reads (``driver.host_reads``, through :func:`host_read`), the intervals
+  run through each sweep kernel (``driver.sweep.block`` / ``.cell``) and, per chunk
   graph replay, device times from CUDA events.  Off by default;
   :func:`start_trace` clears it and turns it on, :func:`stop_trace` turns
   it off.  Off, every site costs one flag test: no span, no CUDA event, no
@@ -33,6 +34,8 @@ from typing import Dict, Optional
 import torch
 
 HOST_READS = "driver.host_reads"
+# with the sweep kernel's name: the intervals run_simulation ran through it
+SWEEP_COUNTER = "driver.sweep."
 _OFF = nullcontext()
 
 

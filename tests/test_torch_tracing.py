@@ -3,8 +3,9 @@ CPU: off it records nothing and creates no CUDA event; on, over a tiny deck's
 intervals, the span tree of ``run_simulation`` and the chunk loop (parents,
 interval ids, nesting in time), the count of device-to-host reads (seven an
 interval with a log callback, plus one a chunk; one more sharded, for the
-halo), the chunks' steps and rebuilds, and a trajectory bit for bit the one
-run with tracing off.  The card's part (CUDA events around a replay, the
+halo), the chunks' steps and rebuilds, the count of intervals per sweep
+kernel (block, and cell with the capacity rule's cap lowered), and a
+trajectory bit for bit the one run with tracing off.  The card's part (CUDA events around a replay, the
 profiler's clock) is in ``tests/test_torch_cuda.py``."""
 
 import hashlib
@@ -185,6 +186,24 @@ def test_host_reads_are_counted_and_tracing_adds_none(sharded):
     # no device times off the card
     assert all(c[3:] == (None, None, None) for c in chunks)
     assert RECORDER.device_span_ms() is None
+
+
+@pytest.mark.parametrize("route", ["block", "cell"])
+def test_each_interval_counts_the_sweep_it_ran(monkeypatch, route):
+    """``driver.sweep.<kernel>`` once an interval, for the kernel the
+    capacity rule chose (the cell route forced by a cap below the deck's
+    rows); nothing while tracing is off."""
+    from sphexample_tpu_torch.core import driver
+
+    if route == "cell":
+        monkeypatch.setattr(driver, "BLOCK_CAP_LIMIT", 8)
+    sim = _sim()
+    assert sim.cfg.sweep_kernel == route
+    _run(sim, trace=False)
+    assert dict(RECORDER.counters) == {}
+    _run(_sim(), trace=True)
+    sweeps = {k: v for k, v in RECORDER.counters.items() if k.startswith(timers.SWEEP_COUNTER)}
+    assert sweeps == {timers.SWEEP_COUNTER + route: INTERVALS}
 
 
 def test_trajectory_is_the_same_with_tracing_on_and_off():
