@@ -19,8 +19,10 @@ Phases, each printing one JSON line (any failure exits non-zero):
               and instantiate seconds, nodes per step and memory printed),
               with the physics checks (finite fields, fluid density within
               2% of rho0, the column falling, fixed walls unmoved) and the
-              launch count (exactly 2 per step); every run phase prints a
-              SHA-256 of its end state (``end_digest``);
+              launch count (exactly 2 per step, and as many launches of the
+              input pack, ``pack_launches``, in every run phase, sharded
+              ones too); every run phase prints a SHA-256 of its end state
+              (``end_digest``);
 5. breakdown - where a step's time goes: the sweep kernel, the rebuild and
               the rest, timed with CUDA events, and the device busy share
               over a profiled window;
@@ -153,12 +155,22 @@ Phases, each printing one JSON line (any failure exits non-zero):
               single-device phases, sharded_parity_block_square;
               exchange - the bytes one slab sends per sweep and the time of
               one halo exchange.
-              The kernel line then holds five entries: block_sweep,
+              The kernel line then holds six entries: block_sweep,
               block_sweep_sharded, cell_sweep, cell_sweep_sharded,
               mdbc_moments (both of its uses: ``ms`` is the fused call of
               stage 04, ``moments_mode_ms`` the moments alone; the grouping,
               the grouping kernels' time, the fused stage's time and device
-              launches, the parked slots on the halo).
+              launches, the parked slots on the halo) and pack_fields, the
+              sweeps' input pack (``csrc/pack_fields.cu``): on the end states
+              of run (3D f32), run_large and run_moving_square_block (2D), the
+              phases pack_fields, pack_fields_large and
+              pack_fields_moving_square compare its rows with the plain
+              version's on the same CUDA tensors as int32 words (any
+              difference fails) and time the wrapper, the kernel alone, the
+              torch.cat pack (``library_ms``, also ``plain_ms``) and the bound
+              (the fields read once, the f32 rows written once); its
+              launches are each path's run phase's, its kernel's time in
+              that path's profiled eager steps ``kernel_only_ms_in_steps``.
 
 17. the host loop a user runs, under a temporary directory removed at the end:
               run_simulation_main - the main deck with examples/dam_break_3d.py's
@@ -298,8 +310,9 @@ Phases, each printing one JSON line (any failure exits non-zero):
               intervals of about 90 steps each (a chunk of 64 and part of
               another; rebuilds inside the chunks) through
               ``make_interval_fn`` and through the eager loop: the same steps
-              per interval and the same end digest, 2 sweep launches (+ 1
-              mDBC call and 4 grouping kernels) per step, counted where they
+              per interval and the same end digest, 2 sweep launches and 2
+              pack launches (``csrc/pack_fields.cu``; + 1 mDBC call and 4
+              grouping kernels) per step, counted where they
               launch and at every replay (``ops/launch_count.py``), one host
               read per chunk with
               ``torch.cuda.set_sync_debug_mode("error")`` on for everything
@@ -320,11 +333,12 @@ Phases, each printing one JSON line (any failure exits non-zero):
               chunk (``core/step.py:_eager_chunk``, the route of slabs on
               several cards) in turns (eager, graph, graph, eager): the same
               steps per interval and end digest, every rank the same rebuilds,
-              2 windowed sweep launches (+ 1 mDBC call and 4 grouping kernels)
-              a step a slab counted at the replays, one host read per chunk
-              under sync-debug mode; it prints the route, capture and
-              instantiate seconds, nodes per step, the graph's memory, wall ms
-              per step in turns (every turn on the same digest) and each
+              2 windowed sweep launches and 2 pack launches (+ 1 mDBC call and
+              4 grouping kernels) a step a slab counted at the replays, one
+              host read per chunk under sync-debug mode; it prints the route,
+              capture and instantiate seconds, nodes per step, the graph's
+              memory, wall ms per step in turns (every turn on the same
+              digest) and each
               chunk's device ms per step and busy share: the graph's by CUDA
               events around its launches (its slabs' branches overlap, so a
               kernel sum would count time twice), the eager chunk's by the
@@ -439,7 +453,7 @@ def fail(msg):
 def reset_counts():
     """Every launch count to 0 (before a path is driven)."""
     bs.launches = cw.launches = bs.window_launches = cw.window_launches = 0
-    mm.launches = mm.group_launches = 0
+    bs.pack_launches = mm.launches = mm.group_launches = 0
 
 
 def case_3d(dx=0.0085):
@@ -1027,6 +1041,31 @@ def sweep_numbers(sim, p, cs, mod=bs, plain_reps=2, op_costs=None):
             "bytes": nbytes, "ops": ops, "schedule": schedule(sim, p, cs, mod)}
 
 
+def pack_numbers(p, label):
+    """The input pack (``bs.pack_fields``, ``csrc/pack_fields.cu``) on a
+    state's fields: its rows against the plain version's on the same CUDA
+    tensors as int32 words (NaN rows compare too), the wrapper's time a call
+    (CUDA events), the kernel's alone (profiler), the torch.cat pack's (the
+    plain version) and the bound: each row's fields read once in their dtype
+    and its 4 D f32 written once (84 B a 3D f32 row, 60 B a 2D one).
+    Emitted as the phase ``label``; rows that differ fail it."""
+    fields = (p.position, p.velocity, p.density, p.pressure, p.motion_limiter)
+    got, want = bs.pack_fields(*fields), bs.pack_fields_plain(*fields)
+    n, d = p.position.shape
+    nbytes = n * ((2 * d + 3) * p.position.element_size() + 4 * d * 4)
+    res = {"rows": n, "dims": d, "dtype": str(p.position.dtype),
+           "bitwise": bool(torch.equal(got.view(torch.int32), want.view(torch.int32))),
+           "ms": time_cuda(lambda: bs.pack_fields(*fields), 50),
+           "kernel_only_ms": kernel_only_ms(lambda: bs.pack_fields(*fields), "pack_fields",
+                                            reps=20),
+           "library_ms": time_cuda(lambda: bs.pack_fields_plain(*fields), 50),
+           "bound_ms": 1e3 * nbytes / PEAK_BYTES, "bound_by": "bytes", "bytes": nbytes}
+    emit({"phase": label, **res})
+    if not res["bitwise"]:
+        fail(f"{label}: the kernel's rows differ from the plain version's")
+    return res
+
+
 def mdbc_work(sim, args, groups, own_rows=None):
     """Candidates and in-support fluid pairs of the slots the kernel computes,
     and the bytes and operations of the function on this run's data.
@@ -1091,7 +1130,7 @@ def run_phase(sim, label, mdbc_on, sweep="block", falling=True, rho_band=0.02):
     wall = time.perf_counter() - t0
     counts = {"block": bs.launches, "cell": cw.launches}
     sweep_launches, mdbc_launches = counts[sweep], mm.launches
-    group_launches = mm.group_launches
+    group_launches, pack_launches = mm.group_launches, bs.pack_launches
     other_launches = sum(v for k, v in counts.items() if k != sweep)
     n = sim.n_live
     run = {
@@ -1102,6 +1141,7 @@ def run_phase(sim, label, mdbc_on, sweep="block", falling=True, rho_band=0.02):
         **physics(sim, ids0, pos0, fixed0, state),
         "sweep_kernel": sweep, "launches": sweep_launches,
         "block_sweep_launches": counts["block"], "cell_sweep_launches": counts["cell"],
+        "pack_launches": pack_launches,
         "mdbc_launches": mdbc_launches, "mdbc_group_launches": group_launches,
         "ghosts": sim.cfg.boundary_capacity if mdbc_on else 0,
         "max_occupancy": int(state.max_occupancy), "max_segment": int(state.max_segment),
@@ -1114,6 +1154,8 @@ def run_phase(sim, label, mdbc_on, sweep="block", falling=True, rho_band=0.02):
     if sweep_launches != 2 * STEPS or other_launches != 0:
         fail(f"{label}: {sweep}-sweep launches {sweep_launches} != 2 x {STEPS} steps, "
              f"or the other sweep was launched ({other_launches})")
+    if pack_launches != sweep_launches:
+        fail(f"{label}: pack launches {pack_launches} != sweep launches {sweep_launches}")
     if mdbc_launches != (STEPS if mdbc_on else 0) or group_launches != len(
             GROUP_KERNELS) * mdbc_launches:
         fail(f"{label}: mDBC launches {mdbc_launches} (grouping {group_launches}) in "
@@ -1580,9 +1622,7 @@ def run_sharded_phase(sim, single_end, label, mdbc_on, sweep="block", falling=Tr
     torch.cuda.synchronize()
     rebuilds0 = [int(s.rebuilds) for s in states]
     torch.cuda.reset_peak_memory_stats()
-    bs.launches = bs.window_launches = 0
-    cw.launches = cw.window_launches = 0
-    mm.launches = mm.group_launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     states = fixed(states)
     torch.cuda.synchronize()
@@ -1590,7 +1630,7 @@ def run_sharded_phase(sim, single_end, label, mdbc_on, sweep="block", falling=Tr
     counts = {"block": bs.window_launches, "cell": cw.window_launches}
     single_entry = bs.launches + cw.launches
     sweep_launches, mdbc_launches = counts[sweep], mm.launches
-    group_launches = mm.group_launches
+    group_launches, pack_launches = mm.group_launches, bs.pack_launches
     other_launches = sum(v for k, v in counts.items() if k != sweep)
     rebuilds = [int(s.rebuilds) - r0 for s, r0 in zip(states, rebuilds0)]
     scalars_agree = all(
@@ -1620,8 +1660,8 @@ def run_sharded_phase(sim, single_end, label, mdbc_on, sweep="block", falling=Tr
         "sweep_kernel": sweep, "launches": sweep_launches,
         "launches_per_step_per_slab": sweep_launches / STEPS / N_SLABS,
         "block_window_launches": counts["block"], "cell_window_launches": counts["cell"],
-        "single_device_entry_launches": single_entry, "mdbc_launches": mdbc_launches,
-        "mdbc_group_launches": group_launches,
+        "single_device_entry_launches": single_entry, "pack_launches": pack_launches,
+        "mdbc_launches": mdbc_launches, "mdbc_group_launches": group_launches,
         "vs_single_device_max_abs": diffs,
         "vs_single_device_bitwise": all(v == 0.0 for v in diffs.values()),
         "vs_single_device_in_bands": in_bands,
@@ -1637,6 +1677,9 @@ def run_sharded_phase(sim, single_end, label, mdbc_on, sweep="block", falling=Tr
         fail(f"{label}: windowed {sweep}-sweep launches {sweep_launches} != 2 x {STEPS} "
              f"steps x {N_SLABS} slabs, or another sweep entry was launched "
              f"({other_launches}, {single_entry})")
+    if pack_launches != sweep_launches:
+        fail(f"{label}: pack launches {pack_launches} != windowed sweep launches "
+             f"{sweep_launches}")
     if mdbc_launches != (STEPS * N_SLABS if mdbc_on else 0) or group_launches != len(
             GROUP_KERNELS) * mdbc_launches:
         fail(f"{label}: mDBC launches {mdbc_launches} (grouping {group_launches}) in "
@@ -3162,8 +3205,8 @@ def chunk_graph_deck(label, sim, card):
     cap = cfg.meta.max_steps_per_call
     reset_counts()
     (g_end, g_steps), g_first_s = walled(lambda: graph_intervals(interval, start, t_outs))
-    launches = {"block": bs.launches, "cell": cw.launches, "mdbc": mm.launches,
-                "grouping": mm.group_launches}
+    launches = {"block": bs.launches, "cell": cw.launches, "pack": bs.pack_launches,
+                "mdbc": mm.launches, "grouping": mm.group_launches}
     graph = chunk.graph
     (e_end, e_steps), _ = walled(lambda: eager_intervals(cfg, start, t_outs))
     steps = sum(g_steps)
@@ -3202,6 +3245,7 @@ def chunk_graph_deck(label, sim, card):
     mdbc_on = cfg.meta.mdbc is T.MDBCMode.SIMPLE
     want = {"block": 2 * steps if cfg.sweep_kernel == "block" else 0,
             "cell": 2 * steps if cfg.sweep_kernel == "cell" else 0,
+            "pack": 2 * steps,
             "mdbc": steps if mdbc_on else 0,
             "grouping": len(GROUP_KERNELS) * steps if mdbc_on else 0}
     if g_steps != e_steps or rec["graph_end_digest"] != rec["eager_end_digest"]:
@@ -3329,8 +3373,8 @@ def chunk_graph_sharded_deck(label, sim, card):
     with capture_under_sync_debug() as captured:
         (g_end, g_steps), g_first_s = walled(lambda: graph_intervals(interval, start, t_outs))
     launches = {"block": bs.launches, "cell": cw.launches, "block_window": bs.window_launches,
-                "cell_window": cw.window_launches, "mdbc": mm.launches,
-                "grouping": mm.group_launches}
+                "cell_window": cw.window_launches, "pack": bs.pack_launches,
+                "mdbc": mm.launches, "grouping": mm.group_launches}
     graph = chunk.graph
     steps = sum(g_steps)
     rebuilds = [int(s.rebuilds) - int(s0.rebuilds) for s, s0 in zip(g_end, start)]
@@ -3375,6 +3419,7 @@ def chunk_graph_sharded_deck(label, sim, card):
     want = {"block": 0, "cell": 0,
             "block_window": 2 * per if cfg.sweep_kernel == "block" else 0,
             "cell_window": 2 * per if cfg.sweep_kernel == "cell" else 0,
+            "pack": 2 * per,
             "mdbc": per if mdbc_on else 0,
             "grouping": len(GROUP_KERNELS) * per if mdbc_on else 0}
     name = rec["phase"]
@@ -3490,6 +3535,18 @@ def main(argv):
         **{k: nums[k] for k in ("candidates", "pairs", "approaching_pairs",
                                 "bytes", "ops", "schedule")},
         "instances": instances(ptx_all, "block_sweep_kernel"),
+    }
+    # the input pack's entry of the kernel line (the same state and run)
+    packm = pack_numbers(pf, "pack_fields")
+    pack_entry = {
+        "name": "pack_fields", "route": "cuda",
+        "source": "sphexample_tpu_torch/csrc/pack_fields.cu",
+        "replaces": "none: the XLA glue sphexample_tpu/ops/pallas_block_sweep.py:529 "
+                    "(pack_block_fields)",
+        "launches": run["pack_launches"], "max_abs_err": 0.0,      # bitwise, gated
+        **packm, "ms_per_launch": packm["kernel_only_ms"],
+        "kernel_only_ms_in_steps": brk.get("pack_fields_kernel_only_ms", "not measured"),
+        "plain_ms": packm["library_ms"],
     }
     # 16 - the sharded main path: the same deck and steps on 4 slabs
     single_end = end_summary(state)
@@ -3748,6 +3805,11 @@ def main(argv):
         "instances": {**instances(ptx_all, "cell_sweep_kernel"),
                       **instances(ptx_all, "occupied_groups_kernel")},
     }
+    pack_entry.update(
+        launches_large_path=runl["pack_launches"],
+        kernel_only_ms_in_steps_large_path=brkl.get("pack_fields_kernel_only_ms",
+                                                    "not measured"),
+        **{f"{k}_large_path": v for k, v in pack_numbers(pf, "pack_fields_large").items()})
     del siml, state, pf, csf, argl
     torch.cuda.empty_cache()
 
@@ -3849,6 +3911,12 @@ def main(argv):
         kernel_only_ms_moving_square_path=brkb.get("block_sweep_kernel_only_ms",
                                                    "not measured"),
         **{f"{k}_moving_square_path": v for k, v in numb.items()})
+    pack_entry.update(
+        launches_moving_square_path=runb["pack_launches"],
+        kernel_only_ms_in_steps_moving_square_path=brkb.get("pack_fields_kernel_only_ms",
+                                                            "not measured"),
+        **{f"{k}_moving_square_path": v
+           for k, v in pack_numbers(pf, "pack_fields_moving_square").items()})
     del state, pf, csf, outb
 
     # 18 - the same deck on 4 slabs: the block sweep on the halo (B2), its
@@ -3898,7 +3966,7 @@ def main(argv):
     emit({"phase": "elapsed", "seconds": time.perf_counter() - t_start})
     # 15 - the kernel line
     emit({"kernels": [sweep_entry, window_entry, cell_entry, cell_window_entry,
-                      mdbc_entry]})
+                      mdbc_entry, pack_entry]})
     print(smi)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
@@ -3945,7 +4013,7 @@ def prof_window(sim, state, steps=20):
     top = sorted(ev, key=lambda e: e.self_device_time_total, reverse=True)[:8]
     out.update(eager_busy_share=dev_us / 1e6 / wall, eager_device_ms_per_step=dev_us / 1e3 / steps,
                top_device_ops_ms={e.key[:60]: e.self_device_time_total / 1e3 for e in top})
-    for name in ("block_sweep", "cell_sweep", "mdbc_moments"):
+    for name in ("block_sweep", "cell_sweep", "mdbc_moments", "pack_fields"):
         mine = [e for e in ev if f"{name}_kernel" in e.key]
         count = sum(e.count for e in mine)
         if count:

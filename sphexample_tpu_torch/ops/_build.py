@@ -126,6 +126,11 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
             getattr(lib, f"sph_chunk_graph_{fn}").restype = ci
         lib.sph_chunk_graph_error_string.argtypes = [ci]
         lib.sph_chunk_graph_error_string.restype = ctypes.c_char_p
+    elif name == "pack_fields":
+        lib.sph_pack_fields.argtypes = [ci, ci, ctypes.c_longlong] + [vp] * 7
+        lib.sph_pack_fields.restype = ci
+        lib.sph_pack_error_string.argtypes = [ci]
+        lib.sph_pack_error_string.restype = ctypes.c_char_p
     elif name == "cell_sweep":
         lib.sph_cell_sweep.argtypes = [vp, ci, vp, vp, vp, vp, vp]
         lib.sph_cell_sweep.restype = ci

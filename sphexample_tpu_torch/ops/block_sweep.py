@@ -17,6 +17,12 @@ the slab's rows, extends the pack by the two halos (``ops/halo.py``: one
 ``halo`` is 0) and launches the kernel on the window.  Their launches are
 counted in ``window_launches``.
 
+Both sweep kernels read the fields as one f32 pack of float4-aligned rows,
+:func:`pack_fields` (the counterpart of the JAX package's
+``pack_block_fields``): for CUDA tensors the kernel ``csrc/pack_fields.cu``,
+one launch before every sweep launch, counted in ``pack_launches``; for CPU
+tensors :func:`pack_fields_plain`, the same bits.
+
 Outputs are in cell-sorted order, masked by ``active`` and cast to the state
 dtype (the counterpart of the JAX package's ``_collect``).
 
@@ -55,7 +61,11 @@ from .interactions import PhysicsSpec, SweepOut, pair_sweep
 # (ops/launch_count.py)
 launches = 0
 window_launches = 0
-launch_count.register(sys.modules[__name__], "launches", "window_launches")
+# launches of the input pack's kernel (csrc/pack_fields.cu), counted the same
+# way: one before every launch of either sweep kernel, on every path
+pack_launches = 0
+launch_count.register(sys.modules[__name__], "launches", "window_launches",
+                      "pack_launches")
 # The largest particle capacity ``assemble_simulation`` gives to this sweep; above it a
 # deck takes the cell sweep (ops/cell_sweep.py), as it does in the JAX
 # package, whose block kernel encodes row offsets in 21 bits.  The CUDA
@@ -166,10 +176,9 @@ def sweep_params(spec: PhysicsSpec, grid: Grid, n: int, self_off: int = 0) -> Sw
         strides=pad(grid.strides), **model_params(spec))
 
 
-def pack_fields(position, velocity, density, pressure, ml):
-    """Row-major f32 pack read by the kernel, float4-aligned rows:
-    3D (x,y,z,rho)(vx,vy,vz,1/rho)(p,ml,0,0); 2D (x,y,vx,vy)(rho,1/rho,p,ml).
-    Density is guarded (padding rows carry 1, never 0)."""
+def pack_fields_plain(position, velocity, density, pressure, ml):
+    """The pack in plain PyTorch: the guard and the reciprocal in the fields'
+    dtype, then every column rounded to f32 (see :func:`pack_fields`)."""
     dims = position.shape[1]
     rho = torch.where(density > 0, density, torch.ones_like(density))
     rcp = 1.0 / rho
@@ -181,6 +190,39 @@ def pack_fields(position, velocity, density, pressure, ml):
     else:
         cols = [position, velocity, col(rho), col(rcp), col(pressure), col(ml)]
     return torch.cat([a.to(torch.float32) for a in cols], dim=1).contiguous()
+
+
+def pack_fields(position, velocity, density, pressure, ml):
+    """Row-major f32 pack read by both sweep kernels, float4-aligned rows:
+    3D (x,y,z,rho)(vx,vy,vz,1/rho)(p,ml,0,0); 2D (x,y,vx,vy)(rho,1/rho,p,ml).
+    Density is guarded (padding rows carry 1, never 0).  CPU tensors: the
+    plain version.  CUDA tensors, as :func:`check_inputs` passes them: the
+    kernel ``csrc/pack_fields.cu``, bit for bit the plain version, counted in
+    ``pack_launches`` (zero rows launch nothing), or an exception."""
+    dev = position.device
+    if dev.type == "cpu":
+        return pack_fields_plain(position, velocity, density, pressure, ml)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    if position.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"the pack kernel takes float32 or float64 fields, not {position.dtype}")
+    n, dims = position.shape
+    out = torch.empty((n, 4 * dims), dtype=torch.float32, device=dev)   # 12 / 8 floats
+    if n == 0:
+        return out
+
+    from ._build import load_library
+
+    lib = load_library("pack_fields")
+    fields = [t.contiguous() for t in (position, velocity, density, pressure, ml)]
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.sph_pack_fields(dims, int(position.dtype == torch.float64), n,
+                                  *(t.data_ptr() for t in fields), out.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"pack_fields launch failed: {lib.sph_pack_error_string(err).decode()}")
+    launch_count.add(sys.modules[__name__], "pack_launches", 1, dev)
+    return out
 
 
 def collect(out, active, dtype, dims, spec: PhysicsSpec = None) -> SweepOut:
@@ -203,10 +245,11 @@ def collect(out, active, dtype, dims, spec: PhysicsSpec = None) -> SweepOut:
 def check_inputs(grid: Grid, particles: Particles, cell_start, position, density,
                  pressure, velocity, reads_cell: bool, motion_limiter=None,
                  self_off: int = 0, window: bool = False) -> None:
-    """Raise on what a sweep kernel does not take: a field on another device,
-    of another shape or of another type than the kernel reads.  The fields
-    have ``Ne`` rows, ``particles`` the ``N`` self rows ``[self_off,
-    self_off + N)`` of them; without ``window`` the two are the same rows."""
+    """Raise on what a sweep kernel and its input pack do not take: a field
+    on another device, of another shape or of another type than they read
+    (the five fields all float32 or all float64).  The fields have ``Ne``
+    rows, ``particles`` the ``N`` self rows ``[self_off, self_off + N)`` of
+    them; without ``window`` the two are the same rows."""
     ne, dims = position.shape
     n = particles.capacity
     if dims != grid.dims:
@@ -234,8 +277,12 @@ def check_inputs(grid: Grid, particles: Particles, cell_start, position, density
         raise TypeError("cell and cell_start must be int32")
     if particles.active.dtype != torch.bool:
         raise TypeError("active must be bool")
-    if not position.dtype.is_floating_point:
-        raise TypeError(f"position must be floating point, not {position.dtype}")
+    if position.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"positions must be float32 or float64, not {position.dtype}")
+    for name, t in (("velocity", velocity), ("density", density), ("pressure", pressure),
+                    ("motion_limiter", ml)):
+        if t.dtype != position.dtype:
+            raise TypeError(f"{name} is {t.dtype}, positions {position.dtype}")
 
 
 # the walk's shape (csrc/sph_sweep_walk.cuh): the selves of one warp pass, the

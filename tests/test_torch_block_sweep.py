@@ -113,19 +113,119 @@ def test_cpu_wrapper_is_the_plain_version():
     assert not a.drhodt[150:].any()
 
 
-def test_pack_and_collect():
-    pos, dens, vel, ptype = _inputs(dims=3, n=40, seed=5)
-    const, kern, grid, p, cs = _port(pos, dens, vel, ptype, 48)
-    pack = bs.pack_fields(p.position, p.velocity, p.density, p.pressure,
-                          p.motion_limiter)
-    assert pack.shape == (48, 12) and pack.dtype == torch.float32
-    assert (pack[:, 3] > 0).all()  # guarded density, padding rows carry 1
-    torch.testing.assert_close(pack[:, 7], 1.0 / pack[:, 3])
-    out = torch.randn(48, 4)
-    col = bs.collect(out, p.active, torch.float64, 3)
-    assert col.drhodt.dtype == torch.float64 and col.acceleration.shape == (48, 3)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("dims", [2, 3])
+def test_pack_and_collect(dims, dtype):
+    """Every column of the pack against its source field, in both layouts:
+    3D (x,y,z,rho)(vx,vy,vz,1/rho)(p,ml,+0,+0), 2D (x,y,vx,vy)(rho,1/rho,p,ml),
+    the density guarded (padding rows, 0, -0, negative and NaN carry 1), each
+    value rounded to f32 from the fields' dtype; then the collect."""
+    pos, dens, vel, ptype = _inputs(dims=dims, n=40, seed=5)
+    const, kern, grid, p, cs = _port(pos, dens, vel, ptype, 48, dtype=dtype)
+    rho = p.density.clone()
+    rho[[0, 1, 2, 3]] = torch.tensor([0.0, -0.0, -3.0, float("nan")], dtype=dtype)
+    before = bs.pack_launches
+    pack = bs.pack_fields(p.position, p.velocity, rho, p.pressure, p.motion_limiter)
+    assert bs.pack_launches == before  # CPU tensors never launch the kernel
+    assert pack.shape == (48, 4 * dims) and pack.dtype == torch.float32
+    assert pack.is_contiguous()
+    guarded = torch.where(rho > 0, rho, torch.ones_like(rho))
+    # the four rows set above and the padding rows (density 0) carry 1
+    assert (guarded[:4] == 1).all() and (guarded[40:] == 1).all()
+    f32 = lambda a: a.to(torch.float32)  # noqa: E731
+    if dims == 3:
+        cols = {(0, 3): p.position, (3, 4): guarded[:, None], (4, 7): p.velocity,
+                (7, 8): 1.0 / guarded[:, None], (8, 9): p.pressure[:, None],
+                (9, 10): p.motion_limiter[:, None], (10, 12): torch.zeros(48, 2)}
+    else:
+        cols = {(0, 2): p.position, (2, 4): p.velocity, (4, 5): guarded[:, None],
+                (5, 6): 1.0 / guarded[:, None], (6, 7): p.pressure[:, None],
+                (7, 8): p.motion_limiter[:, None]}
+    assert sum(b - a for a, b in cols) == 4 * dims
+    for (a, b), field in cols.items():
+        assert torch.equal(pack[:, a:b], f32(field)), (a, b)
+    if dims == 3:
+        assert not torch.signbit(pack[:, 10:]).any()   # +0, never -0
+    out = torch.randn(48, 1 + dims)
+    col = bs.collect(out, p.active, torch.float64, dims)
+    assert col.drhodt.dtype == torch.float64 and col.acceleration.shape == (48, dims)
     assert not col.acceleration[~p.active].any()
     torch.testing.assert_close(col.drhodt[p.active], out[p.active, 0].double())
+
+
+def test_pack_count_is_registered_and_the_cpu_pack_is_the_plain_one(monkeypatch):
+    """``pack_launches`` has a device counter slot (``ops/launch_count.py``),
+    so graph replays count it; on CPU tensors the pack is the plain version
+    and counts nothing."""
+    from sphexample_tpu_torch.ops import launch_count
+
+    assert (bs, "pack_launches") in launch_count._slots
+    assert launch_count._slots.index((bs, "pack_launches")) > launch_count._slots.index(
+        (bs, "launches"))
+    pos, dens, vel, ptype = _inputs(dims=3, n=30, seed=2)
+    _, _, _, p, _ = _port(pos, dens, vel, ptype, 32)
+    args = (p.position, p.velocity, p.density, p.pressure, p.motion_limiter)
+    calls = []
+    real = bs.pack_fields_plain
+    monkeypatch.setattr(bs, "pack_fields_plain", lambda *a: calls.append(1) or real(*a))
+    before = bs.pack_launches
+    assert torch.equal(bs.pack_fields(*args), real(*args))
+    assert calls == [1] and bs.pack_launches == before
+
+
+@pytest.mark.parametrize("case,error,match", [
+    ("half", TypeError, "positions must be float32 or float64, not torch.float16"),
+    ("int", TypeError, "positions must be float32 or float64, not torch.int32"),
+    ("velocity_dtype", TypeError, "velocity is torch.float64, positions torch.float32"),
+    ("pressure_dtype", TypeError, "pressure is torch.float64, positions torch.float32"),
+    ("ml_dtype", TypeError, "motion_limiter is torch.float16, positions torch.float32"),
+    ("density_shape", ValueError, "density has shape"),
+    ("ml_device", ValueError, "motion_limiter is on meta"),
+])
+def test_sweep_checks_refuse_what_the_kernels_and_the_pack_do_not_take(case, error, match):
+    """``check_inputs``, which every CUDA sweep entry runs before its pack and
+    its launch, refuses positions that are not float32 or float64, a field of
+    another dtype than the positions (the pack kernel reads all five in one
+    dtype), and a field of another shape or device; f32 and f64 pass."""
+    pos, dens, vel, ptype = _inputs(dims=3, n=30, seed=2)
+    for dtype in (torch.float32, torch.float64):
+        _, _, grid, p, cs = _port(pos, dens, vel, ptype, 32, dtype=dtype)
+        bs.check_inputs(grid, p, cs, p.position, p.density, p.pressure, p.velocity,
+                        reads_cell=True)
+    _, _, grid, p, cs = _port(pos, dens, vel, ptype, 32)
+    f = dict(position=p.position, density=p.density, pressure=p.pressure,
+             velocity=p.velocity, motion_limiter=p.motion_limiter)
+    if case in ("half", "int"):
+        f = {k: v.to(torch.float16 if case == "half" else torch.int32) for k, v in f.items()}
+    elif case == "velocity_dtype":
+        f["velocity"] = f["velocity"].double()
+    elif case == "pressure_dtype":
+        f["pressure"] = f["pressure"].double()
+    elif case == "ml_dtype":
+        f["motion_limiter"] = f["motion_limiter"].half()
+    elif case == "density_shape":
+        f["density"] = torch.ones(33)
+    else:
+        f["motion_limiter"] = torch.ones(32, device="meta")
+    with pytest.raises(error, match=match):
+        bs.check_inputs(grid, p, cs, reads_cell=True, **f)
+
+
+def test_pack_of_a_cuda_tensor_never_takes_the_plain_version(monkeypatch):
+    """A CUDA tensor goes to the kernel or raises: a dtype the kernel has no
+    instance for raises before any build or launch, and the plain version
+    (the torch.cat) is never called; any other device raises."""
+    monkeypatch.setattr(bs, "pack_fields_plain",
+                        lambda *a: pytest.fail("a non-CPU tensor reached the plain pack"))
+    fake = types.SimpleNamespace(device=torch.device("cuda"), dtype=torch.float16,
+                                 shape=(64, 3))
+    before = bs.pack_launches
+    with pytest.raises(TypeError, match="float32 or float64 fields, not torch.float16"):
+        bs.pack_fields(fake, None, None, None, None)
+    assert bs.pack_launches == before
+    meta = [torch.zeros(8, 3, device="meta")] * 2 + [torch.zeros(8, device="meta")] * 3
+    with pytest.raises(ValueError, match="unsupported device meta"):
+        bs.pack_fields(*meta)
 
 
 @pytest.mark.parametrize("visc,diff,family,dims,ok", [

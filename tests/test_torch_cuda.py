@@ -1121,9 +1121,9 @@ def _tall_column(device, mdbc_on, block=True, margin=4):
 def test_four_slab_run_on_the_card(cuda, mdbc_on, block):
     """12 steps of the tall column on 4 slabs (thread ranks on the cards
     visible) and on one device: two windowed sweep launches per step per
-    slab, one mDBC launch, no single-device entry, ``0 < max_halo <= halo``,
-    and - each slab's rows being the single-device kernel's bit for bit - the
-    same end state bit for bit."""
+    slab and as many input packs, one mDBC launch, no single-device entry,
+    ``0 < max_halo <= halo``, and - each slab's rows being the single-device
+    kernel's bit for bit - the same end state bit for bit."""
     steps = 12
     single = _tall_column(cuda, mdbc_on, block)
     sharded = shard_simulation(_tall_column(cuda, mdbc_on, block), make_mesh(4))
@@ -1134,9 +1134,10 @@ def test_four_slab_run_on_the_card(cuda, mdbc_on, block):
     one = make_fixed_steps_fn(single.cfg, steps)(single.state)
     mod, other = (bs, cw) if block else (cw, bs)
     w0, s0, o0, m0 = mod.window_launches, mod.launches, other.window_launches, mm.launches
+    p0 = bs.pack_launches
     states = make_sharded_fixed_steps_fn(cfg, sharded.mesh, steps)(sharded.state)
     torch.cuda.synchronize()
-    assert mod.window_launches == w0 + 2 * steps * 4
+    assert mod.window_launches == w0 + 2 * steps * 4 == w0 + bs.pack_launches - p0
     assert mod.launches == s0 and other.window_launches == o0
     assert mm.launches == m0 + (steps * 4 if mdbc_on else 0)
     assert len({int(s.rebuilds) for s in states}) == 1 and states[0].rebuilds == one.rebuilds
@@ -1591,8 +1592,8 @@ def test_failed_capture_raises_and_runs_nothing(cuda, monkeypatch):
 def test_launch_counts_follow_the_replays(cuda, monkeypatch):
     """The wrappers count where they launch, and a captured launch counts at
     every replay that runs it (``ops/launch_count.py``): N steps through the
-    graph count N times 2 sweeps, 1 mDBC call and its 4 grouping kernels,
-    and a count made inside the rebuild's IF body counts the rebuilds that
+    graph count N times 2 sweeps, 2 input packs, 1 mDBC call and its 4
+    grouping kernels, and a count made inside the rebuild's IF body counts the rebuilds that
     ran, not the steps."""
     from sphexample_tpu_torch.core import step
     from sphexample_tpu_torch.ops import launch_count
@@ -1609,13 +1610,13 @@ def test_launch_counts_follow_the_replays(cuda, monkeypatch):
 
     monkeypatch.setattr(step, "_rebuild", rebuild)
     start = _falling(sim)
-    b0, m0, g0 = bs.launches, mm.launches, mm.group_launches
+    b0, m0, g0, p0 = bs.launches, mm.launches, mm.group_launches, bs.pack_launches
     n = 3 * 8 + 5        # three whole replays and part of a fourth
     fixed = make_fixed_steps_fn(cfg, n)
     state = fixed(start)
     assert fixed.chunk.graph is not None
     assert int(state.iteration) == int(start.iteration) + n
-    assert bs.launches - b0 == 2 * n
+    assert bs.launches - b0 == 2 * n == bs.pack_launches - p0
     assert mm.launches - m0 == n and mm.group_launches - g0 == 4 * n
     rebuilds = int(state.rebuilds) - int(start.rebuilds)
     assert 1 < rebuilds < n and bs.window_launches == rebuilds

@@ -182,7 +182,7 @@ def test_build_is_lazy():
     from sphexample_tpu_torch.ops import _build
 
     assert list(_build.sources()) == ["block_sweep", "cell_sweep", "chunk_graph",
-                                      "mdbc_moments"]
+                                      "mdbc_moments", "pack_fields"]
     # a library's name carries its source, the shared headers and the flags
     assert _build._target("mdbc_moments").name.startswith("libmdbc_moments-")
     assert not _build._libs
