@@ -313,8 +313,8 @@ Phases, each printing one JSON line (any failure exits non-zero):
               per interval and the same end digest, 2 sweep launches and 2
               pack launches (``csrc/pack_fields.cu``; + 1 mDBC call and 4
               grouping kernels) per step, counted where they
-              launch and at every replay (``ops/launch_count.py``), one host
-              read per chunk with
+              launch and at every replay (``tests/kernel_launches.py``), one
+              host read per chunk with
               ``torch.cuda.set_sync_debug_mode("error")`` on for everything
               else; it prints the capture and instantiate seconds, nodes per
               step, the graph's memory, a state copy's ms, ms per step by the
@@ -379,6 +379,7 @@ import torch
 
 import procedural_decks as pd
 import sphexample_tpu_torch as T
+from sphexample_tpu_torch.core.driver import choose_sweep_kernel
 from sphexample_tpu_torch.core.step import (_eager_chunk, _initial_dx_acc, _sweep,
                                             make_chunk_loop, make_fixed_steps_fn, sph_step)
 from sphexample_tpu_torch.io.casegen import dam_break_2d, dam_break_3d
@@ -399,6 +400,11 @@ from sphexample_tpu_torch.parallel.mesh import (make_mesh, make_sharded_fixed_st
                                                 make_sharded_fn, shard_simulation)
 from sphexample_tpu_torch.state import gather_state, split_state, state_tensors
 from sphexample_tpu_torch.utils.validation import check_determinism, dam_break_readings
+
+# the launch counts: tests/kernel_launches.py, open while main() runs
+sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+from kernel_launches import KINDS, counting, totals  # noqa: E402
+from kernel_launches import launched as N  # noqa: E402
 
 REL_TOL = 1e-4           # kernel vs plain, relative to the field's max
 SLAB_TOL = 1e-6          # 4 slabs concatenated vs the single-device kernel
@@ -448,12 +454,6 @@ def emit(obj):
 
 def fail(msg):
     raise SystemExit(f"chip_smoke: FAIL: {msg}")
-
-
-def reset_counts():
-    """Every launch count to 0 (before a path is driven)."""
-    bs.launches = cw.launches = bs.window_launches = cw.window_launches = 0
-    bs.pack_launches = mm.launches = mm.group_launches = 0
 
 
 def case_3d(dx=0.0085):
@@ -670,40 +670,90 @@ def schedule(sim, p, cs, mod=bs, lo=0, hi=None, sample=300, queue=None):
     return stats
 
 
-def device_events(fn, reps=5):
-    """The device events (kernels, copies, fills) of ``reps`` calls of
-    ``fn`` under the profiler, after one call outside it."""
+# the counted kernels by their names in a profiler trace (f"{name}_kernel"):
+# their counts in tests/kernel_launches.py
+COUNTED = {"block_sweep": ("block", "block_window"), "cell_sweep": ("cell", "cell_window"),
+           "pack_fields": ("pack",), "mdbc_moments": ("mdbc",),
+           **{g: ("grouping",) for g in GROUP_KERNELS}}
+
+
+def traced(ev, counted, names):
+    """(the launches of the kernels ``names`` among the profiler's device
+    events ``ev``, those of the same window's counts ``counted``: 0 for a
+    kernel no count holds)."""
+    seen = sum(e.count for e in ev if any(f"{n}_kernel" in e.key for n in names))
+    return seen, sum(counted[k] for k in {k for n in names for k in COUNTED.get(n, ())})
+
+
+def short_trace(ev, counted):
+    """What of the counted launches the profiler's events ``ev`` miss ("" when
+    they hold every one): a sum over ``ev`` (busy share, device ms) is then
+    short too.  The profiler may drop records: a graph built after an
+    earlier session is traced short, then not at all, and an eager session
+    now and then misses a launch (PERF.md §6)."""
+    short = []
+    for names in (("block_sweep",), ("cell_sweep",), ("pack_fields",), ("mdbc_moments",),
+                  GROUP_KERNELS):
+        seen, want = traced(ev, counted, names)
+        if seen != want:
+            short.append(f"{'/'.join(names)} {seen} of {want}")
+    return ", ".join(short)
+
+
+def profiled(fn):
+    """``fn()`` under torch.profiler: (its device-side events, the wall
+    seconds, the launches counted meanwhile).  Device-side events only: an
+    aten op's row repeats the time of the kernels it launched, so summing
+    every row would count them twice."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
     torch.cuda.synchronize()
+    before = totals()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
+        t0 = time.perf_counter()
+        fn()
         torch.cuda.synchronize()
-    return [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+        wall = time.perf_counter() - t0
+    after = totals()
+    ev = [e for e in prof.key_averages()
+          if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+    return ev, wall, {k: after[k] - before[k] for k in KINDS}
+
+
+def device_events(fn, reps=5):
+    """(the device events of ``reps`` calls of ``fn`` under the profiler,
+    after one call outside it; the launches counted meanwhile)."""
+    fn()
+    ev, _, counted = profiled(lambda: [fn() for _ in range(reps)])
+    return ev, counted
 
 
 def kernel_only_ms(fn, name, reps=5, per_call=False):
     """Device time of the kernel ``name`` (or of the kernels of a tuple of
     names) alone (profiler, device events only) over ``reps`` calls of
-    ``fn``: per launch, or with ``per_call`` per call of ``fn``; "not
-    measured" without device events."""
+    ``fn``: per launch the profiler recorded, or with ``per_call`` that
+    times the launches counted per call (those recorded where no count holds
+    them).  A session that recorded none of them is made again; a second
+    one fails the run."""
     names = (name,) if isinstance(name, str) else name
-    mine = [e for e in device_events(fn, reps) if any(f"{n}_kernel" in e.key for n in names)]
-    count = sum(e.count for e in mine)
-    if not count:
-        return "not measured"
-    return sum(e.self_device_time_total for e in mine) / 1e3 / (reps if per_call else count)
+    for _ in range(2):
+        ev, counted = device_events(fn, reps)
+        seen, want = traced(ev, counted, names)
+        if seen:
+            per_launch = sum(e.self_device_time_total for e in ev
+                             if any(f"{n}_kernel" in e.key for n in names)) / 1e3 / seen
+            return per_launch * (want or seen) / reps if per_call else per_launch
+    fail(f"the profiler recorded none of the {want} launches of {names}, twice")
 
 
 def launches_per_call(fn, reps=5):
-    """(device launches, device ms) per call of ``fn`` (profiler)."""
-    ev = device_events(fn, reps)
-    if not ev:
-        return "not measured", "not measured"
+    """(device launches, device ms) per call of ``fn`` (profiler); "traced
+    short" with what the trace missed where it misses a counted launch."""
+    ev, counted = device_events(fn, reps)
+    short = short_trace(ev, counted)
+    if short:
+        return f"traced short: {short}", "traced short"
     return (sum(e.count for e in ev) / reps,
             sum(e.self_device_time_total for e in ev) / 1e3 / reps)
 
@@ -1123,14 +1173,14 @@ def run_phase(sim, label, mdbc_on, sweep="block", falling=True, rho_band=0.02):
     torch.cuda.synchronize()
     rebuilds0 = int(state.rebuilds)
     torch.cuda.reset_peak_memory_stats()
-    reset_counts()
+    N.reset()
     t0 = time.perf_counter()
     state = fixed(state)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = {"block": bs.launches, "cell": cw.launches}
-    sweep_launches, mdbc_launches = counts[sweep], mm.launches
-    group_launches, pack_launches = mm.group_launches, bs.pack_launches
+    counts = {"block": N.block, "cell": N.cell}
+    sweep_launches, mdbc_launches = counts[sweep], N.mdbc
+    group_launches, pack_launches = N.grouping, N.pack
     other_launches = sum(v for k, v in counts.items() if k != sweep)
     n = sim.n_live
     run = {
@@ -1622,15 +1672,15 @@ def run_sharded_phase(sim, single_end, label, mdbc_on, sweep="block", falling=Tr
     torch.cuda.synchronize()
     rebuilds0 = [int(s.rebuilds) for s in states]
     torch.cuda.reset_peak_memory_stats()
-    reset_counts()
+    N.reset()
     t0 = time.perf_counter()
     states = fixed(states)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = {"block": bs.window_launches, "cell": cw.window_launches}
-    single_entry = bs.launches + cw.launches
-    sweep_launches, mdbc_launches = counts[sweep], mm.launches
-    group_launches, pack_launches = mm.group_launches, bs.pack_launches
+    counts = {"block": N.block_window, "cell": N.cell_window}
+    single_entry = N.block + N.cell
+    sweep_launches, mdbc_launches = counts[sweep], N.mdbc
+    group_launches, pack_launches = N.grouping, N.pack
     other_launches = sum(v for k, v in counts.items() if k != sweep)
     rebuilds = [int(s.rebuilds) - r0 for s, r0 in zip(states, rebuilds0)]
     scalars_agree = all(
@@ -1870,9 +1920,9 @@ def run_simulation_main(tmp, run):
         vtk = make_save_callback(sim)
     (tmp / "ckpt").mkdir()
     save, record = saver(sim, tmp / "ckpt", vtk)
-    reset_counts()
+    N.reset()
     wall = timed_run(sim, save_callback=save, max_intervals=HOST_INTERVALS)
-    launches = {"block": bs.launches, "cell": cw.launches, "mdbc": mm.launches}
+    launches = {"block": N.block, "cell": N.cell, "mdbc": N.mdbc}
     hg = sim.hourglass
     report = hg.report()
     if vtk is not None:
@@ -1944,11 +1994,11 @@ def checkpoint_resume(tmp, main_rec):
                                      str(tmp / "ckpt" / "ckpt_000003.npz"))
     on_card = sim.state.particles.position.device.type == "cuda"
     it0 = int(sim.state.iteration)
-    reset_counts()
+    N.reset()
     wall = timed_run(sim, start_counter=counter, max_intervals=1)
     rec = {"phase": "checkpoint_resume", "counter": counter, "on_card": on_card,
            "steps": int(sim.state.iteration) - it0, "wall_s": wall,
-           "block_sweep_launches": bs.launches, "end_digest": end_digest(sim.state)}
+           "block_sweep_launches": N.block, "end_digest": end_digest(sim.state)}
     rec["end_state_vs_straight_run_bitwise"] = rec["end_digest"] == main_rec["end_digest"]
     emit(rec)
     if counter != 3 or not on_card:
@@ -1998,12 +2048,12 @@ def regrid(tmp):
     rec["pre_interval_state_unchanged"] = (sim.state is first
                                            and full_digest(first) == digest0)
     calls, restore = counted_steps()
-    reset_counts()
+    N.reset()
     try:
         wall = timed_run(sim, max_intervals=1)
     finally:
         restore()
-    launches = {"block": bs.launches, "cell": cw.launches}
+    launches = {"block": N.block, "cell": N.cell}
     state, grid = sim.state, sim.cfg.grid
     p = state.particles
     c = cl.cell_coords(p.position[p.active], sim.cfg.spec.kernel.H_inv)
@@ -2043,10 +2093,10 @@ def run_simulation_mdbc(tmp):
     fixed0 = start.particles.ptype == int(T.ParticleType.FIXED)
     (tmp / "ckpt_mdbc").mkdir()
     save, record = saver(sim, tmp / "ckpt_mdbc", None)
-    reset_counts()
+    N.reset()
     wall = timed_run(sim, save_callback=save, max_intervals=1)
-    launches = {"block": bs.launches, "cell": cw.launches, "mdbc": mm.launches,
-                "grouping": mm.group_launches}
+    launches = {"block": N.block, "cell": N.cell, "mdbc": N.mdbc,
+                "grouping": N.grouping}
     state = sim.state
     steps = int(state.iteration) - int(start.iteration)
     back, counter = load_checkpoint(str(tmp / "ckpt_mdbc" / "ckpt_000002.npz"), state)
@@ -2187,7 +2237,7 @@ def cli(deck, argv, tmp, name, card, on_save=None):
     if on_save is not None:
         driver.run_simulation = run_simulation
     calls, restore = counted_steps()
-    reset_counts()
+    N.reset()
     try:
         with open(tmp / f"{name}.log", "w") as out, contextlib.redirect_stdout(out), \
                 contextlib.redirect_stderr(err):
@@ -2213,9 +2263,9 @@ def cli(deck, argv, tmp, name, card, on_save=None):
            "checkpoint_counters": counters, "stderr": err.getvalue()[-2000:],
            "chunk": getattr(chunk, "route", None),
            "graph": graph_numbers(chunk) if getattr(chunk, "graph", None) else None,
-           "launches": {"block": bs.launches, "cell": cw.launches,
-                        "block_window": bs.window_launches, "cell_window": cw.window_launches,
-                        "mdbc": mm.launches, "grouping": mm.group_launches}}
+           "launches": {"block": N.block, "cell": N.cell,
+                        "block_window": N.block_window, "cell_window": N.cell_window,
+                        "mdbc": N.mdbc, "grouping": N.grouping}}
     return sim, rec, kept
 
 
@@ -2416,13 +2466,13 @@ def sharded_regrid(tmp, regrid_end, card):
     first, grid0, halo0, mesh0 = sim_sh.state, sim_sh.cfg.grid, sim_sh.cfg.halo, sim_sh.mesh
     digests0 = slab_digests(first)
     calls, restore = counted_steps()
-    reset_counts()
+    N.reset()
     try:
         wall = timed_run(sim_sh, max_intervals=1)
     finally:
         restore()
-    launches = {"block": bs.launches, "block_window": bs.window_launches,
-                "cell": cw.launches + cw.window_launches}
+    launches = {"block": N.block, "block_window": N.block_window,
+                "cell": N.cell + N.cell_window}
     state = gather_state(sim_sh.state, "cuda:0")
     hg = sim_sh.hourglass
     end = end_summary(state)
@@ -2484,7 +2534,7 @@ def sharded_halo_retune(tmp, card):
 
     sim_sh.interval_fn = spy
     calls, restore = counted_steps()
-    reset_counts()
+    N.reset()
     try:
         wall = timed_run(sim_sh, max_intervals=1)
     finally:
@@ -2500,7 +2550,7 @@ def sharded_halo_retune(tmp, card):
            "chunk": getattr(getattr(sim_sh.interval_fn, "chunk", None), "route", None),
            "steps_taken": calls[0], "rank_steps_taken": calls[0] * N_SLABS,
            "steps_kept": int(state.iteration),
-           "max_halo": int(state.max_halo), "window_launches": bs.window_launches,
+           "max_halo": int(state.max_halo), "window_launches": N.block_window,
            "finite": bool(torch.isfinite(state.particles.position).all())}
     emit(rec)
     want = floor if floor is not None and -(-floor // 128) * 128 <= C else 0
@@ -2510,8 +2560,8 @@ def sharded_halo_retune(tmp, card):
         fail(f"sharded_halo_retune: halo {sim_sh.cfg.halo} below the floor {floor}")
     if not (state.iteration > 0 and rec["max_halo"] <= sim_sh.cfg.halo and rec["finite"]):
         fail("sharded_halo_retune: the replayed interval did not complete")
-    if bs.window_launches != 2 * rec["rank_steps_taken"]:
-        fail(f"sharded_halo_retune: {bs.window_launches} window launches in "
+    if N.block_window != 2 * rec["rank_steps_taken"]:
+        fail(f"sharded_halo_retune: {N.block_window} window launches in "
              f"{rec['rank_steps_taken']} rank steps")
     if rec["chunk"] != chunk_route(sim_sh.mesh):
         fail(f"sharded_halo_retune: the chunk took the {rec['chunk']} route")
@@ -2758,7 +2808,7 @@ def dam_break_2d_case(tmp, name, dx, const, t_end, t_out):
     arrays = dam_break_2d(dx)
     sim = T.assemble_simulation(*arrays, meta, const, kern, T.ViscosityModel.ARTIFICIAL,
                                 T.DensityDiffusionModel.LINEAR, device="cuda")
-    reset_counts()
+    N.reset()
     wall = timed_run(sim)
     p = sim.state.particles
     host = {f: getattr(p, f)[p.active].cpu().numpy()
@@ -2766,10 +2816,10 @@ def dam_break_2d_case(tmp, name, dx, const, t_end, t_out):
     host["fluid"] = p.ptype[p.active].cpu().numpy() == int(T.ParticleType.FLUID)
     steps = int(sim.state.iteration)
     rec = {"phase": name, "n": sim.n_live, "steps": steps, "wall_s": wall,
-           "sim_time_s": float(sim.state.total_time), "launches": bs.launches,
-           "other_launches": cw.launches + mm.launches}
+           "sim_time_s": float(sim.state.total_time), "launches": N.block,
+           "other_launches": N.cell + N.mdbc}
     if rec["launches"] != 2 * steps or rec["other_launches"]:
-        fail(f"{name}: launches {bs.launches} / {rec['other_launches']} in {steps} steps")
+        fail(f"{name}: launches {N.block} / {rec['other_launches']} in {steps} steps")
     return arrays, host, rec
 
 
@@ -3169,11 +3219,13 @@ def host_reads_under_sync_debug(interval, state, t_outs):
 
 def device_share(fn, steps):
     """Device ms per step and busy share of ``fn`` (``steps`` steps) under
-    torch.profiler: kernel time (graph kernels included) over the wall."""
-    ev, wall = profiled(fn)
-    dev_us = sum(e.self_device_time_total for e in ev)
-    if dev_us <= 0:
-        return {"device_ms_per_step": "not measured", "busy_share": "not measured"}
+    torch.profiler: kernel time (graph kernels included) over the wall.  A
+    trace that misses a counted launch (a graph's replays may be traced
+    short) gives its numbers as "traced short" with what it missed."""
+    ev, wall, counted = profiled(fn)
+    dev_us, short = sum(e.self_device_time_total for e in ev), short_trace(ev, counted)
+    if short:
+        return {"device_ms_per_step": f"traced short: {short}", "busy_share": "traced short"}
     return {"device_ms_per_step": dev_us / 1e3 / steps, "busy_share": dev_us / 1e6 / wall,
             "device_launches_per_step": sum(e.count for e in ev) / steps}
 
@@ -3203,10 +3255,10 @@ def chunk_graph_deck(label, sim, card):
     interval = make_interval_fn(cfg)
     chunk = interval.chunk
     cap = cfg.meta.max_steps_per_call
-    reset_counts()
+    N.reset()
     (g_end, g_steps), g_first_s = walled(lambda: graph_intervals(interval, start, t_outs))
-    launches = {"block": bs.launches, "cell": cw.launches, "pack": bs.pack_launches,
-                "mdbc": mm.launches, "grouping": mm.group_launches}
+    launches = {"block": N.block, "cell": N.cell, "pack": N.pack,
+                "mdbc": N.mdbc, "grouping": N.grouping}
     graph = chunk.graph
     (e_end, e_steps), _ = walled(lambda: eager_intervals(cfg, start, t_outs))
     steps = sum(g_steps)
@@ -3369,12 +3421,12 @@ def chunk_graph_sharded_deck(label, sim, card):
     chunk = interval.chunk
     eager = make_chunk_loop(cfg, _eager_chunk(cfg))
     cap = cfg.meta.max_steps_per_call
-    reset_counts()
+    N.reset()
     with capture_under_sync_debug() as captured:
         (g_end, g_steps), g_first_s = walled(lambda: graph_intervals(interval, start, t_outs))
-    launches = {"block": bs.launches, "cell": cw.launches, "block_window": bs.window_launches,
-                "cell_window": cw.window_launches, "pack": bs.pack_launches,
-                "mdbc": mm.launches, "grouping": mm.group_launches}
+    launches = {"block": N.block, "cell": N.cell, "block_window": N.block_window,
+                "cell_window": N.cell_window, "pack": N.pack,
+                "mdbc": N.mdbc, "grouping": N.grouping}
     graph = chunk.graph
     steps = sum(g_steps)
     rebuilds = [int(s.rebuilds) - int(s0.rebuilds) for s, s0 in zip(g_end, start)]
@@ -3749,9 +3801,9 @@ def main(argv):
 
     # 12-13 - the large-capacity path: the capacity rule picks the cell sweep
     siml = assemble(case_3d(dx=LARGE_DX))
-    if siml.n_live != LARGE_N or siml.state.particles.capacity <= bs.BLOCK_CAP_LIMIT:
-        fail(f"the large case has {siml.n_live} particles, capacity "
-             f"{siml.state.particles.capacity}")
+    cap = siml.state.particles.capacity
+    if siml.n_live != LARGE_N or choose_sweep_kernel(True, cap) != "cell":
+        fail(f"the large case has {siml.n_live} particles, capacity {cap}")
     pl, csl = falling_state(siml)
     parl, _ = compare(siml, pl, csl, "parity_cell_large", mod=cw)
     del pl, csl
@@ -3973,47 +4025,46 @@ def main(argv):
     return 0
 
 
-def profiled(fn):
-    """``fn()`` under torch.profiler: (the device-side events, the wall
-    seconds).  Device-side events only: an aten op's row repeats the time of
-    the kernels it launched, so summing every row would count them twice."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    return ([e for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA and not e.is_user_annotation], wall)
-
-
 def prof_window(sim, state, steps=20):
     """Device busy share of ``steps`` steps of the chunk graph under
     torch.profiler (kernel time summed over the window's wall time), and,
     from the same steps run eagerly (the profiler does not name a graph's
     kernels reliably), the top device ops and each hand-written kernel's
-    time alone, without its wrapper's pack and collect."""
+    time alone, without its wrapper's pack and collect.  A window whose
+    trace misses a counted launch gives its sums as "traced short"; an
+    eager window that records none of a counted kernel is made again, and
+    a second one fails the run."""
     run = make_fixed_steps_fn(sim.cfg, steps)
     build_graph(run, sim.cfg, state)                   # captured before the window
-    ev, wall = profiled(lambda: run(state))
-    dev_us = sum(e.self_device_time_total for e in ev)
-    if dev_us <= 0:
-        return {"profiled_steps": steps, "busy_share": "not measured"}
-    out = {
-        "profiled_steps": steps, "profiled_wall_ms": 1e3 * wall,
-        "device_busy_ms": dev_us / 1e3, "busy_share": dev_us / 1e6 / wall,
-        "device_ms_per_step": dev_us / 1e3 / steps,
-        "device_launches_per_step": sum(e.count for e in ev) / steps,
-    }
-    ev, wall = profiled(lambda: eager_intervals(sim.cfg, state, [math.inf], steps))
-    dev_us = sum(e.self_device_time_total for e in ev)
+    ev, wall, counted = profiled(lambda: run(state))
+    dev_us, short = sum(e.self_device_time_total for e in ev), short_trace(ev, counted)
+    out = {"profiled_steps": steps, "profiled_wall_ms": 1e3 * wall}
+    if short:
+        out.update(busy_share="traced short", device_ms_per_step=f"traced short: {short}")
+    else:
+        out.update(device_busy_ms=dev_us / 1e3, busy_share=dev_us / 1e6 / wall,
+                   device_ms_per_step=dev_us / 1e3 / steps,
+                   device_launches_per_step=sum(e.count for e in ev) / steps)
+    names = ("block_sweep", "cell_sweep", "mdbc_moments", "pack_fields")
+    for _ in range(2):
+        ev, wall, counted = profiled(
+            lambda: eager_intervals(sim.cfg, state, [math.inf], steps))
+        missing = [n for n in names if traced(ev, counted, (n,))[1] > 0
+                   and traced(ev, counted, (n,))[0] == 0]
+        if not missing:
+            break
+    else:
+        fail(f"the profiler recorded no launch of {missing} in {steps} eager steps, twice")
+    dev_us, short = sum(e.self_device_time_total for e in ev), short_trace(ev, counted)
     top = sorted(ev, key=lambda e: e.self_device_time_total, reverse=True)[:8]
-    out.update(eager_busy_share=dev_us / 1e6 / wall, eager_device_ms_per_step=dev_us / 1e3 / steps,
-               top_device_ops_ms={e.key[:60]: e.self_device_time_total / 1e3 for e in top})
-    for name in ("block_sweep", "cell_sweep", "mdbc_moments", "pack_fields"):
+    if short:
+        out.update(eager_busy_share="traced short",
+                   eager_device_ms_per_step=f"traced short: {short}")
+    else:
+        out.update(eager_busy_share=dev_us / 1e6 / wall,
+                   eager_device_ms_per_step=dev_us / 1e3 / steps)
+    out["top_device_ops_ms"] = {e.key[:60]: e.self_device_time_total / 1e3 for e in top}
+    for name in names:
         mine = [e for e in ev if f"{name}_kernel" in e.key]
         count = sum(e.count for e in mine)
         if count:
@@ -4023,4 +4074,6 @@ def prof_window(sim, state, steps=20):
 
 
 if __name__ == "__main__":
-    sys.exit(main(sys.argv[1:]))
+    with counting():
+        code = main(sys.argv[1:])
+    sys.exit(code)

@@ -271,9 +271,9 @@ class SimulationMetaData:
     dtype: str = "float32"  # state dtype; "float64" for parity runs
     grid_margin_cells: int = 6  # static-grid padding around initial extent
     block_size: int = 1024  # particle chunking of the plain pair sweep
-    # the block sweep (one thread per self) where its model set and the
-    # capacity allow; False takes the cell sweep (one block per cell, every
-    # model and mode) - see core/driver.py:choose_sweep_kernel
+    # the block sweep where the rows allow, False the cell sweep; both
+    # compute every model and mode.  The one rule that chooses between them,
+    # on one device and sharded: core/driver.py:choose_sweep_kernel
     block_sweep: bool = True
     # Steps per chunk of an output interval: the host checks progress, beats
     # the watchdog and fires the progress callback between chunks

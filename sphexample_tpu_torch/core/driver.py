@@ -45,7 +45,6 @@ from ..config import (
 from ..io.csv_io import load_boundary_normals, load_geometries
 from ..models import equations as eq
 from ..ops import cell_list as cl
-from ..ops.block_sweep import BLOCK_CAP_LIMIT
 from ..ops.interactions import PhysicsSpec
 from ..state import SimulationState, allocate_particles, gather_state
 from ..utils.timers import RECORDER, SWEEP_COUNTER, HourGlass, host_read
@@ -65,13 +64,29 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-def choose_sweep_kernel(block_sweep: bool, capacity: int) -> str:
-    """The sweep kernel of a deck, by the JAX package's own rule
-    (``sphexample_tpu/core/driver.py:149-169``): ``"block"`` when
-    ``meta.block_sweep`` is set and the particle capacity is within
-    ``BLOCK_CAP_LIMIT``, else ``"cell"``.  The model set plays no part: both
-    kernels compute every model and mode."""
-    return "block" if block_sweep and capacity <= BLOCK_CAP_LIMIT else "cell"
+# The most rows the block sweep reads; above it a deck takes the cell sweep
+# (ops/cell_sweep.py), as it does in the JAX package, whose block kernel
+# encodes row offsets in 21 bits.  The CUDA kernel itself has no such limit
+# (int32 indices).
+BLOCK_CAP_LIMIT = 1 << 21
+# The most global rows the block sweep serves: the JAX package's f32 sorted
+# index is exact below 2^24, so its sharded rule stops there too.
+BLOCK_GLOBAL_LIMIT = 1 << 24
+
+
+def choose_sweep_kernel(block_sweep: bool, capacity: int, rows: Optional[int] = None) -> str:
+    """The sweep kernel of a deck, on one device or sharded, by the JAX
+    package's own rules (``sphexample_tpu/core/driver.py:149-169``,
+    ``sphexample_tpu/parallel/mesh.py:267-275``): ``"block"`` when
+    ``meta.block_sweep`` is set, the ``rows`` the kernel reads are within
+    ``BLOCK_CAP_LIMIT`` and the global ``capacity`` within
+    ``BLOCK_GLOBAL_LIMIT``, else ``"cell"``.  ``rows`` is the capacity on one
+    device (None); a slab's window ``C + 2 * halo`` sharded, the whole
+    capacity when the halo is 0.  The model set plays no part: both kernels
+    compute every model and mode."""
+    rows = capacity if rows is None else rows
+    fits = rows <= BLOCK_CAP_LIMIT and capacity <= BLOCK_GLOBAL_LIMIT
+    return "block" if block_sweep and fits else "cell"
 
 
 @dataclass

@@ -75,7 +75,6 @@ import torch
 from ..config import MDBCMode, ShiftingMode, SimulationMetaData
 from ..models import equations as eq
 from ..ops import cell_list as cl
-from ..ops import launch_count
 from ..ops.block_sweep import block_sweep, block_sweep_sharded
 from ..ops.cell_sweep import cell_sweep, cell_sweep_sharded
 from ..ops.interactions import PhysicsSpec
@@ -406,22 +405,15 @@ def _check_interval_progress(t: float, it: int, t_out, it_before: int) -> None:
 def _host_read(state, prev_iteration, prev_rebuilds=None) -> tuple:
     """The one host read of a chunk: (total_time, iteration, the iteration
     ``prev_iteration`` held), in one device-to-host copy.  A sharded state
-    is read at rank 0's slab, once for all slabs.  The same copy brings the
-    launch counters of that device, every rank's where a chunk graph armed
-    them, and folds them into the kernel wrappers' counts
-    (``ops/launch_count.py``).  With ``prev_rebuilds`` (while tracing) it
-    also brings the state's rebuild count and the one ``prev_rebuilds``
-    held, and closes the chunk's record in ``utils/timers.py:RECORDER``."""
+    is read at rank 0's slab, once for all slabs.  With ``prev_rebuilds``
+    (while tracing) it also brings the state's rebuild count and the one
+    ``prev_rebuilds`` held, and closes the chunk's record in
+    ``utils/timers.py:RECORDER``."""
     state = _lead(state)
-    dev = state.total_time.device
-    counters = launch_count.counters(dev)
     vals = [state.total_time.double(), state.iteration.double(), prev_iteration.double()]
     if prev_rebuilds is not None:
         vals += [state.rebuilds.double(), prev_rebuilds.double()]
-    read = host_read(torch.cat([torch.stack(vals)] + [c.double() for c in counters]),
-                     torch.Tensor.tolist)
-    if counters:
-        launch_count.fold(dev, read[len(vals):])
+    read = host_read(torch.stack(vals), torch.Tensor.tolist)
     if prev_rebuilds is not None:
         RECORDER.chunk_done(int(read[1]) - int(read[2]), int(read[3]) - int(read[4]))
     return read[0], int(read[1]), int(read[2])
@@ -552,7 +544,6 @@ class ChunkGraph:
         self.steps, self.device, self.bufs, self.group = steps, dev, bufs, group
         load_all()
         self._lib = lib = load_library("chunk_graph")
-        launch_count.arm(dev, len(bufs))
         mem0 = torch.cuda.memory_reserved(dev)
         if group is None:
             streams = [torch.cuda.Stream(dev)]
@@ -829,10 +820,10 @@ def make_chunk_loop(cfg: StepConfig, chunk):
     the displacement accumulator is set to 1 + h at the interval's start, so
     that its first step rebuilds (reference :739), and carries across chunks,
     so the trajectory is that of one unchunked loop.  After every chunk the
-    host reads the state once (:func:`_host_read`: total time, iteration and
-    the launch counters; a sharded state at rank 0's slab, once for all),
-    checks progress (:func:`_check_interval_progress`), ends the interval
-    once the time passed ``t_out`` in the state's dtype and, when
+    host reads the state once (:func:`_host_read`: total time and iteration;
+    a sharded state at rank 0's slab, once for all), checks progress
+    (:func:`_check_interval_progress`), ends the interval once the time
+    passed ``t_out`` in the state's dtype and, when
     ``meta.max_steps_per_call`` bounds the chunks, fires ``progress(state)``
     (rank 0's slab state when sharded) after every chunk but the last - the
     analog of the reference's in-interval ProgressMeter spinner

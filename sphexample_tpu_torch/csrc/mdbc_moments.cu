@@ -630,10 +630,8 @@ struct Args {
     int* scratch;
 };
 
-// ``launched[0]`` counts the grouping kernels launched, ``launched[1]`` the
-// moment kernel: each is counted where its launch returned no error
 template <int D, int FAM, class S>
-cudaError_t launch(const MdbcParams& P, const Args& a, cudaStream_t stream, int* launched) {
+cudaError_t launch(const MdbcParams& P, const Args& a, cudaStream_t stream) {
     auto kernel = mdbc_moments_kernel<D, FAM, S>;
     // persistent blocks: as many as fit on the card at once (looked up once
     // per instance), never more than there are slots
@@ -657,26 +655,20 @@ cudaError_t launch(const MdbcParams& P, const Args& a, cudaStream_t stream, int*
     mdbc_wet_group_kernel<<<cell_blocks, GROUP_THREADS, 0, stream>>>(P, a.ml, a.cell_start,
                                                                      a.scratch);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
-    ++launched[0];
     mdbc_keys_group_kernel<D, S><<<slot_blocks, GROUP_THREADS, 0, stream>>>(
         P, ghost, a.bidx, a.gvalid, static_cast<const S*>(a.own_rho),
         static_cast<S*>(a.out_rho), a.scratch, a.decision, a.moments);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
-    ++launched[0];
     mdbc_cells_group_kernel<<<cell_blocks, GROUP_THREADS, 0, stream>>>(P, a.scratch);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
-    ++launched[0];
     mdbc_order_group_kernel<<<slot_blocks, GROUP_THREADS, 0, stream>>>(P, a.scratch);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
-    ++launched[0];
     const int blocks = min(resident, P.nb);
     kernel<<<blocks, MDBC_THREADS, 0, stream>>>(
         P, ghost, a.bidx, a.pos, a.rho, a.ml, a.cell_start, static_cast<const S*>(a.own_pos),
         static_cast<const S*>(a.own_rho), static_cast<S*>(a.out_rho), a.decision, a.moments,
         a.scratch);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
-    ++launched[1];
-    return cudaSuccess;
+    return cudaGetLastError();
 }
 
 }  // namespace
@@ -689,32 +681,28 @@ extern "C" {
 // slot order, ``moments`` [nb, K]; fused mode: ``bidx`` [nb] indexes the own
 // rows of ``ghost``, ``own_pos``, ``own_rho`` and ``out_rho``, ``decision``
 // [nb], ``moments`` null or [nb, K].  ``scratch`` is device memory of
-// sph_mdbc_scratch_ints(params) ints.  ``launched`` (host memory, two ints)
-// gains the grouping kernels and the moment kernels this call launched.
-// Returns 0, a cudaError_t code, or -1 for an unknown variant or a missing
-// array.
+// sph_mdbc_scratch_ints(params) ints.  Returns 0, a cudaError_t code, or -1
+// for an unknown variant or a missing array.
 int sph_mdbc_moments(const MdbcParams* params, int variant, const void* ghost,
                      const int64_t* bidx, const unsigned char* gvalid, const float* pos,
                      const float* rho, const float* ml, const int* cell_start,
                      const void* own_pos, const void* own_rho, void* out_rho,
-                     signed char* decision, float* moments, int* scratch, void* stream,
-                     int* launched) {
+                     signed char* decision, float* moments, int* scratch, void* stream) {
     const MdbcParams P = *params;
     if (P.nb <= 0) return 0;
-    if (!launched || (bidx ? !(own_pos && own_rho && out_rho && decision) : !moments))
-        return -1;
+    if (bidx ? !(own_pos && own_rho && out_rho && decision) : !moments) return -1;
     const Args a{ghost, bidx, gvalid, pos, rho, ml, cell_start, own_pos, own_rho, out_rho,
                  decision, moments, scratch};
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     switch (variant) {
-        case 0: return static_cast<int>(launch<2, WENDLAND, float>(P, a, st, launched));
-        case 1: return static_cast<int>(launch<2, CUBIC, float>(P, a, st, launched));
-        case 2: return static_cast<int>(launch<3, WENDLAND, float>(P, a, st, launched));
-        case 3: return static_cast<int>(launch<3, CUBIC, float>(P, a, st, launched));
-        case 4: return static_cast<int>(launch<2, WENDLAND, double>(P, a, st, launched));
-        case 5: return static_cast<int>(launch<2, CUBIC, double>(P, a, st, launched));
-        case 6: return static_cast<int>(launch<3, WENDLAND, double>(P, a, st, launched));
-        case 7: return static_cast<int>(launch<3, CUBIC, double>(P, a, st, launched));
+        case 0: return static_cast<int>(launch<2, WENDLAND, float>(P, a, st));
+        case 1: return static_cast<int>(launch<2, CUBIC, float>(P, a, st));
+        case 2: return static_cast<int>(launch<3, WENDLAND, float>(P, a, st));
+        case 3: return static_cast<int>(launch<3, CUBIC, float>(P, a, st));
+        case 4: return static_cast<int>(launch<2, WENDLAND, double>(P, a, st));
+        case 5: return static_cast<int>(launch<2, CUBIC, double>(P, a, st));
+        case 6: return static_cast<int>(launch<3, WENDLAND, double>(P, a, st));
+        case 7: return static_cast<int>(launch<3, CUBIC, double>(P, a, st));
         default: return -1;
     }
 }

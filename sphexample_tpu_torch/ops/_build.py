@@ -112,7 +112,7 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.sph_error_string.argtypes = [ci]
         lib.sph_error_string.restype = ctypes.c_char_p
     elif name == "mdbc_moments":
-        lib.sph_mdbc_moments.argtypes = [vp, ci] + [vp] * 15
+        lib.sph_mdbc_moments.argtypes = [vp, ci] + [vp] * 14
         lib.sph_mdbc_moments.restype = ci
         lib.sph_mdbc_scratch_ints.argtypes = [vp]
         lib.sph_mdbc_scratch_ints.restype = ctypes.c_longlong

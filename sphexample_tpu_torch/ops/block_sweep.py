@@ -5,23 +5,19 @@ wrapper and its plain version (the counterpart of
 :func:`block_sweep` takes the kernel ``csrc/block_sweep.cu`` for CUDA
 tensors and the plain PyTorch sweep (``interactions.pair_sweep``, the same
 math on the same inputs) only for CPU tensors.  A CUDA tensor launches the
-kernel or raises: there is no fallback.  ``launches`` counts the kernel
-launches of this process through :func:`block_sweep`, those a chunk graph
-replays included (``ops/launch_count.py``).
+kernel or raises: there is no fallback.
 
 :func:`block_sweep_window` is the same kernel on a self window of a longer
 candidate array, and :func:`block_sweep_sharded` the sweep of one slab of a
 sharded run (the counterpart of ``pallas_block_sweep_sharded``): it packs
 the slab's rows, extends the pack by the two halos (``ops/halo.py``: one
 1-hop exchange of ``halo`` packed rows each way, or the all-gather when
-``halo`` is 0) and launches the kernel on the window.  Their launches are
-counted in ``window_launches``.
+``halo`` is 0) and launches the kernel on the window.
 
 Both sweep kernels read the fields as one f32 pack of float4-aligned rows,
 :func:`pack_fields` (the counterpart of the JAX package's
 ``pack_block_fields``): for CUDA tensors the kernel ``csrc/pack_fields.cu``,
-one launch before every sweep launch, counted in ``pack_launches``; for CPU
-tensors :func:`pack_fields_plain`, the same bits.
+one launch before every sweep launch; for CPU tensors :func:`pack_fields_plain`, the same bits.
 
 Outputs are in cell-sorted order, masked by ``active`` and cast to the state
 dtype (the counterpart of the JAX package's ``_collect``).
@@ -39,7 +35,6 @@ cell kernel's schedule).
 from __future__ import annotations
 
 import ctypes
-import sys
 from dataclasses import dataclass
 from typing import Optional
 
@@ -52,25 +47,7 @@ from ..models.kernels import W
 from ..state import Particles
 from .cell_list import Grid, stencil_rows
 from .halo import extend, rebase
-from . import launch_count
 from .interactions import PhysicsSpec, SweepOut, pair_sweep
-
-# kernel launches in this process (chip_smoke.py resets and reads them): the
-# single-device entry, and the windowed entries of the sharded path; counted
-# where the kernel launches, replays of a captured launch included
-# (ops/launch_count.py)
-launches = 0
-window_launches = 0
-# launches of the input pack's kernel (csrc/pack_fields.cu), counted the same
-# way: one before every launch of either sweep kernel, on every path
-pack_launches = 0
-launch_count.register(sys.modules[__name__], "launches", "window_launches",
-                      "pack_launches")
-# The largest particle capacity ``assemble_simulation`` gives to this sweep; above it a
-# deck takes the cell sweep (ops/cell_sweep.py), as it does in the JAX
-# package, whose block kernel encodes row offsets in 21 bits.  The CUDA
-# kernel itself has no such limit (int32 indices).
-BLOCK_CAP_LIMIT = 1 << 21
 
 # the enum values of csrc/sph_pair_math.cuh and csrc/sph_kernel_functions.cuh
 _FAMILY = {KernelFamily.WENDLAND_C2: 0, KernelFamily.CUBIC_SPLINE: 1}
@@ -197,8 +174,8 @@ def pack_fields(position, velocity, density, pressure, ml):
     3D (x,y,z,rho)(vx,vy,vz,1/rho)(p,ml,0,0); 2D (x,y,vx,vy)(rho,1/rho,p,ml).
     Density is guarded (padding rows carry 1, never 0).  CPU tensors: the
     plain version.  CUDA tensors, as :func:`check_inputs` passes them: the
-    kernel ``csrc/pack_fields.cu``, bit for bit the plain version, counted in
-    ``pack_launches`` (zero rows launch nothing), or an exception."""
+    kernel ``csrc/pack_fields.cu``, bit for bit the plain version (zero rows
+    launch nothing), or an exception."""
     dev = position.device
     if dev.type == "cpu":
         return pack_fields_plain(position, velocity, density, pressure, ml)
@@ -221,7 +198,6 @@ def pack_fields(position, velocity, density, pressure, ml):
                                   *(t.data_ptr() for t in fields), out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"pack_fields launch failed: {lib.sph_pack_error_string(err).decode()}")
-    launch_count.add(sys.modules[__name__], "pack_launches", 1, dev)
     return out
 
 
@@ -528,8 +504,7 @@ def sweep_fields(variant_of, launch, reads_cell: bool, window: bool,
                  self_off=self_off, window=window)
     ml = particles.motion_limiter if motion_limiter is None else motion_limiter
     pack = pack_fields(position, velocity, density, pressure, ml)
-    return launch(spec, grid, particles, cell_start, pack, self_off,
-                  position.dtype, window=window)
+    return launch(spec, grid, particles, cell_start, pack, self_off, position.dtype)
 
 
 def block_sweep(spec: PhysicsSpec, grid: Grid, particles: Particles,
@@ -585,8 +560,7 @@ def sweep_sharded(variant_of, launch, reads_cell: bool, spec: PhysicsSpec,
     pack = pack_fields(position, velocity, density, pressure, ml)
     pack_ext, self_off, ext_off = extend(ctx, pack, halo)
     cs_ext = rebase(cell_start, ext_off, pack_ext.shape[0])
-    return launch(spec, grid, particles, cs_ext, pack_ext, self_off,
-                  position.dtype, window=True)
+    return launch(spec, grid, particles, cs_ext, pack_ext, self_off, position.dtype)
 
 
 def block_sweep_sharded(spec: PhysicsSpec, grid: Grid, halo: int,
@@ -598,8 +572,7 @@ def block_sweep_sharded(spec: PhysicsSpec, grid: Grid, halo: int,
                          velocity, ctx, block_size)
 
 
-def launch_pack(spec, grid, particles, cell_start, pack, self_off: int, dtype,
-                window: bool) -> SweepOut:
+def launch_pack(spec, grid, particles, cell_start, pack, self_off: int, dtype) -> SweepOut:
     """Launch the kernel on a ready pack: selves are its rows ``[self_off,
     self_off + N)``, N the rows of ``particles`` (cell, active)."""
     n, dims = particles.capacity, grid.dims
@@ -625,6 +598,4 @@ def launch_pack(spec, grid, particles, cell_start, pack, self_off: int, dtype,
     if err != 0:
         raise RuntimeError(
             f"block_sweep launch failed: {lib.sph_error_string(err).decode()}")
-    launch_count.add(sys.modules[__name__], "window_launches" if window else "launches",
-                     1, dev)
     return collect(out, particles.active, dtype, dims, spec)

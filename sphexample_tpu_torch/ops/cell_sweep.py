@@ -10,15 +10,12 @@ shared memory for all its selves (:func:`cell_schedule` is that schedule in
 plain PyTorch) - and the plain PyTorch sweep
 (``interactions.pair_sweep``, the same math on the same inputs) only for CPU
 tensors.  A CUDA tensor launches the kernel or raises: there is no fallback.
-``launches`` counts the kernel launches of this process through
-:func:`cell_sweep`, those a chunk graph replays included
-(``ops/launch_count.py``); :func:`cell_sweep_window` (a self window of a longer
-candidate array) and :func:`cell_sweep_sharded` (one slab of a sharded run,
-the counterpart of ``pallas_pair_sweep_sharded``) count in
-``window_launches``.
+:func:`cell_sweep_window` is the kernel on a self window of a longer candidate
+array, :func:`cell_sweep_sharded` on one slab of a sharded run (the
+counterpart of ``pallas_pair_sweep_sharded``).
 
-``assemble_simulation`` takes this sweep when ``meta.block_sweep`` is False or the particle
-capacity exceeds ``block_sweep.BLOCK_CAP_LIMIT`` (``core/driver.py``).  Both
+Which of the two sweeps a run takes, on one device or sharded, is decided in
+one place: ``core/driver.py:choose_sweep_kernel``.  Both
 sweeps compute every model and mode, with the pair physics of
 ``csrc/sph_pair_math.cuh``; the params' model members and the column order
 of the output are shared (``block_sweep.MODEL_FIELDS``, ``collect``).
@@ -27,7 +24,6 @@ of the output are shared (``block_sweep.MODEL_FIELDS``, ``collect``).
 from __future__ import annotations
 
 import ctypes
-import sys
 
 import torch
 
@@ -35,17 +31,8 @@ from ..config import KernelOutputMode, ShiftingMode, ViscosityModel
 from ..state import Particles
 from .block_sweep import (MODEL_FIELDS, WARP, Schedule, _pass_union, collect,
                           model_params, n_sums, sweep_fields, sweep_sharded)
-from . import launch_count
 from .cell_list import Grid
 from .interactions import PhysicsSpec, SweepOut, pair_sweep
-
-# kernel launches in this process (chip_smoke.py resets and reads them): the
-# single-device entry, and the windowed entries of the sharded path; counted
-# where the kernel launches, replays of a captured launch included
-# (ops/launch_count.py)
-launches = 0
-window_launches = 0
-launch_count.register(sys.modules[__name__], "launches", "window_launches")
 
 
 class CellSweepParams(ctypes.Structure):
@@ -169,8 +156,7 @@ def cell_sweep_sharded(spec: PhysicsSpec, grid: Grid, halo: int,
                          velocity, ctx, block_size)
 
 
-def launch_pack(spec, grid, particles, cell_start, pack, self_off: int, dtype,
-                window: bool) -> SweepOut:
+def launch_pack(spec, grid, particles, cell_start, pack, self_off: int, dtype) -> SweepOut:
     """Launch the kernel on a ready pack: selves are its rows ``[self_off,
     self_off + N)``, N the rows of ``particles`` (active)."""
     n, dims = particles.capacity, grid.dims
@@ -198,6 +184,4 @@ def launch_pack(spec, grid, particles, cell_start, pack, self_off: int, dtype,
     if err != 0:
         raise RuntimeError("cell_sweep launch failed: "
                            f"{lib.sph_cell_sweep_error_string(err).decode()}")
-    launch_count.add(sys.modules[__name__], "window_launches" if window else "launches",
-                     1, dev)
     return collect(out, particles.active, dtype, dims, spec)

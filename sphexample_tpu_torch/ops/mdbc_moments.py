@@ -30,11 +30,8 @@ modes, one C call each:
   the grouping writes what the solve would); CUDA tensors only
   (``ops/mdbc.py:correct_density`` takes the plain path for CPU tensors).
 
-A CUDA tensor launches the kernel or raises: there is no fallback.
-``launches`` counts the moment kernels launched (one per stage 04 on the
-card), ``group_launches`` the grouping kernels launched before them (four
-per call), both as the C call reports them, those a chunk graph replays
-included (``ops/launch_count.py``).  The
+A CUDA tensor launches the kernel or raises: there is no fallback.  A call
+launches four grouping kernels and then the moment kernel.  The
 kernel reads the f32 position, density and motion limiter (any other dtype is
 cast first) and sums in f32.  :func:`ghost_groups` is the plain mirror of the
 grouping, for the tests and for ``chip_smoke.py``'s counts.
@@ -43,22 +40,14 @@ grouping, for the tests and for ``chip_smoke.py``'s counts.
 from __future__ import annotations
 
 import ctypes
-import sys
 
 import torch
 
 from ..config import KernelFamily
 from ..models import kernels as K
-from . import launch_count
 from .cell_list import Grid, cell_coords, clamp_coords, linearize, row_segments
 from .interactions import PhysicsSpec, candidates
 
-# kernel launches in this process (chip_smoke.py resets and reads them);
-# counted where the C call launches them, replays of a captured call included
-# (ops/launch_count.py)
-launches = 0
-group_launches = 0
-launch_count.register(sys.modules[__name__], "launches", "group_launches")
 # ghosts per gather of the plain version: bounds its transient footprint
 GHOST_CHUNK = 4096
 DET_THRESHOLD = 1e-3     # |det A| below it: Shepard or keep (reference :606)
@@ -339,17 +328,13 @@ def _launch(spec, grid, B, ghost, bidx, gvalid, position, density, motion_limite
                           dtype=torch.int32, device=pos.device)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     own_pos, own_rho, out_rho = own if own is not None else (None, None, None)
-    launched = (ctypes.c_int * 2)()          # grouping kernels, moment kernels
     with torch.cuda.device(pos.device):
         stream = torch.cuda.current_stream(pos.device).cuda_stream
         err = lib.sph_mdbc_moments(
             ctypes.addressof(params), variant, ghost.data_ptr(), ptr(bidx), valid.data_ptr(),
             pos.data_ptr(), rho.data_ptr(), ml.data_ptr(), cs.data_ptr(), ptr(own_pos),
             ptr(own_rho), ptr(out_rho), ptr(decision), ptr(moments), scratch.data_ptr(),
-            stream, ctypes.addressof(launched))
-    me = sys.modules[__name__]
-    launch_count.add(me, "group_launches", launched[0], pos.device)
-    launch_count.add(me, "launches", launched[1], pos.device)
+            stream)
     if err != 0:
         raise RuntimeError("mdbc_moments launch failed: "
                            f"{lib.sph_mdbc_error_string(err).decode()}")

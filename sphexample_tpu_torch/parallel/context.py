@@ -46,14 +46,6 @@ import torch
 
 DEFAULT_TIMEOUT = 120.0   # seconds a rank waits for the others
 
-_local = threading.local()
-
-
-def thread_rank() -> int:
-    """The rank of the calling thread inside :func:`run_ranks`; 0 in any
-    other thread."""
-    return getattr(_local, "rank", 0)
-
 
 class LocalGroup:
     """What the P thread ranks of one process share: the barrier, the board
@@ -252,7 +244,6 @@ def run_ranks(group: LocalGroup, fn: Callable[[int], object], sync: bool = True)
 
     def work(rank: int):
         dev = group.devices[rank]
-        _local.rank = rank
         try:
             group.take_turn(rank)
             if dev.type == "cuda":

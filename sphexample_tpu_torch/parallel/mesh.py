@@ -19,10 +19,9 @@ import numpy as np
 import torch
 
 from ..config import MDBCMode
-from ..core.driver import Simulation, resolve_device
+from ..core.driver import Simulation, choose_sweep_kernel, resolve_device
 from ..core.step import StepConfig, make_fixed_steps_fn, make_interval_fn
 from ..ops import cell_list as cl
-from ..ops.block_sweep import BLOCK_CAP_LIMIT
 from ..state import pad_capacity, split_state
 from .context import DEFAULT_TIMEOUT, CommContext, LocalGroup, run_ranks
 
@@ -191,11 +190,10 @@ def shard_simulation(sim: Simulation, mesh: Optional[Mesh] = None,
     with the in-step ordering rule, because the distributed rebuild migrates
     rows one hop at most; the halo is sized from the initial geometry with a
     2x margin (:func:`size_halo`) and guarded by the ``max_halo`` telemetry;
-    the block kernel serves the slabs when ``meta.block_sweep`` is set, the
-    window ``C + 2 * halo`` is within ``BLOCK_CAP_LIMIT`` and the global
-    capacity within 2^24 rows, else the cell kernel; stale ``max_halo`` and
-    ``grid_escapes`` are reset.  With ``halo == 0`` the same kernels run on
-    the whole gathered array.
+    the sweep kernel is ``core/driver.py:choose_sweep_kernel``'s for the
+    slabs' window ``C + 2 * halo`` and the global capacity; stale
+    ``max_halo`` and ``grid_escapes`` are reset.  With ``halo == 0`` the
+    same kernels run on the whole gathered array.
 
     Not carried over, because the port's kernels have no such windows: the
     ``min_ct_cap`` floor with the chunk and program tables, and the rule that
@@ -230,9 +228,8 @@ def shard_simulation(sim: Simulation, mesh: Optional[Mesh] = None,
     halo = size_halo(need, C, min_halo)
 
     n_ext = C + 2 * halo if halo > 0 else new_cap
-    block = sim.meta.block_sweep and n_ext <= BLOCK_CAP_LIMIT and new_cap <= 2 ** 24
-    cfg = dataclasses.replace(cfg0, halo=halo,
-                              sweep_kernel="block" if block else "cell")
+    cfg = dataclasses.replace(cfg0, halo=halo, sweep_kernel=choose_sweep_kernel(
+        sim.meta.block_sweep, new_cap, n_ext))
     interval_fn, cfg = make_sharded_interval_fn(cfg, mesh, timeout)
     return Simulation(cfg=cfg, state=split_state(state, mesh.devices),
                       meta=sim.meta, n_live=sim.n_live, interval_fn=interval_fn,

@@ -31,6 +31,7 @@ from sphexample_tpu_torch.ops import cell_list as tcl
 from sphexample_tpu_torch.ops import cell_sweep as cw
 from sphexample_tpu_torch.ops.interactions import PhysicsSpec as TSpec
 from sphexample_tpu_torch.state import allocate_particles as t_alloc
+from kernel_launches import forbid_kernels
 
 torch.set_num_threads(1)
 CSRC = Path(bs.__file__).resolve().parent.parent / "csrc"
@@ -117,12 +118,12 @@ def _assert_close(out, ref):
     (2, "LAMINAR_SPS", "LINEAR", "WENDLAND_C2", None),
     (3, "LAMINAR", "COMPLEX", "WENDLAND_C2", None),
 ])
-def test_block_sweep_every_mode_matches_pallas_interpret(dims, visc, diff, family, k):
+def test_block_sweep_every_mode_matches_pallas_interpret(dims, visc, diff, family, k,
+                                                        monkeypatch):
     tspec, jspec, (grid, p, cs), (jgrid, jp, jcs) = _specs(dims, visc, diff, family, k)
-    before = bs.launches
+    forbid_kernels(monkeypatch)  # CPU tensors never launch the kernel
     out = bs.block_sweep(tspec, grid, p, cs, p.position, p.density, p.pressure,
                          p.velocity)
-    assert bs.launches == before  # CPU tensors never launch the kernel
     assert bs.kernel_variant(tspec, dims) >= 16
     ref = pbs.pallas_block_sweep(jspec, jgrid, 2048, jp, jcs, jp.position, jp.density,
                                  jp.pressure, jp.velocity, interpret=True)

@@ -23,6 +23,7 @@ from sphexample_tpu_torch.ops import block_sweep as bs
 from sphexample_tpu_torch.ops import cell_list as tcl
 from sphexample_tpu_torch.ops.interactions import PhysicsSpec as TSpec
 from sphexample_tpu_torch.state import allocate_particles as t_alloc
+from kernel_launches import forbid_kernels
 
 torch.set_num_threads(1)
 
@@ -60,16 +61,15 @@ def _args(spec, grid, p, cs):
     return (spec, grid, p, cs, p.position, p.density, p.pressure, p.velocity)
 
 
-def test_plain_block_sweep_matches_pallas_interpret():
+def test_plain_block_sweep_matches_pallas_interpret(monkeypatch):
     pos, dens, vel, ptype = _inputs()
     cap = 1024
     const, kern, grid, p, cs = _port(pos, dens, vel, ptype, cap)
     spec = TSpec(constants=const, kernel=kern,
                  viscosity=tc.ViscosityModel.ARTIFICIAL,
                  diffusion=tc.DensityDiffusionModel.LINEAR)
-    before = bs.launches
+    forbid_kernels(monkeypatch)  # CPU tensors never launch the kernel
     out = bs.block_sweep(*_args(spec, grid, p, cs))
-    assert bs.launches == before  # CPU tensors never launch the kernel
     assert out.drhodt.dtype == torch.float32
 
     n = len(dens)
@@ -98,16 +98,15 @@ def test_plain_block_sweep_matches_pallas_interpret():
                                rtol=2e-5, atol=2e-5 * scale_a)
 
 
-def test_cpu_wrapper_is_the_plain_version():
+def test_cpu_wrapper_is_the_plain_version(monkeypatch):
     pos, dens, vel, ptype = _inputs(dims=3, n=150, seed=4)
     const, kern, grid, p, cs = _port(pos, dens, vel, ptype, 160, dtype=torch.float64)
     spec = TSpec(constants=const, kernel=kern,
                  viscosity=tc.ViscosityModel.ARTIFICIAL,
                  diffusion=tc.DensityDiffusionModel.LINEAR)
-    before = bs.launches
+    forbid_kernels(monkeypatch)
     a = bs.block_sweep(*_args(spec, grid, p, cs))
     b = bs.block_sweep_plain(*_args(spec, grid, p, cs), block_size=7)
-    assert bs.launches == before
     torch.testing.assert_close(a.drhodt, b.drhodt, rtol=1e-12, atol=1e-9)
     torch.testing.assert_close(a.acceleration, b.acceleration, rtol=1e-12, atol=1e-9)
     assert not a.drhodt[150:].any()
@@ -115,7 +114,7 @@ def test_cpu_wrapper_is_the_plain_version():
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("dims", [2, 3])
-def test_pack_and_collect(dims, dtype):
+def test_pack_and_collect(dims, dtype, monkeypatch):
     """Every column of the pack against its source field, in both layouts:
     3D (x,y,z,rho)(vx,vy,vz,1/rho)(p,ml,+0,+0), 2D (x,y,vx,vy)(rho,1/rho,p,ml),
     the density guarded (padding rows, 0, -0, negative and NaN carry 1), each
@@ -124,9 +123,8 @@ def test_pack_and_collect(dims, dtype):
     const, kern, grid, p, cs = _port(pos, dens, vel, ptype, 48, dtype=dtype)
     rho = p.density.clone()
     rho[[0, 1, 2, 3]] = torch.tensor([0.0, -0.0, -3.0, float("nan")], dtype=dtype)
-    before = bs.pack_launches
+    forbid_kernels(monkeypatch)  # CPU tensors never launch the kernel
     pack = bs.pack_fields(p.position, p.velocity, rho, p.pressure, p.motion_limiter)
-    assert bs.pack_launches == before  # CPU tensors never launch the kernel
     assert pack.shape == (48, 4 * dims) and pack.dtype == torch.float32
     assert pack.is_contiguous()
     guarded = torch.where(rho > 0, rho, torch.ones_like(rho))
@@ -153,24 +151,17 @@ def test_pack_and_collect(dims, dtype):
     torch.testing.assert_close(col.drhodt[p.active], out[p.active, 0].double())
 
 
-def test_pack_count_is_registered_and_the_cpu_pack_is_the_plain_one(monkeypatch):
-    """``pack_launches`` has a device counter slot (``ops/launch_count.py``),
-    so graph replays count it; on CPU tensors the pack is the plain version
-    and counts nothing."""
-    from sphexample_tpu_torch.ops import launch_count
-
-    assert (bs, "pack_launches") in launch_count._slots
-    assert launch_count._slots.index((bs, "pack_launches")) > launch_count._slots.index(
-        (bs, "launches"))
+def test_the_cpu_pack_is_the_plain_one(monkeypatch):
+    """On CPU tensors the pack is the plain version and loads no kernel."""
+    forbid_kernels(monkeypatch)
     pos, dens, vel, ptype = _inputs(dims=3, n=30, seed=2)
     _, _, _, p, _ = _port(pos, dens, vel, ptype, 32)
     args = (p.position, p.velocity, p.density, p.pressure, p.motion_limiter)
     calls = []
     real = bs.pack_fields_plain
     monkeypatch.setattr(bs, "pack_fields_plain", lambda *a: calls.append(1) or real(*a))
-    before = bs.pack_launches
     assert torch.equal(bs.pack_fields(*args), real(*args))
-    assert calls == [1] and bs.pack_launches == before
+    assert calls == [1]
 
 
 @pytest.mark.parametrize("case,error,match", [
@@ -215,14 +206,13 @@ def test_pack_of_a_cuda_tensor_never_takes_the_plain_version(monkeypatch):
     """A CUDA tensor goes to the kernel or raises: a dtype the kernel has no
     instance for raises before any build or launch, and the plain version
     (the torch.cat) is never called; any other device raises."""
+    forbid_kernels(monkeypatch)
     monkeypatch.setattr(bs, "pack_fields_plain",
                         lambda *a: pytest.fail("a non-CPU tensor reached the plain pack"))
     fake = types.SimpleNamespace(device=torch.device("cuda"), dtype=torch.float16,
                                  shape=(64, 3))
-    before = bs.pack_launches
     with pytest.raises(TypeError, match="float32 or float64 fields, not torch.float16"):
         bs.pack_fields(fake, None, None, None, None)
-    assert bs.pack_launches == before
     meta = [torch.zeros(8, 3, device="meta")] * 2 + [torch.zeros(8, device="meta")] * 3
     with pytest.raises(ValueError, match="unsupported device meta"):
         bs.pack_fields(*meta)

@@ -27,6 +27,7 @@ from sphexample_tpu_torch.ops import cell_list as tcl
 from sphexample_tpu_torch.ops import cell_sweep as cw
 from sphexample_tpu_torch.ops.interactions import PhysicsSpec as TSpec
 from sphexample_tpu_torch.state import allocate_particles as t_alloc
+from kernel_launches import forbid_kernels
 
 torch.set_num_threads(1)
 VISC = ["ZERO", "ARTIFICIAL", "LAMINAR", "LAMINAR_SPS"]
@@ -90,13 +91,12 @@ def _sweep_args(spec, grid, p, cs):
 
 @pytest.mark.parametrize("visc,diff", [("ARTIFICIAL", "LINEAR"),
                                        ("LAMINAR_SPS", "ZERO_GRAVITY_LINEAR")])
-def test_plain_cell_sweep_matches_pallas_interpret(visc, diff):
+def test_plain_cell_sweep_matches_pallas_interpret(visc, diff, monkeypatch):
     """n = 220, capacity 1024, mpc, cseg = 64, 256, f32, 2D: all six fields."""
     (tspec, grid, p, cs), (jspec, jgrid, jp, jcs) = _both(
         2, "WENDLAND_C2", visc, diff, n=220, cap=1024, f64=False)
-    before = cw.launches
+    forbid_kernels(monkeypatch)           # CPU tensors never launch the kernel
     out = cw.cell_sweep(*_sweep_args(tspec, grid, p, cs))
-    assert cw.launches == before          # CPU tensors never launch the kernel
     assert out.drhodt.dtype == torch.float32
     ref = pallas_pair_sweep(jspec, jgrid, 64, 256, min(jgrid.ncells, jp.capacity),
                             jp, jcs, jp.position, jp.density, jp.pressure, jp.velocity,
@@ -219,26 +219,25 @@ def test_collect(dims, store, shift):
         torch.testing.assert_close(v[active].reshape(9, -1), out[active][:, cols].double())
 
 
-def test_cpu_wrapper_is_the_plain_version():
+def test_cpu_wrapper_is_the_plain_version(monkeypatch):
     (tspec, grid, p, cs), _ = _both(3, "CUBIC_SPLINE", "LAMINAR_SPS", "COMPLEX",
                                     n=150, cap=160, f64=True, seed=4)
-    before = cw.launches
+    forbid_kernels(monkeypatch)
     a = cw.cell_sweep(*_sweep_args(tspec, grid, p, cs))
     b = cw.cell_sweep_plain(*_sweep_args(tspec, grid, p, cs), block_size=7)
-    assert cw.launches == before
     for f in FIELDS:
         torch.testing.assert_close(getattr(a, f), getattr(b, f), rtol=1e-12, atol=1e-9)
     assert not a.drhodt[150:].any()
 
 
-def test_input_checks_raise_on_the_cuda_path():
+def test_input_checks_raise_on_the_cuda_path(monkeypatch):
     """A stand-in for a CUDA position tensor: the dispatch reaches the kernel
     path and refuses what the kernel does not take, before building anything."""
     (tspec, grid, p, cs), _ = _both(2, "WENDLAND_C2", "ARTIFICIAL", "LINEAR",
                                     n=60, cap=64, f64=False)
     fake = types.SimpleNamespace(device=torch.device("cuda"), shape=(64, 2),
                                  dtype=torch.float32)
-    before = cw.launches
+    forbid_kernels(monkeypatch)
     with pytest.raises(ValueError, match="velocity is on cpu"):
         cw.cell_sweep(tspec, grid, p, cs, fake, p.density, p.pressure, p.velocity)
     with pytest.raises(ValueError, match="grid"):
@@ -252,4 +251,3 @@ def test_input_checks_raise_on_the_cuda_path():
         cw.cell_sweep(tspec, grid, p, cs,
                       types.SimpleNamespace(device=torch.device("meta"), shape=(64, 2)),
                       None, None, None)
-    assert cw.launches == before

@@ -4,8 +4,7 @@
 f64, stage 02's helper against the JAX step's rebuild and no-rebuild
 branches, the decisions in the state's dtype on a constructed tie (JAX's
 answers), the chunk's buffers kept apart from every state it hands in or
-out, a sharded config's route by where its slabs lie, the launch counters
-folded at the chunk's host read, and an old
+out, a sharded config's route by where its slabs lie, and an old
 checkpoint's ``int`` rebuild count.  On the card the chunk is a CUDA graph
 (``tests/test_torch_cuda.py``); here the same guarded steps run eagerly on
 the same buffers.  Tolerances: tests/test_sweep.py:103-107."""
@@ -328,40 +327,6 @@ def test_sharded_chunk_is_eager_by_its_context(monkeypatch):
     assert int(states[0].iteration) == int(states[1].iteration) > 1
     bufs = interval.chunk.buffers
     assert len(bufs) == 2 and [b.state.total_time.device.type for b in bufs] == ["cpu"] * 2
-
-
-def test_launch_counters_fold_at_the_host_read(monkeypatch):
-    """The wrappers' counts under replay (``ops/launch_count.py``): an eager
-    launch adds to its module's count at once; a captured launch adds to a
-    device counter at every replay, which the chunk loop's one host read
-    (``_host_read``) folds into the module's count, once.  Here the counters
-    sit on the CPU and a replay's ``add_`` nodes are played by hand."""
-    from sphexample_tpu_torch.ops import block_sweep as bs
-    from sphexample_tpu_torch.ops import launch_count
-    from sphexample_tpu_torch.ops import mdbc_moments as mm
-
-    monkeypatch.setattr(launch_count, "_counters", {})
-    monkeypatch.setattr(launch_count, "_folded", {})
-    for mod, name in ((bs, "launches"), (mm, "group_launches")):
-        monkeypatch.setattr(mod, name, 0)
-    sim = _assemble_port()
-    assert launch_count.counters("cpu") == []
-    launch_count.add(bs, "launches", 1, "cpu")
-    assert bs.launches == 1
-    launch_count.arm("cpu")
-    (counters,) = launch_count.counters("cpu")
-    assert counters.tolist() == [0] * len(launch_count._slots)
-    counters[launch_count._slots.index((bs, "launches"))] += 2 * 5     # 5 replayed steps
-    counters[launch_count._slots.index((mm, "group_launches"))] += 4 * 5
-    t, it, prev = S._host_read(sim.state, sim.state.iteration)
-    assert (t, it, prev) == (float(sim.state.total_time), int(sim.state.iteration),
-                             int(sim.state.iteration))
-    assert (bs.launches, mm.group_launches) == (11, 20)
-    S._host_read(sim.state, sim.state.iteration)      # nothing new: nothing added
-    assert (bs.launches, mm.group_launches) == (11, 20)
-    counters[launch_count._slots.index((bs, "launches"))] += 2
-    S._host_read(sim.state, sim.state.iteration)
-    assert (bs.launches, mm.group_launches) == (13, 20)
 
 
 def test_rebuild_counter_and_old_checkpoint(tmp_path):

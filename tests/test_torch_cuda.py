@@ -25,7 +25,8 @@ unchanged by the next replay.  Tracing (``utils/timers.py``): each replay
 timed by its CUDA events within its span, the account of replays, copies
 and gaps closing on the device clock, the host reads counted, and every
 ``cudaGraphLaunch`` of a profiler trace inside a ``chunk.launch`` span.
-A CUDA kernel has no CPU mode, so
+Launches are counted by ``tests/kernel_launches.py``, which the ``cuda``
+fixture opens.  A CUDA kernel has no CPU mode, so
 these tests are marked ``gpu`` and skip without a card.  They import no JAX,
 so they also run where JAX is absent:
 
@@ -54,6 +55,7 @@ from sphexample_tpu_torch.parallel.context import SINGLE
 from sphexample_tpu_torch.parallel.mesh import (make_mesh, make_sharded_fixed_steps_fn,
                                                 shard_simulation)
 from sphexample_tpu_torch.state import Particles, allocate_particles, gather_state
+from kernel_launches import counting, kind, launched
 from walk_tiles import tile_pairs
 
 pytestmark = pytest.mark.gpu
@@ -68,7 +70,8 @@ REL_TOL = 1e-4
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
-    return torch.device("cuda")
+    with counting():
+        yield torch.device("cuda")
 
 
 def _on(p: Particles, device, dtype) -> Particles:
@@ -117,10 +120,10 @@ def test_kernel_matches_plain_sweep(cuda, dims, family, visc, diff):
                        diffusion=T.DensityDiffusionModel[diff])
     ref = bs.block_sweep_plain(*_args(spec, grid, p64, cs))
     p32 = _on(p64, cuda, torch.float32)
-    before = bs.launches
+    before = launched.block
     out = bs.block_sweep(*_args(spec, grid, p32, cs.to(cuda)))
     torch.cuda.synchronize()
-    assert bs.launches == before + 1
+    assert launched.block == before + 1
     assert out.drhodt.dtype == torch.float32 and out.drhodt.device.type == cuda.type
     for a, b in ((out.drhodt, ref.drhodt), (out.acceleration, ref.acceleration)):
         a = a.double().cpu()
@@ -138,7 +141,7 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     spec = PhysicsSpec(constants=const, kernel=kern,
                        viscosity=T.ViscosityModel.ARTIFICIAL,
                        diffusion=T.DensityDiffusionModel.LINEAR)
-    before = bs.launches
+    before = launched.block
     # every model set has an instance; a dimension outside (2, 3) has none
     with pytest.raises(NotImplementedError, match="dims=4"):
         bs.block_sweep(spec, grid, p, cs, torch.zeros((200, 4), device=cuda), p.density,
@@ -150,7 +153,7 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     with pytest.raises(ValueError, match="shape"):
         bs.block_sweep(spec, grid, p, cs, p.position, p.density[:-1], p.pressure,
                        p.velocity)
-    assert bs.launches == before
+    assert launched.block == before
 
 
 def test_main_path_steps_through_the_kernel(cuda):
@@ -165,10 +168,10 @@ def test_main_path_steps_through_the_kernel(cuda):
                                   T.ViscosityModel.ARTIFICIAL,
                                   T.DensityDiffusionModel.LINEAR, device=d)
             for d in (cuda, "cpu")]
-    before = bs.launches
+    before = launched.block
     gpu, cpu = (make_fixed_steps_fn(s.cfg, 20)(s.state) for s in sims)
     torch.cuda.synchronize()
-    assert bs.launches == before + 40
+    assert launched.block == before + 40
     assert gpu.rebuilds == cpu.rebuilds
     assert float(gpu.total_time) == pytest.approx(float(cpu.total_time), rel=1e-5)
 
@@ -251,10 +254,10 @@ def test_mdbc_kernel_matches_plain_moments(cuda, dims, family, crowded):
     cap = n_b + 5                       # 5 invalid slots: zeros out
     bref, Aref = mm.mdbc_moments_plain(*_moment_args(spec, grid, p64, cs, cap, n_b))
     p32 = _on(p64, cuda, torch.float32)
-    before = mm.launches
+    before = launched.mdbc
     bk, Ak = mm.mdbc_moments(*_moment_args(spec, grid, p32, cs.to(cuda), cap, n_b))
     torch.cuda.synchronize()
-    assert mm.launches == before + 1
+    assert launched.mdbc == before + 1
     assert bk.dtype == torch.float32 and bk.device.type == cuda.type
     assert bk.shape == (cap, dims + 1) and Ak.shape == (cap, dims + 1, dims + 1)
     assert not bk[n_b:].any() and not Ak[n_b:].any()   # invalid slots: zeros
@@ -269,7 +272,7 @@ def test_mdbc_kernel_matches_plain_moments(cuda, dims, family, crowded):
     # (tests/test_mdbc.py:68-70 allows the f32 moment kernel 3e-5)
     ref = mdbc.mdbc_density_correction(spec, grid, p64, cs, cap)
     out = mdbc.mdbc_density_correction(spec, grid, p32, cs.to(cuda), cap)
-    assert mm.launches == before + 2
+    assert launched.mdbc == before + 2
     det, _ = mdbc._det_solve(Aref, bref)
     far = (det.abs() - mdbc.DET_THRESHOLD).abs() > 0.05 * mdbc.DET_THRESHOLD
     rows = mdbc.compact_ghosts(p64, cap)[0][:n_b][far[:n_b]]
@@ -282,7 +285,7 @@ def test_mdbc_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     spec, grid, p64, cs, n_b = _ghost_state(3, "WENDLAND_C2")
     p = _on(p64, cuda, torch.float32)
     args = _moment_args(spec, grid, p, cs.to(cuda), n_b, n_b)
-    before = mm.launches
+    before = launched.mdbc
     # a kernel family the CUDA source has no instance of (the enum has none
     # today, so a stand-in member): it raises, it does not fall back
     gaussian = enum.Enum("OtherFamily", {"GAUSSIAN": "gaussian"}).GAUSSIAN
@@ -296,10 +299,10 @@ def test_mdbc_wrapper_rejects_what_the_kernel_does_not_take(cuda):
         mm.mdbc_moments(*args[:-1], cs.to(cuda).long())
     with pytest.raises(ValueError, match="shape"):
         mm.mdbc_moments(*args[:5], p.density[:-1], *args[6:])
-    assert mm.launches == before
+    assert launched.mdbc == before
     # no ghost slot at all: nothing to launch, empty moments
     b0, A0 = mm.mdbc_moments(spec, grid, args[2][:0], args[3][:0], *args[4:])
-    assert b0.shape == (0, 4) and A0.shape == (0, 4, 4) and mm.launches == before
+    assert b0.shape == (0, 4) and A0.shape == (0, 4, 4) and launched.mdbc == before
 
 
 def test_mdbc_steps_through_both_kernels(cuda):
@@ -325,10 +328,10 @@ def test_mdbc_steps_through_both_kernels(cuda):
                                   T.DensityDiffusionModel.LINEAR, device=d,
                                   ghost_points=ghost, ghost_normals=ghost - pos[:nb])
             for d in (cuda, "cpu")]
-    b0, m0 = bs.launches, mm.launches
+    b0, m0 = launched.block, launched.mdbc
     gpu, cpu = (make_fixed_steps_fn(s.cfg, 10)(s.state) for s in sims)
     torch.cuda.synchronize()
-    assert bs.launches == b0 + 20 and mm.launches == m0 + 10
+    assert launched.block == b0 + 20 and launched.mdbc == m0 + 10
     ids_g, ids_c = gpu.particles.id.cpu(), cpu.particles.id
     assert torch.equal(ids_g, ids_c)
     dg, dc = gpu.particles.density.cpu(), cpu.particles.density
@@ -353,11 +356,11 @@ def _fused_vs(cuda, spec, grid, p64, cs, cap, dtype=torch.float32):
     p = _on(p64, cuda, dtype)
     csg = cs.to(cuda)
     bidx, bvalid = mdbc.compact_ghosts(p, cap)
-    before, groups0 = mm.launches, mm.group_launches
+    before, groups0 = launched.mdbc, launched.grouping
     rho, dec, mom = mm.mdbc_correct(spec, grid, p, bidx, bvalid, p.position, p.density,
                                     p.motion_limiter, csg, moments=True)
     torch.cuda.synchronize()
-    assert mm.launches == before + 1 and mm.group_launches == groups0 + 4
+    assert launched.mdbc == before + 1 and launched.grouping == groups0 + 4
     assert rho.dtype == dtype and rho.data_ptr() != p.density.data_ptr()
     gp = p.ghost_points[bidx]
     bk, Ak = mm.mdbc_moments(spec, grid, gp, bvalid, p.position, p.density, p.motion_limiter,
@@ -545,10 +548,10 @@ def test_fused_kernel_without_slots(cuda):
     spec, grid, p64, cs, n_b = _ghost_state(3, "WENDLAND_C2")
     p = _on(p64, cuda, torch.float32)
     bidx, bvalid = mdbc.compact_ghosts(p, 0)
-    before = mm.launches
+    before = launched.mdbc
     rho, dec, mom = mm.mdbc_correct(spec, grid, p, bidx, bvalid, p.position, p.density,
                                     p.motion_limiter, cs.to(cuda), moments=True)
-    assert mm.launches == before and dec.shape == (0,) and mom.shape == (0, 20)
+    assert launched.mdbc == before and dec.shape == (0,) and mom.shape == (0, 20)
     assert torch.equal(rho, p.density) and rho.data_ptr() != p.density.data_ptr()
     assert torch.equal(mdbc.mdbc_density_correction(spec, grid, p, cs.to(cuda), 0), p.density)
 
@@ -559,7 +562,7 @@ def test_fused_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     csg = cs.to(cuda)
     bidx, bvalid = mdbc.compact_ghosts(p, n_b)
     args = (p.position, p.density, p.motion_limiter, csg)
-    before = mm.launches
+    before = launched.mdbc
     with pytest.raises(TypeError, match="bidx"):
         mm.mdbc_correct(spec, grid, p, bidx.int(), bvalid, *args)
     with pytest.raises(TypeError, match="float32 / float64"):
@@ -571,7 +574,7 @@ def test_fused_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     with pytest.raises(ValueError, match="unsupported device"):
         mm.mdbc_correct(spec, grid, p64, bidx.cpu(), bvalid.cpu(), p64.position, p64.density,
                         p64.motion_limiter, cs)
-    assert mm.launches == before
+    assert launched.mdbc == before
 
 
 @pytest.mark.parametrize("dims", [2, 3])
@@ -639,10 +642,10 @@ def _hold_cell_sweep(cuda, spec, grid, p64, cs, n):
     one launch, every field of the mode set, padding rows zero."""
     ref = cw.cell_sweep_plain(*_args(spec, grid, p64, cs))
     p32 = _on(p64, cuda, torch.float32)
-    before = cw.launches
+    before = launched.cell
     out = cw.cell_sweep(*_args(spec, grid, p32, cs.to(cuda)))
     torch.cuda.synchronize()
-    assert cw.launches == before + 1
+    assert launched.cell == before + 1
     for f in FIELDS:
         a, b = getattr(out, f), getattr(ref, f)
         assert (a is None) == (b is None), f
@@ -693,11 +696,11 @@ def test_block_kernel_every_mode_matches_plain_and_cell_kernel(cuda, dims, famil
     spec = _full_spec(const, kern, visc, diff, store, shift)
     ref = bs.block_sweep_plain(*_args(spec, grid, p64, cs))
     p32, cs_g = _on(p64, cuda, torch.float32), cs.to(cuda)
-    before = bs.launches
+    before = launched.block
     out = bs.block_sweep(*_args(spec, grid, p32, cs_g))
     cell = cw.cell_sweep(*_args(spec, grid, p32, cs_g))
     torch.cuda.synchronize()
-    assert bs.launches == before + 1
+    assert launched.block == before + 1
     for f in FIELDS:
         a, b, c = getattr(out, f), getattr(ref, f), getattr(cell, f)
         assert (a is None) == (b is None) == (c is None), f
@@ -748,7 +751,7 @@ def test_cell_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     p = _on(p64, cuda, torch.float32)
     cs = cs.to(cuda)
     spec = _full_spec(const, kern, "LAMINAR_SPS", "COMPLEX")
-    before = cw.launches
+    before = launched.cell
     with pytest.raises(ValueError, match="cell_start"):
         cw.cell_sweep(*_args(spec, grid, p, cs.cpu()))
     with pytest.raises(TypeError, match="int32"):
@@ -758,7 +761,7 @@ def test_cell_wrapper_rejects_what_the_kernel_does_not_take(cuda):
                       p.velocity)
     with pytest.raises(ValueError, match="grid"):
         cw.cell_sweep(*_args(spec, cl.Grid(cmin=(0, 0), shape=(4, 4)), p, cs))
-    assert cw.launches == before
+    assert launched.cell == before
     # an unbuilt cell_start (all zeros) gives every row zero, as the plain version
     out = cw.cell_sweep(*_args(spec, grid, p, torch.zeros_like(cs)))
     assert not out.drhodt.any() and not out.kernel_w.any()
@@ -801,10 +804,10 @@ def test_moving_square_steps_through_the_cell_kernel(cuda):
     noise."""
     (sim_g, pos0, ptype), (sim_c, _, _) = _moving_square(cuda), _moving_square("cpu")
     assert sim_g.cfg.sweep_kernel == "cell"
-    b0, c0 = bs.launches, cw.launches
+    b0, c0 = launched.block, launched.cell
     gpu, cpu = (make_fixed_steps_fn(s.cfg, 10)(s.state) for s in (sim_g, sim_c))
     torch.cuda.synchronize()
-    assert cw.launches == c0 + 20 and bs.launches == b0
+    assert launched.cell == c0 + 20 and launched.block == b0
     assert torch.equal(gpu.particles.id.cpu(), cpu.particles.id)
     order = torch.argsort(gpu.particles.id.cpu())
     pg = gpu.particles.position.cpu()[order]
@@ -839,10 +842,10 @@ def test_moving_square_steps_through_the_block_kernel(cuda):
                                            _moving_square(cuda))
     assert (sim_b.cfg.sweep_kernel, sim_c.cfg.sweep_kernel) == ("block", "cell")
     assert bs.kernel_variant(sim_b.cfg.spec, 2) == 23
-    b0, c0 = bs.launches, cw.launches
+    b0, c0 = launched.block, launched.cell
     blk = make_fixed_steps_fn(sim_b.cfg, 10)(sim_b.state)
     torch.cuda.synchronize()
-    assert (bs.launches - b0, cw.launches - c0) == (20, 0)
+    assert (launched.block - b0, launched.cell - c0) == (20, 0)
     cel = make_fixed_steps_fn(sim_c.cfg, 10)(sim_c.state)
     assert torch.equal(blk.particles.id, cel.particles.id)
     order = torch.argsort(blk.particles.id.cpu())
@@ -869,9 +872,9 @@ def test_block_rule_takes_the_cell_kernel_when_asked(cuda):
                                     kern, T.ViscosityModel.ARTIFICIAL,
                                     T.DensityDiffusionModel.LINEAR, device=cuda)
         assert sim.cfg.sweep_kernel == ("block" if flag else "cell")
-        b0, c0 = bs.launches, cw.launches
+        b0, c0 = launched.block, launched.cell
         ends[flag] = make_fixed_steps_fn(sim.cfg, 5)(sim.state)
-        assert (bs.launches - b0, cw.launches - c0) == ((10, 0) if flag else (0, 10))
+        assert (launched.block - b0, launched.cell - c0) == ((10, 0) if flag else (0, 10))
     a, b = ends[True].particles, ends[False].particles
     assert torch.equal(a.id, b.id)
     torch.testing.assert_close(a.position, b.position, rtol=0, atol=2e-6)
@@ -882,9 +885,9 @@ def test_block_rule_takes_the_cell_kernel_when_asked(cuda):
                                 T.ViscosityModel.LAMINAR,
                                 T.DensityDiffusionModel.LINEAR, device=cuda)
     assert sim.cfg.sweep_kernel == "block"
-    b0, c0 = bs.launches, cw.launches
+    b0, c0 = launched.block, launched.cell
     end = make_fixed_steps_fn(sim.cfg, 1)(sim.state)
-    assert (bs.launches - b0, cw.launches - c0) == (2, 0)
+    assert (launched.block - b0, launched.cell - c0) == (2, 0)
     assert torch.isfinite(end.particles.acceleration).all()
 
 
@@ -937,11 +940,12 @@ def _hold_window(cuda, mod, spec, grid, p64, cs, n, halos):
                         f64["pressure"], f64["velocity"],
                         motion_limiter=f64["motion_limiter"], self_off=off)
             pl, cs_e, f, _ = _window(p32, cs_g, r, halo)
-            before = mod.window_launches, mod.launches
+            k = kind(mod)
+            before = launched[f"{k}_window"], launched[k]
             out = window(spec, grid, pl, cs_e, f["position"], f["density"], f["pressure"],
                          f["velocity"], f["motion_limiter"], off)
             torch.cuda.synchronize()
-            assert (mod.window_launches, mod.launches) == (before[0] + 1, before[1])
+            assert (launched[f"{k}_window"], launched[k]) == (before[0] + 1, before[1])
             for name in FIELDS:
                 a, b = getattr(out, name), getattr(ref, name)
                 assert (a is None) == (b is None), name
@@ -1042,11 +1046,11 @@ def test_mdbc_kernel_on_the_halo_matches_plain_and_single(cuda, dims, family):
                                     f64["motion_limiter"], cs_ext)
         pl, cs_e, f, _ = _window(p32, cs_g, r, (dims - 1) * C)
         bidx, bvalid = mdbc.compact_ghosts(pl, n_b)
-        before = mm.launches
+        before = launched.mdbc
         bk, Ak = mm.mdbc_moments(spec, grid, pl.ghost_points[bidx], bvalid, f["position"],
                                  f["density"], f["motion_limiter"], cs_e)
         torch.cuda.synchronize()
-        assert mm.launches == before + 1
+        assert launched.mdbc == before + 1
         for a, b, full in ((bk, ref[0], bw), (Ak, ref[1], Aw)):
             a, b = a.double().cpu().reshape(n_b, -1), b.reshape(n_b, -1)
             scale = full.reshape(n_b, -1).abs().amax(dim=0)   # per column, all ghosts
@@ -1065,7 +1069,7 @@ def test_window_wrappers_reject_what_the_kernels_do_not_take(cuda):
     pl, cs_e, f, off = _window(p, cs_g, 1, 20)
     args = (spec, grid, pl, cs_e, f["position"], f["density"], f["pressure"], f["velocity"])
     for mod, window in ((bs, bs.block_sweep_window), (cw, cw.cell_sweep_window)):
-        before = mod.window_launches
+        before = launched[kind(mod) + "_window"]
         with pytest.raises(ValueError, match="cell_start"):
             window(spec, grid, pl, cs_e.cpu(), *args[4:], f["motion_limiter"], off)
         with pytest.raises(ValueError, match="motion_limiter"):
@@ -1078,7 +1082,7 @@ def test_window_wrappers_reject_what_the_kernels_do_not_take(cuda):
             window(*args, f["motion_limiter"], -1)
         with pytest.raises(TypeError, match="int32"):
             window(spec, grid, pl, cs_e.long(), *args[4:], f["motion_limiter"], off)
-        assert mod.window_launches == before
+        assert launched[kind(mod) + "_window"] == before
         # the single-device entry takes no window
         with pytest.raises(ValueError, match="shape"):
             (bs.block_sweep if mod is bs else cw.cell_sweep)(*args)
@@ -1132,14 +1136,14 @@ def test_four_slab_run_on_the_card(cuda, mdbc_on, block):
     assert [d.index for d in sharded.mesh.devices] == [
         r % torch.cuda.device_count() for r in range(4)]
     one = make_fixed_steps_fn(single.cfg, steps)(single.state)
-    mod, other = (bs, cw) if block else (cw, bs)
-    w0, s0, o0, m0 = mod.window_launches, mod.launches, other.window_launches, mm.launches
-    p0 = bs.pack_launches
+    mod, other = ("block", "cell") if block else ("cell", "block")
+    w0, s0, o0 = launched[f"{mod}_window"], launched[mod], launched[f"{other}_window"]
+    m0, p0 = launched.mdbc, launched.pack
     states = make_sharded_fixed_steps_fn(cfg, sharded.mesh, steps)(sharded.state)
     torch.cuda.synchronize()
-    assert mod.window_launches == w0 + 2 * steps * 4 == w0 + bs.pack_launches - p0
-    assert mod.launches == s0 and other.window_launches == o0
-    assert mm.launches == m0 + (steps * 4 if mdbc_on else 0)
+    assert launched[f"{mod}_window"] == w0 + 2 * steps * 4 == w0 + launched.pack - p0
+    assert launched[mod] == s0 and launched[f"{other}_window"] == o0
+    assert launched.mdbc == m0 + (steps * 4 if mdbc_on else 0)
     assert len({int(s.rebuilds) for s in states}) == 1 and states[0].rebuilds == one.rebuilds
     four = gather_state(states, cuda)
     assert 0 < int(four.max_halo) <= cfg.halo
@@ -1218,11 +1222,11 @@ def test_walk_both_kernels_match_plain_and_each_other(cuda, dims, case, mode):
     spec = _full_spec(const, kern, *WALK_MODES[mode])
     ref = bs.block_sweep_plain(*_args(spec, grid, p64, cs))
     p32, cs_g = _on(p64, cuda, torch.float32), cs.to(cuda)
-    b0, c0 = bs.launches, cw.launches
+    b0, c0 = launched.block, launched.cell
     blk = bs.block_sweep(*_args(spec, grid, p32, cs_g))
     cel = cw.cell_sweep(*_args(spec, grid, p32, cs_g))
     torch.cuda.synchronize()
-    assert (bs.launches, cw.launches) == (b0 + 1, c0 + 1)
+    assert (launched.block, launched.cell) == (b0 + 1, c0 + 1)
     for f in FIELDS:
         a, b, c = getattr(blk, f), getattr(ref, f), getattr(cel, f)
         assert (a is None) == (b is None) == (c is None), f
@@ -1389,14 +1393,14 @@ def test_regrid_replay_on_the_card(cuda, monkeypatch):
         return real(t, it, t_out, it_before)
 
     monkeypatch.setattr(step, "_check_interval_progress", counted)
-    before = bs.launches
+    before = launched.block
     T.run_simulation(sim, max_intervals=1)
     torch.cuda.synchronize()
     assert sim.cfg.grid.ncells > grid0.ncells and int(sim.state.grid_escapes) == 0
     assert sim.hourglass.counts["02b Retune neighbor windows"] >= 1
     assert sim.state.particles.position.device.type == "cuda"
     assert len(calls) > int(sim.state.iteration) > 0
-    assert bs.launches - before == 2 * len(calls)
+    assert launched.block - before == 2 * len(calls)
     p, cs = sim.state.particles, sim.state.cell_start
     spec = sim.cfg.spec
     out = bs.block_sweep(*_args(spec, sim.cfg.grid, p, cs))
@@ -1437,11 +1441,11 @@ def test_determinism_of_the_kernels(cuda, mdbc_on, block):
     from sphexample_tpu_torch.utils.validation import check_determinism
 
     sim = _tall_column(cuda, mdbc_on, block)
-    mod, other = (bs, cw) if block else (cw, bs)
-    s0, o0, m0 = mod.launches, other.launches, mm.launches
+    mod, other = ("block", "cell") if block else ("cell", "block")
+    s0, o0, m0 = launched[mod], launched[other], launched.mdbc
     assert check_determinism(sim, n_steps=5)
-    assert mod.launches - s0 == 2 * 5 * 2 and other.launches == o0
-    assert mm.launches - m0 == (10 if mdbc_on else 0)
+    assert launched[mod] - s0 == 2 * 5 * 2 and launched[other] == o0
+    assert launched.mdbc - m0 == (10 if mdbc_on else 0)
 
 
 # --- the chunk graph: a chunk of steps as one CUDA graph (core/step.py) ------------
@@ -1577,49 +1581,49 @@ def test_failed_capture_raises_and_runs_nothing(cuda, monkeypatch):
         real(dst, src)
 
     monkeypatch.setattr(step, "_write_stage02", broken)
-    b0 = bs.launches
+    b0 = launched.block
     with pytest.raises(RuntimeError, match="chunk graph capture failed: injected"):
         step.make_interval_fn(sim.cfg)(sim.state, 0.001)
-    assert bs.launches == b0 + 2
+    assert launched.block == b0 + 2
     assert torch.equal(sim.state.particles.position, before[0])
     assert torch.equal(sim.state.total_time, before[1])
     monkeypatch.setattr(step, "_write_stage02", real)
     out = step.make_interval_fn(sim.cfg)(sim.state, 0.001)
     assert float(out.total_time) > 0.001
-    assert bs.launches - b0 == 2 + 2 * int(out.iteration)
+    assert launched.block - b0 == 2 + 2 * int(out.iteration)
 
 
 def test_launch_counts_follow_the_replays(cuda, monkeypatch):
-    """The wrappers count where they launch, and a captured launch counts at
-    every replay that runs it (``ops/launch_count.py``): N steps through the
-    graph count N times 2 sweeps, 2 input packs, 1 mDBC call and its 4
-    grouping kernels, and a count made inside the rebuild's IF body counts the rebuilds that
-    ran, not the steps."""
+    """A captured launch counts at every replay that runs it
+    (``tests/kernel_launches.py``): N steps through the graph count N times
+    2 sweeps, 2 input packs, 1 mDBC call and its 4 grouping kernels, and a
+    count made inside the rebuild's IF body counts the rebuilds that ran,
+    not the steps."""
+    from kernel_launches import add
     from sphexample_tpu_torch.core import step
-    from sphexample_tpu_torch.ops import launch_count
 
     sim = _tall_column(cuda, mdbc_on=True)
     cfg = dataclasses.replace(sim.cfg, meta=T.replace(sim.meta, max_steps_per_call=8))
     real = step._rebuild
-    monkeypatch.setattr(bs, "window_launches", 0)
 
     def rebuild(cfg, keep):
         # a launch of the rebuild's own, counted as a wrapper counts one
-        launch_count.add(bs, "window_launches", 1, keep.dx_acc.device)
+        add(keep.dx_acc.device, "block_window", 1)
         return real(cfg, keep)
 
     monkeypatch.setattr(step, "_rebuild", rebuild)
     start = _falling(sim)
-    b0, m0, g0, p0 = bs.launches, mm.launches, mm.group_launches, bs.pack_launches
+    b0, m0, g0, p0 = launched.block, launched.mdbc, launched.grouping, launched.pack
+    w0 = launched.block_window
     n = 3 * 8 + 5        # three whole replays and part of a fourth
     fixed = make_fixed_steps_fn(cfg, n)
     state = fixed(start)
     assert fixed.chunk.graph is not None
     assert int(state.iteration) == int(start.iteration) + n
-    assert bs.launches - b0 == 2 * n == bs.pack_launches - p0
-    assert mm.launches - m0 == n and mm.group_launches - g0 == 4 * n
+    assert launched.block - b0 == 2 * n == launched.pack - p0
+    assert launched.mdbc - m0 == n and launched.grouping - g0 == 4 * n
     rebuilds = int(state.rebuilds) - int(start.rebuilds)
-    assert 1 < rebuilds < n and bs.window_launches == rebuilds
+    assert 1 < rebuilds < n and launched.block_window - w0 == rebuilds
 
 
 def test_saver_snapshot_unchanged_by_the_next_replay(cuda):
@@ -1769,8 +1773,8 @@ def test_sharded_chunk_graph_is_the_eager_chunk_bit_for_bit(cuda, monkeypatch, n
     assert interval.chunk.route == "graph"
     start = tuple(_fluid_vz(s, 24.0) for s in sharded.state)
     t_outs = _t_outs(sim, start[0])
-    mod = bs if block else cw
-    w0, m0 = mod.window_launches, mm.launches
+    mod = "block" if block else "cell"
+    w0, m0 = launched[f"{mod}_window"], launched.mdbc
     graph = start
     for t_out in t_outs[:2]:
         graph = interval(graph, t_out)
@@ -1795,8 +1799,8 @@ def test_sharded_chunk_graph_is_the_eager_chunk_bit_for_bit(cuda, monkeypatch, n
     monkeypatch.setattr(step, "_host_read", real)
     assert reads[0] == -(-(int(graph[0].iteration) - it1) // 8)
     steps = int(graph[0].iteration) - int(start[0].iteration)
-    assert mod.window_launches - w0 == 2 * steps * n
-    assert mm.launches - m0 == (steps * n if mdbc_on else 0)
+    assert launched[f"{mod}_window"] - w0 == 2 * steps * n
+    assert launched.mdbc - m0 == (steps * n if mdbc_on else 0)
     eager_interval = step.make_chunk_loop(sharded.cfg, step._eager_chunk(sharded.cfg))
     eager = start
     for t_out in t_outs:
@@ -1813,16 +1817,17 @@ def test_sharded_failed_capture_raises(cuda, monkeypatch):
     with no eager chunk run in its place; the capture left open is ended,
     the state handed in is unchanged, and a later capture works."""
     from sphexample_tpu_torch.core import step
-    from sphexample_tpu_torch.parallel.context import thread_rank
 
     sharded = shard_simulation(_tall_column(cuda, False),
                                make_mesh(2, torch.device("cuda", 0)))
+    rank1 = sharded.cfg.ctx.group.stream(1)
     before = [a.clone() for a in (sharded.state[1].particles.position,
                                   sharded.state[1].total_time)]
     real = step._write_stage02
 
     def broken(dst, src):
-        if torch.cuda.is_current_stream_capturing() and thread_rank() == 1:
+        if (torch.cuda.is_current_stream_capturing()
+                and torch.cuda.current_stream() == rank1):
             raise RuntimeError("injected fault in rank 1's rebuild")
         real(dst, src)
 

@@ -24,7 +24,6 @@ if ROOT not in sys.path:
 from portbench import check, harness  # noqa: E402
 from portbench.reference import sph  # noqa: E402
 from sphexample_tpu_torch.core import driver  # noqa: E402
-from sphexample_tpu_torch.ops.block_sweep import BLOCK_CAP_LIMIT  # noqa: E402
 
 CELL = "dambreak3d_large.run"
 LARGE = ("step.device_ms_per_step", "step.graph_nodes_per_step",
@@ -45,7 +44,7 @@ def test_the_cell_resolves_and_its_deck_takes_the_cell_sweep():
     assert cfg["kernel"]["h"] == pytest.approx(3**0.5 * 0.0034, rel=1e-15)
     pos, rho, ptype, marker, ids = harness.deck_arrays(cfg, 3000000019)
     rows = len(pos)
-    assert rows == cfg["particles"] == 2215035 > BLOCK_CAP_LIMIT
+    assert rows == cfg["particles"] == 2215035 > driver.BLOCK_CAP_LIMIT
     assert int((ptype == 1).sum()) == 1947756
     assert driver.choose_sweep_kernel(True, rows) == "cell"
     assert driver.choose_sweep_kernel(True, harness.cell("dambreak3d.run")["config"]

@@ -5,8 +5,8 @@ int32 words, in 2D and 3D, from f32 and f64 fields, for 1, 31, 4097 and
 2^20 + 3 rows, with densities of 0, -0, below 0, NaN, +inf and denormal
 among them; every sharded slab's sweep on the kernel's pack bit for bit the
 sweep on the plain pack; the wrapper and the sweep entries' checks on CUDA
-tensors; and ``pack_launches``, one a pack, as many as the sweep launches of
-eager steps.
+tensors; and the pack kernel's launches (``tests/kernel_launches.py``), one
+a pack, as many as the sweep launches of eager steps.
 A CUDA kernel has no CPU mode, so these tests are marked ``gpu`` and skip
 without a card.  They import no JAX:
 
@@ -27,6 +27,7 @@ from sphexample_tpu_torch.ops.interactions import PhysicsSpec
 from sphexample_tpu_torch.parallel.context import CommContext, LocalGroup, run_ranks
 from sphexample_tpu_torch.parallel.mesh import measure_halo, size_halo
 from sphexample_tpu_torch.state import allocate_particles
+from kernel_launches import Launches
 
 pytestmark = pytest.mark.gpu
 torch.set_num_threads(1)
@@ -71,14 +72,15 @@ def _words(pack):
 def test_pack_kernel_is_the_plain_expression_bit_for_bit(cuda, dims, dtype, n):
     cpu = _fields(n, dims, dtype, seed=n)
     dev = [t.to(cuda) for t in cpu]
-    p0 = bs.pack_launches
-    got = bs.pack_fields(*dev)
-    torch.cuda.synchronize()
-    assert bs.pack_launches == p0 + 1
+    with Launches() as n_got:
+        got = bs.pack_fields(*dev)
+    assert n_got["pack"] == 1
     assert got.shape == (n, 4 * dims) and got.dtype == torch.float32 and got.is_contiguous()
-    assert torch.equal(_words(got), _words(bs.pack_fields_plain(*dev)))
+    with Launches() as n_plain:
+        plain = bs.pack_fields_plain(*dev)
+    assert n_plain["pack"] == 0                # the plain version launches no pack kernel
+    assert torch.equal(_words(got), _words(plain))
     assert torch.equal(_words(got.cpu()), _words(bs.pack_fields_plain(*cpu)))
-    assert bs.pack_launches == p0 + 1          # the plain version counts nothing
     rho, rcp = (got[:, 3], got[:, 7]) if dims == 3 else (got[:, 4], got[:, 5])
     dens = cpu[2].to(cuda)
     assert (rho[~(dens > 0)] == 1).all() and (rcp[~(dens > 0)] == 1).all()
@@ -92,25 +94,27 @@ def test_pack_wrapper_on_the_card(cuda):
     an empty [0, 12] without a launch; the sweep entries' checks
     (``check_inputs``) refuse a field of another dtype before any pack."""
     pos, vel, dens, pres, ml = [t.to(cuda) for t in _fields(64, 3, torch.float32)]
-    p0 = bs.pack_launches
-    with pytest.raises(TypeError, match="float32 or float64"):
-        bs.pack_fields(*(t.half() for t in (pos, vel, dens, pres, ml)))
-    assert bs.pack_fields(pos[:0], vel[:0], dens[:0], pres[:0], ml[:0]).shape == (0, 12)
-    assert bs.pack_launches == p0
+    with Launches() as n_refused:
+        with pytest.raises(TypeError, match="float32 or float64"):
+            bs.pack_fields(*(t.half() for t in (pos, vel, dens, pres, ml)))
+        assert bs.pack_fields(pos[:0], vel[:0], dens[:0], pres[:0], ml[:0]).shape == (0, 12)
+    assert n_refused["pack"] == 0
     strided = torch.cat([pos, vel], dim=1)
-    assert torch.equal(_words(bs.pack_fields(strided[:, :3], strided[:, 3:], dens, pres, ml)),
-                       _words(bs.pack_fields_plain(pos, vel, dens, pres, ml)))
-    assert bs.pack_launches == p0 + 1
+    with Launches() as n_strided:
+        got = bs.pack_fields(strided[:, :3], strided[:, 3:], dens, pres, ml)
+    assert n_strided["pack"] == 1
+    assert torch.equal(_words(got), _words(bs.pack_fields_plain(pos, vel, dens, pres, ml)))
     const, kern, grid, p64, cs, _ = _column(3)
     spec = PhysicsSpec(constants=const, kernel=kern, viscosity=T.ViscosityModel.ARTIFICIAL,
                        diffusion=T.DensityDiffusionModel.LINEAR)
     p = p64.map(lambda a: (a.to(cuda, torch.float32) if a.is_floating_point()
                            else a.to(cuda)))
-    for sweep in (bs.block_sweep, cw.cell_sweep):
-        with pytest.raises(TypeError, match="pressure is torch.float64"):
-            sweep(spec, grid, p, cs.to(cuda), p.position, p.density, p.pressure.double(),
-                  p.velocity)
-    assert bs.pack_launches == p0 + 1
+    with Launches() as n_checked:
+        for sweep in (bs.block_sweep, cw.cell_sweep):
+            with pytest.raises(TypeError, match="pressure is torch.float64"):
+                sweep(spec, grid, p, cs.to(cuda), p.position, p.density,
+                      p.pressure.double(), p.velocity)
+    assert n_checked["pack"] == 0
 
 
 def _column(dims, seed=0):
@@ -157,7 +161,6 @@ def test_sharded_windows_sweep_the_kernels_pack(cuda, monkeypatch, dims, kernel)
     cs_g = cs.to(cuda)
     C = p.capacity // N_SLABS
     slabs = [p.map(lambda a, r=r: a[r * C:(r + 1) * C].clone()) for r in range(N_SLABS)]
-    mod = bs if kernel == "block" else cw
     sharded = bs.block_sweep_sharded if kernel == "block" else cw.cell_sweep_sharded
     group = LocalGroup([cuda] * N_SLABS, timeout=120.0)
 
@@ -167,13 +170,13 @@ def test_sharded_windows_sweep_the_kernels_pack(cuda, monkeypatch, dims, kernel)
             slabs[r].pressure, slabs[r].velocity, CommContext(group, r), 64))
 
     for h in (halo, 0):
-        p0, w0 = bs.pack_launches, mod.window_launches
-        got = sweep(h)
-        assert bs.pack_launches - p0 == N_SLABS == mod.window_launches - w0
-        with monkeypatch.context() as m:
+        with Launches() as n_got:
+            got = sweep(h)
+        assert n_got["pack"] == N_SLABS == n_got[f"{kernel}_window"] and n_got[kernel] == 0
+        with Launches() as n_plain, monkeypatch.context() as m:
             m.setattr(bs, "pack_fields", bs.pack_fields_plain)
             want = sweep(h)
-        assert bs.pack_launches - p0 == N_SLABS
+        assert n_plain["pack"] == 0 and n_plain[f"{kernel}_window"] == N_SLABS
         for r, (a, b) in enumerate(zip(got, want)):
             assert float(a.acceleration.abs().max()) > 0, r
             assert torch.equal(a.drhodt, b.drhodt) and torch.equal(
@@ -194,9 +197,8 @@ def test_eager_steps_pack_before_every_sweep(cuda):
                                 T.DensityDiffusionModel.LINEAR, device=cuda)
     state = sim.state
     dx = torch.full((), 1.0 + kern.h, dtype=state.total_time.dtype, device=cuda)
-    b0, p0 = bs.launches, bs.pack_launches
-    for _ in range(3):
-        state, dx = sph_step(sim.cfg, state, dx)
-    torch.cuda.synchronize()
-    assert bs.launches - b0 == 6 == bs.pack_launches - p0
+    with Launches() as n:
+        for _ in range(3):
+            state, dx = sph_step(sim.cfg, state, dx)
+    assert n["block"] == 6 == n["pack"]
     assert torch.isfinite(state.particles.velocity).all()

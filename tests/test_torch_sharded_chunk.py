@@ -14,7 +14,6 @@ before it moved a cell):
   host loops, the route of slabs on several cards) bit for bit;
 * one ``_host_read`` per chunk for all ranks; one set of buffers per rank,
   sharing no storage with the states handed in or out;
-* the launch counters of several ranks (one lane each) folded at that read;
 * the decisions in the state's dtype on a constructed tie, on 2 ranks;
 * no host read and no copy from the host in what the card captures of a
   sharded step, on the three sharded paths (B2, B2 + B4 on the halo, B3s).
@@ -33,7 +32,7 @@ import sphexample_tpu_torch as T
 from sphexample_tpu.parallel.mesh import make_mesh as j_make_mesh
 from sphexample_tpu.parallel.mesh import shard_simulation as j_shard
 from sphexample_tpu_torch.core import step as S
-from sphexample_tpu_torch.parallel.context import LocalGroup, run_ranks, thread_rank
+from sphexample_tpu_torch.parallel.context import run_ranks
 from sphexample_tpu_torch.parallel.mesh import make_mesh, shard_simulation
 from sphexample_tpu_torch.state import gather_state, state_leaves
 from test_torch_chunk import still, tie_case
@@ -179,42 +178,6 @@ def test_joint_chunk_buffers_per_rank_share_no_storage(t_out):
     assert chunk.buffers is bufs and int(nxt[1].iteration) == int(out[1].iteration) + CHUNK
     for k, s in zip(kept, out):
         assert all(torch.equal(a, b) for a, b in zip(k, state_leaves(s)))
-
-
-def test_launch_counts_of_several_ranks_fold_at_the_host_read(monkeypatch):
-    """Each rank's captured launches go to a device counter of its own (its
-    lane, the rank of its thread), so that the ranks' branches of one graph
-    never add to the same element; the chunk loop's one host read folds
-    every lane of the device into the module's count.  Here the counters sit
-    on the CPU and the ranks' launches are counted as under a capture."""
-    from sphexample_tpu_torch.ops import block_sweep as bs
-    from sphexample_tpu_torch.ops import launch_count
-
-    monkeypatch.setattr(launch_count, "_counters", {})
-    monkeypatch.setattr(launch_count, "_folded", {})
-    monkeypatch.setattr(launch_count, "_capturing", lambda device: True)
-    monkeypatch.setattr(bs, "window_launches", 0)
-    group = LocalGroup([torch.device("cpu")] * 4)
-    launch_count.arm("cpu", 4)
-    assert len(launch_count.counters("cpu")) == 4
-
-    def rank(r):
-        for _ in range(3):          # three replayed steps
-            launch_count.add(bs, "window_launches", 2, "cpu")
-        return thread_rank()
-
-    assert run_ranks(group, rank) == [0, 1, 2, 3]
-    slot = launch_count._slots.index((bs, "window_launches"))
-    assert [int(c[slot]) for c in launch_count.counters("cpu")] == [6] * 4
-    assert bs.window_launches == 0          # not before the host read
-    sim = _port(2)
-    S._host_read(sim.state, sim.state[0].iteration)
-    assert bs.window_launches == 2 * 3 * 4
-    S._host_read(sim.state, sim.state[0].iteration)      # nothing new
-    assert bs.window_launches == 24
-    launch_count.counters("cpu")[3][slot] += 2
-    S._host_read(sim.state, sim.state[0].iteration)
-    assert bs.window_launches == 26
 
 
 def test_decisions_in_the_state_dtype_on_two_ranks():

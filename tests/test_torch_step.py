@@ -24,12 +24,11 @@ from sphexample_tpu.core.step import make_fixed_steps_fn as j_fixed
 from sphexample_tpu.core.step import sph_step as j_step
 from sphexample_tpu.ops.timestep import adaptive_dt as j_dt
 from sphexample_tpu.ops.pallas_block_sweep import BLOCK_CAP_LIMIT as J_BLOCK_CAP_LIMIT
-from sphexample_tpu_torch.core.driver import choose_sweep_kernel
+from sphexample_tpu_torch.core.driver import BLOCK_CAP_LIMIT, choose_sweep_kernel
 from sphexample_tpu_torch.core.step import make_fixed_steps_fn as t_fixed
 from sphexample_tpu_torch.core.step import make_interval_fn
 from sphexample_tpu_torch.core.step import sph_step as t_step
 from sphexample_tpu_torch.io.casegen import dam_break_3d
-from sphexample_tpu_torch.ops.block_sweep import BLOCK_CAP_LIMIT
 from sphexample_tpu_torch.ops.timestep import adaptive_dt as t_dt
 
 torch.set_num_threads(1)
@@ -536,3 +535,34 @@ def test_sweep_kernel_rule_capacity_boundary():
     # io/casegen.py:dam_break_3d at dx = 0.0035 and 0.0034
     assert choose_sweep_kernel(True, 2027667) == "block"
     assert choose_sweep_kernel(True, 2215035) == "cell"
+
+
+def _single_device_rule(block_sweep, capacity):
+    """The one-device rule as ``core/driver.py`` had it before the rules met."""
+    return "block" if block_sweep and capacity <= 1 << 21 else "cell"
+
+
+def _sharded_rule(block_sweep, capacity, rows):
+    """The sharded rule as ``parallel/mesh.py:shard_simulation`` had it."""
+    return "block" if block_sweep and rows <= 1 << 21 and capacity <= 2 ** 24 else "cell"
+
+
+@pytest.mark.parametrize("block_sweep,capacity,rows,expect", [
+    (True, 1 << 21, None, "block"),
+    (True, (1 << 21) + 1, None, "cell"),
+    (False, 1, None, "cell"),
+    (False, 1 << 21, None, "cell"),
+    (True, 1 << 22, 1 << 21, "block"),          # slabs' window C + 2 * halo
+    (True, 1 << 22, (1 << 21) + 1, "cell"),
+    (False, 1 << 22, 1 << 20, "cell"),
+    (True, 1 << 24, 1 << 20, "block"),
+    (True, (1 << 24) + 1, 1 << 20, "cell"),
+    (True, 1 << 21, 1 << 21, "block"),          # halo 0: the whole capacity
+    (True, (1 << 21) + 1, (1 << 21) + 1, "cell"),
+])
+def test_sweep_kernel_rule_single_and_sharded(block_sweep, capacity, rows, expect):
+    """The one ``choose_sweep_kernel`` gives what the two rules it replaced
+    gave: on one device (``rows`` None) and sharded."""
+    old = (_single_device_rule(block_sweep, capacity) if rows is None
+           else _sharded_rule(block_sweep, capacity, rows))
+    assert choose_sweep_kernel(block_sweep, capacity, rows) == old == expect
