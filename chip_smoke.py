@@ -117,8 +117,8 @@ Phases, each printing one JSON line (any failure exits non-zero):
               ``_moving_square_path``; the sharded entries likewise.  Each
               sweep entry also holds, per path, the schedule of the kernels'
               shared walk on that path's state (``schedule``: groups, warp
-              passes, mean member lanes, tiles, union rows over own
-              candidates; ops/block_sweep.py:schedule_stats) and the
+              passes, mean member lanes, tiles and their fill, union rows
+              over own candidates; ops/block_sweep.py:schedule_stats) and the
               registers, spill bytes and shared-memory bytes of every
               instance of its source (``instances``, from the build phase's
               ptxas report); the cell sweep's entry the time of the kernel
@@ -648,8 +648,9 @@ def instances(report, kernel):
 
 def schedule(sim, p, cs, mod=bs, lo=0, hi=None, sample=300, queue=None):
     """The walk's schedule of this state's sweep (ops/block_sweep.py:
-    schedule_stats): groups, warp passes, mean member lanes, tiles, and the
-    union rows a lane tests over its own candidates; with ``lo`` / ``hi``
+    schedule_stats): groups, warp passes, mean member lanes, tiles and
+    ``tile_fill``, and the union rows a lane tests over its own candidates;
+    with ``lo`` / ``hi``
     that of the selves [lo, hi) launched on the whole state as a window.
     ``bodies``: the pair bodies per pass of ``sample`` seeded passes by how
     the compute is batched (ops/block_sweep.py:pass_bodies), divided by the

@@ -9,8 +9,9 @@ block is a std::thread, a warp's intrinsics (ballot, shuffle, reductions,
 __syncwarp) meet on a std::barrier, blocks run in turn, and the ``<<<...>>>``
 launches are rewritten.  The libraries keep their C interfaces and run on CPU
 tensors.  Each state (a jittered lattice in every mode set; crowded, blob,
-sheet and edge cells; inactive rows inside the warps; the self windows of 3
-slabs) is held: the block kernel against the cell kernel bit for bit, both
+sheet and edge cells; tests/walk_tiles.py's stream states, whose tiles span
+stencil rows, end part-full and touch rows of 1-3 candidates; inactive rows
+inside the warps; the self windows of 3 slabs) is held: the block kernel against the cell kernel bit for bit, both
 against the plain sweep below 1e-4 of each field's max, each window against
 the single launch bit for bit, and with ``--reference DIR`` both kernels
 against that checkout's bit for bit.  Host arithmetic is not the card's
@@ -37,6 +38,9 @@ from sphexample_tpu_torch.ops import cell_sweep as cw
 from sphexample_tpu_torch.ops import halo as halo_mod
 from sphexample_tpu_torch.ops.interactions import PhysicsSpec
 from sphexample_tpu_torch.state import allocate_particles
+
+sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+from walk_tiles import stream_positions  # noqa: E402
 
 CSRC = Path(__file__).resolve().parent / "sphexample_tpu_torch" / "csrc"
 DX = 0.05
@@ -158,9 +162,12 @@ def build(csrc: Path, out: Path):
                          (csrc / f"{name}.cu").read_text())
         cpp, lib = out / f"{name}.cpp", out / f"lib{name}.so"
         cpp.write_text(src)
-        cmd = ["g++", "-std=c++20", "-O1", "-ffp-contract=off", "-fPIC", "-shared", "-pthread",
-               "-include", str(out / "host_cuda.h"), f"-I{out}", f"-I{csrc}", "-o", str(lib),
-               str(cpp)]
+        # -fno-gnu-unique: each library keeps its own function-local statics
+        # (the shared memory of walk_shared), also where a reference build
+        # with another WalkShared layout is loaded into the same process
+        cmd = ["g++", "-std=c++20", "-O1", "-ffp-contract=off", "-fno-gnu-unique", "-fPIC",
+               "-shared", "-pthread", "-include", str(out / "host_cuda.h"), f"-I{out}",
+               f"-I{csrc}", "-o", str(lib), str(cpp)]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode:
             raise SystemExit(f"host_walk_check: g++ failed for {csrc / name}.cu:\n{proc.stderr}")
@@ -230,6 +237,8 @@ def state(dims, case, family="WENDLAND_C2", pad=23, seed=11):
         pos = rng.uniform(-0.3, 0.3, size=(400, dims))
         grid = cl.grid_from_positions(pos, kern.H_inv, margin_cells=0)
         pos[:40] *= 1.5
+    elif case in ("spans", "surface"):
+        pos = stream_positions(dims, case, kern.H)
     else:
         n = 500 if dims == 3 else 300
         side = int(np.ceil(n ** (1 / dims)))
@@ -344,12 +353,12 @@ def main(argv):
             if quick:
                 check_state(libs, dims, "lattice", main_modes[:2] + every[:2])
                 continue
-            for case in ("lattice", "crowded", "blob", "sheet", "edge"):
+            for case in ("lattice", "crowded", "blob", "sheet", "edge", "spans", "surface"):
                 modes = main_modes + every if case == "lattice" else [main_modes[3], every[13],
                                                                      every[31]]
                 check_state(libs, dims, case, modes)
             check_state(libs, dims, "lattice", [main_modes[3], every[13]], holes=True)
-            for case in ("lattice", "crowded"):
+            for case in ("lattice", "crowded", "spans", "surface"):
                 check_windows(libs, dims, case)
     return 0
 

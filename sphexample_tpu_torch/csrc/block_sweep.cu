@@ -95,12 +95,15 @@
 // state where it paid ~320 (ops/block_sweep.py:pass_bodies), and B1 alone
 // takes 0.386-0.390 against 0.438-0.450 ms there, 0.0806-0.0817 against
 // 0.0834-0.0837 ms on the 2D moving square at t = 0 (walk_variants.py, the
-// per-lane walk before it in the same turns).  What it leaves: the filter, which tests every
-// row of the union for every lane (~1,000 candidates a pass for ~120 pairs;
-// ~0.29 of the 0.39 ms do not shrink with the bodies), and the walk's shared
-// memory (45.5 KB a block in 3D: 5 blocks an SM, where the per-lane walk's
-// 24 KB of tiles let 7 fit; that walk's pair loop put in this one runs 0.507
-// against its own 0.438 ms on the main deck at t = 0).
+// per-lane walk before it in the same turns).  What it leaves: the filter,
+// which tests every row of the union for every lane (~1,000 candidates a
+// pass for ~120 pairs; with the compute step cut out the walk took 0.225 of
+// 0.428 ms on the main deck at t = 0, with the d2 tests cut out too 0.050),
+// now over full tiles at 11 instructions a row (B1 0.385 against 0.423 ms
+// for tiles cut at each stencil row, tested in a counted loop), and the
+// walk's shared memory (44.5 KB a block in 3D: 5 blocks an SM, where the
+// per-lane walk's 24 KB of tiles let 7 fit; that walk's pair loop put in
+// this one runs 0.507 against its own 0.438 ms on the main deck at t = 0).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -144,7 +147,7 @@ struct SweepParams {
 namespace {
 
 template <int D, int FAM, int VISC, int DIFF, bool SPS, bool STORE, bool SHIFT>
-__global__ void __launch_bounds__(WALK_THREADS)
+__global__ void __launch_bounds__(WALK_THREADS, WALK_MIN_BLOCKS)
 block_sweep_kernel(const SweepParams P,
                    const float4* __restrict__ pack,
                    const int* __restrict__ cell,
@@ -177,7 +180,7 @@ block_sweep_kernel(const SweepParams P,
     L.xl = min(max(rel[0] - 1, 0), P.shape[0] - 1);
     L.xh = min(max(rel[0] + 1, 0), P.shape[0] - 1);
     const Row s = load_row<D>(pack, live ? i : P.self_off + w0);
-    walk_stage_self<D, K>(walk, s, L);
+    walk_stage_self<D, K>(walk, s);
 
     float acc[K];
 #pragma unroll

@@ -93,7 +93,10 @@
 // in the block sweep (csrc/sph_sweep_walk.cuh: about the mean lane's pairs
 // on a tile that hands pairs over, the busiest lane's on one that does not;
 // 0.712-0.748 against 1.116-1.165 ms for the per-lane walk on the 3D dam
-// break cell's state, H100 80GB HBM3, 700 W).
+// break cell's state, H100 80GB HBM3, 700 W), as is its filter (full tiles
+// of the group's candidate stream tested unrolled: 5.97-6.02 against
+// 6.57-6.61 ms on the 2,215,035-row dam break's benchmark state, where the
+// stage and filter of tiles cut at each stencil row took ~2.3 ms).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -176,7 +179,7 @@ occupied_groups_kernel(const CellSweepParams P, const int* __restrict__ cell_sta
 }
 
 template <int D, bool SPS, bool STORE, bool SHIFT>
-__global__ void __launch_bounds__(WALK_THREADS)
+__global__ void __launch_bounds__(WALK_THREADS, WALK_MIN_BLOCKS)
 cell_sweep_kernel(const CellSweepParams P,
                   const float4* __restrict__ pack,
                   const int* __restrict__ cell_start,
@@ -212,7 +215,7 @@ cell_sweep_kernel(const CellSweepParams P,
             L.xl = max(cx - 1, 0);
             L.xh = min(cx + 1, P.shape[0] - 1);
             const Row s = load_row<D>(pack, L.member ? L.i : lo);
-            walk_stage_self<D, K>(walk, s, L);
+            walk_stage_self<D, K>(walk, s);
             float acc[K];
 #pragma unroll
             for (int k = 0; k < K; ++k) acc[k] = 0.0f;

@@ -36,17 +36,18 @@ __host__ __device__ constexpr int n_sums() {
 }
 
 // x_ij = x_s - x_n and its squared length, summed unfused: the cutoff decides
-// on the plain version's d2, bit for bit in 2D - with k != 2 (the
-// MovingSquare deck's sqrt 2) the kernel is cut where W is not yet zero, and
-// lattice neighbours sit exactly on that rim
+// on the plain version's d2 (0 + x^2 + y^2 [+ z^2]), bit for bit in 2D - with
+// k != 2 (the MovingSquare deck's sqrt 2) the kernel is cut where W is not
+// yet zero, and lattice neighbours sit exactly on that rim.  The sum starts
+// at x^2, which 0 + x^2 is bit for bit (a square is never -0), one add
+// fewer on every candidate the filter tests.
 template <int D>
 __device__ __forceinline__ float pair_distance2(const Row& s, const Row& n, float* xij) {
-    float d2 = 0.0f;
 #pragma unroll
-    for (int d = 0; d < D; ++d) {
-        xij[d] = s.x[d] - n.x[d];
-        d2 = __fadd_rn(d2, __fmul_rn(xij[d], xij[d]));
-    }
+    for (int d = 0; d < D; ++d) xij[d] = s.x[d] - n.x[d];
+    float d2 = __fmul_rn(xij[0], xij[0]);
+#pragma unroll
+    for (int d = 1; d < D; ++d) d2 = __fadd_rn(d2, __fmul_rn(xij[d], xij[d]));
     return d2;
 }
 

@@ -401,8 +401,10 @@ def pass_bodies(sched: Schedule, grid: Grid, cell_start, position, H2: float,
     lane, summed over the passes: ``any_lane`` - the union rows some lane
     accepts (a walk whose lanes step through the union together pays the
     body on each); ``per_tile`` - the busiest lane's accepts in each staged
-    tile of WALK_TILE rows (the per-lane path on every tile); ``balanced`` -
-    in each tile the rounds of the path the walk takes there
+    tile (the per-lane path on every tile; a pass's stencil rows' union runs
+    read as one stream, cut every WALK_TILE rows, as the kernel's walk_stage
+    stages them); ``balanced`` - in each tile the rounds of the path the walk
+    takes there
     (:func:`tile_rounds`, ``queue`` the kernel's walk_queue for the mode's
     sums); ``per_row`` - the busiest lane's in each stencil row;
     ``per_pass`` - over the whole pass; ``mean_lane`` - a lane's average;
@@ -416,7 +418,7 @@ def pass_bodies(sched: Schedule, grid: Grid, cell_start, position, H2: float,
     tiles = coop = 0
     for q in passes.tolist():
         rows = torch.nonzero(sched.pass_of == q).flatten()
-        total = torch.zeros(rows.numel(), dtype=torch.int64, device=rows.device)
+        stream = []
         for s in range(ub.shape[1]):
             a, b = int(ub[q, s]), int(ue[q, s])
             if a >= b:
@@ -432,14 +434,16 @@ def pass_bodies(sched: Schedule, grid: Grid, cell_start, position, H2: float,
                    & ~(d2 > H2))
             out["any_lane"] += int(acc.any(0).sum())
             out["per_row"] += int(acc.sum(1).max())
-            for t in range(0, b - a, WALK_TILE):
-                lanes = acc[:, t:t + WALK_TILE].sum(1).tolist()
-                rounds, take = tile_rounds(lanes, queue)
-                out["per_tile"] += max(lanes)
-                out["balanced"] += rounds
-                tiles += 1
-                coop += int(take)
-            total += acc.sum(1)
+            stream.append(acc)
+        stream = torch.cat(stream, dim=1)
+        for t in range(0, stream.shape[1], WALK_TILE):
+            lanes = stream[:, t:t + WALK_TILE].sum(1).tolist()
+            rounds, take = tile_rounds(lanes, queue)
+            out["per_tile"] += max(lanes)
+            out["balanced"] += rounds
+            tiles += 1
+            coop += int(take)
+        total = stream.sum(1)
         out["passes"] += 1
         out["per_pass"] += int(total.max())
         out["mean_lane"] += float(total.double().mean())
@@ -449,9 +453,11 @@ def pass_bodies(sched: Schedule, grid: Grid, cell_start, position, H2: float,
 
 def schedule_stats(sched: Schedule, grid: Grid, cell_start) -> dict:
     """What a schedule costs: groups, warp passes, mean member lanes per
-    pass, tiles staged, the union rows staged and the selves' own candidates,
-    and the rows a member lane tests over the candidates of its own ranges
-    (the filter's extra work: 1 when every pass's selves share one x range)."""
+    pass, tiles staged (a pass's union rows over WALK_TILE, rounded up) and
+    ``tile_fill`` (union rows over tiles x WALK_TILE), the union rows staged
+    and the selves' own candidates, and the rows a member lane tests over
+    the candidates of its own ranges (the filter's extra work: 1 when every
+    pass's selves share one x range)."""
     ub, ue, base, valid = _pass_rows(sched, grid, cell_start)
     cs = cell_start.long()
     live = sched.pass_of >= 0
@@ -464,9 +470,10 @@ def schedule_stats(sched: Schedule, grid: Grid, cell_start) -> dict:
     union = int(per_pass.sum())
     tested = int((per_pass * torch.bincount(p, minlength=n_pass)).sum())
     self_cand = int(own.sum())
+    tiles = int(((per_pass + WALK_TILE - 1) // WALK_TILE).sum())
     return {"groups": sched.groups, "warp_passes": n_pass,
             "mean_active_lanes": members / n_pass if n_pass else 0.0,
-            "tiles": int(((ue - ub + WALK_TILE - 1) // WALK_TILE).sum()),
+            "tiles": tiles, "tile_fill": union / (tiles * WALK_TILE) if tiles else 0.0,
             "union_rows": union, "self_candidates": self_cand,
             "union_over_self_candidates": tested / self_cand if self_cand else 0.0}
 

@@ -56,7 +56,7 @@ from sphexample_tpu_torch.parallel.mesh import (make_mesh, make_sharded_fixed_st
                                                 shard_simulation)
 from sphexample_tpu_torch.state import Particles, allocate_particles, gather_state
 from kernel_launches import counting, kind, launched
-from walk_tiles import tile_pairs
+from walk_tiles import stream_positions, tile_pairs
 
 pytestmark = pytest.mark.gpu
 torch.set_num_threads(1)
@@ -1163,7 +1163,7 @@ def test_four_slab_run_on_the_card(cuda, mdbc_on, block):
 
 # --- the shared walk of both sweeps (csrc/sph_sweep_walk.cuh) ----------------------
 
-WALK_CASES = ["crowded", "blob", "sheet", "edge", "holes"]
+WALK_CASES = ["crowded", "blob", "sheet", "edge", "holes", "spans", "surface"]
 WALK_MODES = {"main": ("ARTIFICIAL", "LINEAR", False, False),
               "extras": ("LAMINAR_SPS", "COMPLEX", True, True)}
 
@@ -1174,7 +1174,10 @@ def _walk_state(dims, case, family="WENDLAND_C2", seed=11):
     tiles), ``blob`` (200 rows within 0.2 H of each other: every lane accepts
     every row of a tile), ``sheet`` and ``edge`` (clamped stencils, rows
     outside the grid), ``holes`` (a lattice with every 7th row inactive in
-    place, inside the warps)."""
+    place, inside the warps), ``spans`` and ``surface`` (walk_tiles.py's
+    stream_positions: tiles across two and three stencil rows, passes ending
+    in a part-full tile, stencil rows of 1-3 candidates, a tile touching
+    every stencil row)."""
     rng = np.random.default_rng(seed)
     kern = T.make_kernel(T.KernelFamily[family], dims, dx=DX)
     grid = None
@@ -1191,6 +1194,8 @@ def _walk_state(dims, case, family="WENDLAND_C2", seed=11):
         pos = rng.uniform(-0.3, 0.3, size=(400, dims))
         grid = cl.grid_from_positions(pos, kern.H_inv, margin_cells=0)
         pos[:40] *= 1.5
+    elif case in ("spans", "surface"):
+        pos = stream_positions(dims, case, kern.H)
     else:
         n = 500 if dims == 3 else 300
         side = int(np.ceil(n ** (1 / dims)))
@@ -1262,7 +1267,7 @@ def test_block_and_cell_kernels_bitwise_in_every_mode(cuda, dims, family, visc, 
 
 
 @pytest.mark.parametrize("dims", [2, 3])
-@pytest.mark.parametrize("case", ["crowded", "holes"])
+@pytest.mark.parametrize("case", ["crowded", "holes", "spans", "surface"])
 def test_walk_windows_of_both_kernels(cuda, dims, case):
     """B2 and B3s on the self windows of 3 slabs (self_off > 0, cells
     straddling the slab edges): each slab bitwise the single-device launch

@@ -25,15 +25,18 @@ from sphexample_tpu_torch.ops import cell_sweep as cw
 from sphexample_tpu_torch.ops import halo as halo_mod
 from sphexample_tpu_torch.ops.interactions import candidates
 from sphexample_tpu_torch.state import allocate_particles
-from walk_tiles import tile_pairs
+from walk_tiles import pass_tiles, stream_positions, tile_masks, tile_pairs
 
 torch.set_num_threads(1)
 DX = 0.05
 
 
 def _positions(dims, case, kern, rng):
-    """The cases of tests/test_torch_cuda.py:test_cell_kernel_odd_cells, and
-    a jittered lattice; returns (positions, grid or None)."""
+    """The cases of tests/test_torch_cuda.py:test_cell_kernel_odd_cells, the
+    stream states of walk_tiles.py, and a jittered lattice; returns
+    (positions, grid or None)."""
+    if case in ("spans", "surface"):
+        return stream_positions(dims, case, kern.H), None
     if case == "crowded":
         # 150 rows inside one cell, 250 around it
         inner = (rng.uniform(-0.45, 0.45, size=(150, dims)) + 2.0) * kern.H
@@ -219,8 +222,9 @@ def test_self_windows(dims, case, halo):
 @pytest.mark.parametrize("dims", [2, 3])
 def test_schedule_stats(dims):
     """The stats chip_smoke.py prints: passes and lanes add up, the block
-    schedule fills its warps at least as well as the cell schedule, and the
-    filter tests at least the self's own candidates."""
+    schedule fills its warps at least as well as the cell schedule, the
+    filter tests at least the self's own candidates, and the tiles and their
+    fill are those of the pass's stream cut into full tiles."""
     kern, grid, p, cs, _ = _state(dims, "lattice")
     n_live = int(p.active.sum())
     for sched in (bs.block_schedule(grid, p, cs), cw.cell_schedule(grid, cs, p.capacity)):
@@ -230,6 +234,11 @@ def test_schedule_stats(dims):
         assert 0 < st["mean_active_lanes"] <= bs.WARP
         assert st["union_over_self_candidates"] >= 1.0
         assert st["tiles"] >= st["union_rows"] / bs.WALK_TILE
+        # a pass's tiles are its union rows cut every WALK_TILE rows
+        ub, ue, _, _ = bs._pass_rows(sched, grid, cs)
+        assert st["tiles"] == sum(len(pass_tiles(a, b)) for a, b in zip(ub, ue))
+        assert 0 < st["tile_fill"] <= 1.0
+        assert st["tile_fill"] * st["tiles"] * bs.WALK_TILE == pytest.approx(st["union_rows"])
     blk = bs.schedule_stats(bs.block_schedule(grid, p, cs), grid, cs)
     cel = bs.schedule_stats(cw.cell_schedule(grid, cs, p.capacity), grid, cs)
     assert blk["mean_active_lanes"] >= cel["mean_active_lanes"]
@@ -240,9 +249,11 @@ def test_schedule_stats(dims):
 @pytest.mark.parametrize("case", ["lattice", "crowded", "sheet"])
 def test_pass_bodies(dims, case):
     """The pair bodies a warp runs by compute batching: a lane's accepts add
-    up to the walk's accepted pairs; batching over larger spans never costs
-    more bodies (tile >= stencil row >= pass >= the mean lane), and no
-    batching costs more than stepping through the union together.  The
+    up to the walk's accepted pairs; batching over a span that holds others
+    never costs more bodies (tile >= pass and stencil row >= pass, a pass's
+    tiles and its stencil rows each cutting it, >= the mean lane; a tile
+    may span stencil rows, so neither holds the other), and no batching
+    costs more than stepping through the union together.  The
     walk's per-tile choice of path (``balanced``) never costs more than the
     per-lane path on every tile and never less than ceil(pairs / 32) a tile;
     it and the cooperative share are those of the rule applied to the
@@ -258,7 +269,8 @@ def test_pass_bodies(dims, case):
         accepted = torch.bincount(sched.pass_of[got[0]], minlength=n_pass)
         members = torch.bincount(sched.pass_of[sched.pass_of >= 0], minlength=n_pass)
         assert b["mean_lane"] == pytest.approx(float((accepted / members).sum()))
-        assert b["any_lane"] >= b["per_tile"] >= b["per_row"] >= b["per_pass"]
+        assert b["any_lane"] >= b["per_tile"] >= b["per_pass"]
+        assert b["any_lane"] >= b["per_row"] >= b["per_pass"]
         assert b["per_pass"] >= b["mean_lane"] > 0
         tiles = tile_pairs(sched, grid, cs, p.position, kern.H2)
         assert sum(map(sum, tiles)) == got[0].numel()
@@ -273,6 +285,89 @@ def test_pass_bodies(dims, case):
             assert -(-sum(t) // bs.WARP) <= r <= max(t)
             assert c == (r < max(t))
             assert sum(max(x - r, 0) for x in t) <= queue   # the pairs past the rounds fit
+
+
+def _tile_walk(sched, grid, cs, position, H2):
+    """The pairs (r, j) of the kernel's stage -> filter -> compute order:
+    each pass's tiles (walk_tiles.pass_tiles), each member's masks of a tile
+    as walk_stage forms them (walk_tiles.tile_masks), the d2 test of every
+    staged row, its accepted offsets ascending; r ascending, each self's
+    pairs in the order the walk folds them.  Checks each accepted pair's
+    role bit against same_cell ? i < j : i > j on the way.  Also returns
+    each pass's tiles."""
+    ub, ue, base, valid = bs._pass_rows(sched, grid, cs)
+    csl = cs.long()
+    pairs, passes = {}, []
+    for q in range(ub.shape[0]):
+        tiles = pass_tiles(ub[q], ue[q])
+        passes.append(tiles)
+        for r in torch.nonzero(sched.pass_of == q).flatten().tolist():
+            xl, xh = sched.x_range[r].tolist()
+            jb = [int(csl[base[q, s] + xl]) if valid[q, s] else 0 for s in range(ub.shape[1])]
+            je = [int(csl[base[q, s] + xh + 1]) if valid[q, s] else 0
+                  for s in range(ub.shape[1])]
+            s_i, e_i = sched.own[r].tolist()
+            mine = pairs.setdefault(r, [])
+            for pieces in tiles:
+                own, role = tile_masks(pieces, jb, je, r, s_i, e_i)
+                rows = torch.cat([torch.arange(a, a + n) for _, a, n in pieces])
+                keep = ~(_d2(position, torch.full_like(rows, r), rows) > H2)
+                for k in torch.nonzero(keep).flatten().tolist():
+                    if own >> k & 1:
+                        j = int(rows[k])
+                        assert bool(role >> k & 1) == ((r < j) if s_i <= j < e_i else (r > j))
+                        mine.append(j)
+    r = torch.tensor([r for r in sorted(pairs) for _ in pairs[r]], dtype=torch.int64)
+    j = torch.tensor([j for k in sorted(pairs) for j in pairs[k]], dtype=torch.int64)
+    return (r, j), passes
+
+
+def _has(shape, passes, S):
+    """Whether the tiles of ``passes`` (per pass, pass_tiles' lists) show
+    ``shape``."""
+    tiles = [t for p in passes for t in p]
+    if shape == "two_and_three_rows":
+        return {2, 3} <= {len({s for s, _, _ in t}) for t in tiles}
+    if shape == "part_full_last":
+        return any(len(p) >= 2 and sum(n for _, _, n in p[-1]) < bs.WALK_TILE for p in passes)
+    if shape == "short_rows":           # a stencil row of 1-3 union rows
+        for p in passes:
+            runs = {}
+            for s, _, n in (piece for t in p for piece in t):
+                runs[s] = runs.get(s, 0) + n
+            if any(n <= 3 for n in runs.values()):
+                return True
+        return False
+    return any(len({s for s, _, _ in t}) == S for t in tiles)
+
+
+@pytest.mark.parametrize("dims", [2, 3])
+@pytest.mark.parametrize("case,shape", [("spans", "two_and_three_rows"),
+                                        ("spans", "part_full_last"),
+                                        ("surface", "short_rows"),
+                                        ("surface", "every_row")])
+def test_stream_tiles(dims, case, shape):
+    """The walk stages a pass's candidates as one stream of full tiles: a
+    tile spans two and three stencil rows, stencil rows of 1-3 candidates
+    (a free surface) share a tile, a tile touches every stencil row of its
+    pass (the walk ends no tile early for the number of its stencil rows),
+    a pass of several tiles ends in a part-full one.  In each, every tile
+    but a pass's last is full, and the pairs taken tile by tile through the
+    kernel's masks are the row_segments candidates in their order, each
+    with its density-diffusion role."""
+    kern, grid, p, cs, _ = _state(dims, case)
+    in_cells = torch.arange(p.capacity) < int(cs[grid.ncells])
+    shown = False
+    for sched, rows in ((bs.block_schedule(grid, p, cs), p.active),
+                        (cw.cell_schedule(grid, cs, p.capacity), in_cells)):
+        got, passes = _tile_walk(sched, grid, cs, p.position, kern.H2)
+        ref = _reference(grid, p.cell, rows, cs, p.position, kern.H2)
+        assert ref[0].numel() > 0
+        assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+        for tiles in passes:
+            assert all(sum(n for _, _, n in t) == bs.WALK_TILE for t in tiles[:-1])
+        shown |= _has(shape, passes, 3 ** (dims - 1))
+    assert shown
 
 
 @pytest.mark.parametrize("pairs,queue,rounds,cooperative", [
@@ -312,7 +407,7 @@ def _lattice(dims, rows_per_cell, side):
 
 @pytest.mark.parametrize("dims,rows_per_cell,side,least,most", [
     (3, 41.6, 20, 0.0, 0.6),      # the dam break's crowding: the tiles run ~40 % of it
-    (2, 4.0, 64, 0.7, 1.0),       # the square's: one round saved here and there
+    (2, 4.0, 64, 0.45, 0.7),      # the square's: ~55 %, a tile a pass of its 3 stencil rows
 ])
 def test_cooperative_share_follows_the_crowding(dims, rows_per_cell, side, least, most):
     """Most tiles of both decks' lattices can save a round by handing pairs
@@ -320,7 +415,8 @@ def test_cooperative_share_follows_the_crowding(dims, rows_per_cell, side, least
     crowding: on a 3D lattice of about 40 rows a cell (a lane's pairs gather
     in the stencil rows near its position in the cell) the walk runs under
     0.6 of the per-lane path's bodies, on a 2D lattice of about 4 rows a cell
-    more than 0.7 of them."""
+    0.45-0.7 of them (its pass's few union rows are about one tile, whose
+    busiest lane the per-lane path pays)."""
     kern, grid, p, cs = _lattice(dims, rows_per_cell, side)
     sched = bs.block_schedule(grid, p, cs)
     n_pass = int(sched.pass_row.shape[0])

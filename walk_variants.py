@@ -102,7 +102,7 @@ def cell_states(seconds, seed, only=None):
     window of ``seconds`` ends; those in ``only``."""
     from portbench import harness
 
-    for name in ("dambreak3d.run", "movingsquare.run"):
+    for name in ("dambreak3d.run", "movingsquare.run", "dambreak3d_large.run"):
         if only and name not in only:
             continue
         run = harness.Run(harness.cell(name), seed, torch.device("cuda:0"))
