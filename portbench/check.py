@@ -40,8 +40,9 @@ def port_numpy(state) -> dict:
 
 
 def gaps(got: dict, ref: dict, steps_got: int, steps_ref: int, P) -> dict:
-    """The four numbers of one interval; NaN where the reference gave none."""
-    if ref is None or not np.array_equal(got["id"], ref["id"]):
+    """The four numbers of one interval; NaN where either side gave none (a
+    reference or a control that stalled)."""
+    if got is None or ref is None or not np.array_equal(got["id"], ref["id"]):
         return {f: math.nan for f in FIELDS}
     v_scale = np.abs(ref["velocity"]).max()
     r_scale = np.abs(ref["density"] - P.rho0).max()
@@ -54,23 +55,34 @@ def gaps(got: dict, ref: dict, steps_got: int, steps_ref: int, P) -> dict:
         }
 
 
+def deck_ghosts(arrays) -> np.ndarray:
+    """Each deck row's ghost point, by id order: the deck's ghost points on
+    its first rows (ids 1..nb), zero on the others."""
+    ghost = np.zeros_like(arrays[0])
+    ghost[:len(arrays[5])] = arrays[5]
+    return ghost
+
+
 def reference_interval(config, arrays, start: dict, t_out: float, max_steps: int,
                        dtype=torch.float64, device="cuda"):
     """The reference's state at ``t_out`` and its steps, stepping from
     ``start`` (None: the deck's initial arrays at t = 0); (None, 0) where it
-    stalls."""
+    stalls.  ``arrays``: the deck's (``harness.deck_arrays``), with mDBC its
+    ghost points too, never the program's."""
     P = sph.physics(config)
-    position, density, ptype, marker, ids = arrays
+    position, density, ptype, marker, ids = arrays[:5]
     grid = sph.Grid.around(position, P)
+    ghost = deck_ghosts(arrays) if P.mdbc else None
     if start is None:
         zeros = np.zeros_like(position)
         s = sph.State(P, ids, ptype, marker, position, zeros, zeros, density, 0.0, 0,
-                      dtype, device)
+                      dtype, device, ghost)
     else:
         rows = start["id"] - 1                  # ids run from 1 in the deck's order
         s = sph.State(P, start["id"], ptype[rows], marker[rows], start["position"],
                       start["velocity"], start["acceleration"], start["density"],
-                      start["total_time"], start["iteration"], dtype, device)
+                      start["total_time"], start["iteration"], dtype, device,
+                      None if ghost is None else ghost[rows])
         if "order" in start:                    # the program's row order
             s.permute(torch.as_tensor(start["order"], device=device))
     try:

@@ -44,6 +44,9 @@ WARM_T_OUT = 1e-4
 # the traced sub-window: at least this long and this many intervals
 TRACE_SECONDS = 0.3
 TRACE_MIN_INTERVALS = 2
+# stage 04 on the card: the fused mdbc_moments_kernel and its four
+# mdbc_*_group_kernel launches
+MDBC_OPS = "mdbc_"
 
 
 class StopWindow(Exception):
@@ -92,17 +95,24 @@ def rng(seed: int, stream: int) -> np.random.Generator:
     return np.random.default_rng([seed % 2**64, stream])
 
 
+def f32(a: np.ndarray) -> np.ndarray:
+    """``a`` rounded to float32 values, held in float64."""
+    return a.astype(np.float32).astype(np.float64)
+
+
 def deck_arrays(config: dict, seed: int) -> tuple:
     """(position, density, ptype, group_marker, idp) of the configuration's
     deck, the fluid rows jittered by up to ``jitter_dx`` spacings per axis,
-    every position a float32 value (both sides start from the same bits)."""
-    pos, rho, ptype, marker, ids = load_module(find("decks", config["deck"], ".py")).build(
-        config["geometry"])
+    every position a float32 value (both sides start from the same bits).
+    A deck with ghost nodes adds (ghost_points, ghost_normals) of its first
+    rows (ids 1..nb), unjittered, rounded to float32 as well."""
+    pos, rho, ptype, marker, ids, *ghosts = load_module(
+        find("decks", config["deck"], ".py")).build(config["geometry"])
     fluid = ptype == 1
     jitter = config["jitter_dx"] * config["constants"]["dx"]
     pos = pos.copy()
     pos[fluid] += rng(seed, 0).uniform(-jitter, jitter, pos[fluid].shape)
-    return pos.astype(np.float32).astype(np.float64), rho, ptype, marker, ids
+    return (f32(pos), rho, ptype, marker, ids, *(f32(g) for g in ghosts))
 
 
 def later_output(config: dict, seed: int) -> int:
@@ -112,7 +122,8 @@ def later_output(config: dict, seed: int) -> int:
 
 def build_port(config: dict, arrays: tuple, device):
     """The simulation as the deck's CLI assembles it (``examples/_runner.py``),
-    with no output: nothing is written to ``save_location``."""
+    with no output: nothing is written to ``save_location``.  With SIMPLE
+    mDBC the deck's ghost points and normals go with the arrays."""
     import sphexample_tpu_torch as T
 
     c, k, m, r = config["constants"], config["kernel"], config["models"], config["run"]
@@ -129,10 +140,13 @@ def build_port(config: dict, arrays: tuple, device):
                                                     duration=mo["duration"],
                                                     direction=tuple(mo["direction"])))
                   for mo in config.get("motion", ())]
-    return T.assemble_simulation(*arrays, meta, T.SimulationConstants(**c), kern,
+    ghosts = {}
+    if m["mdbc"] == "simple":
+        ghosts = dict(ghost_points=arrays[5], ghost_normals=arrays[6])
+    return T.assemble_simulation(*arrays[:5], meta, T.SimulationConstants(**c), kern,
                                  T.ViscosityModel(m["viscosity"]),
                                  T.DensityDiffusionModel(m["diffusion"]),
-                                 geometries=geometries, device=device)
+                                 geometries=geometries, device=device, **ghosts)
 
 
 def plant(fault: str, fn, dx: float):
@@ -337,10 +351,14 @@ class Run:
             self.drive("trace", TRACE_SECONDS, TRACE_MIN_INTERVALS)
             torch.cuda.synchronize(self.device)
             marker()
-        red = trace.reduce(prof.events())
+        mdbc = self.config["models"]["mdbc"] == "simple"
+        red = trace.reduce(prof.events(), groups={"mdbc": MDBC_OPS} if mdbc else None)
         if red is None:
             return None
-        red["steps"] = sum(r["steps"] for r in self.records if r["phase"] == "trace")
+        red["steps"] = steps = sum(r["steps"] for r in self.records if r["phase"] == "trace")
+        if mdbc and steps:
+            red["mdbc_s_per_step"] = red.pop("mdbc_s") / steps
+            red["mdbc_launches_per_step"] = red.pop("mdbc_launches") / steps
         if self.sim.cfg.sweep_kernel == "block":
             if red["kernel_launches"] == 2 * red["steps"] and red["steps"]:
                 red["b1_s_per_launch"] = red["kernel_s"] / red["kernel_launches"]
@@ -422,6 +440,8 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, t_start: flo
         P = sph.physics(run.config)
         work_done = work.sweep_work(run.config, P, sph.Grid.around(run.arrays[0], P),
                                     final.particles.position, final.particles.velocity)
+    if traced is not None and "mdbc_s_per_step" in traced and final is not None:
+        work_done = dict(work_done or {}, mdbc=state_mdbc_work(run, final))
     # host copies of what the comparison needs, then the program is freed
     snaps = {name: (check.port_numpy(a), check.port_numpy(b), t_out)
              for name, (a, b, t_out) in run.snap.items()}
@@ -491,6 +511,23 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, t_start: flo
     return 0
 
 
+def state_mdbc_work(run: Run, state) -> dict:
+    """``work.mdbc_work`` of ``state``'s positions with the deck's ghost
+    points and particle types (not the program's copies), row by row as the
+    state holds them."""
+    import torch
+
+    from . import check, work
+    from .reference import sph
+
+    p = state.particles
+    ids = p.id.long().cpu().numpy() - 1
+    ghost = check.deck_ghosts(run.arrays)[ids]
+    ghost = torch.as_tensor(ghost).to(p.position.device, p.position.dtype)
+    ptype = torch.as_tensor(run.arrays[2][ids], device=p.position.device)
+    return work.mdbc_work(run.config, sph.physics(run.config), p.position, ghost, ptype)
+
+
 def report(run: Run, obs: dict, traced, work_done, cuda: bool):
     """What a reader of the run's standard error wants besides the checks."""
     info = dict(setup_s=obs["setup_s"], parts=run.setup_parts, window_s=obs["window_s"],
@@ -501,6 +538,14 @@ def report(run: Run, obs: dict, traced, work_done, cuda: bool):
         info["trace"] = {k: v for k, v in traced.items() if k not in ("device_ops", "idle_gaps")}
     if work_done is not None:
         info["work"] = work_done
+    if traced is not None and "mdbc_s_per_step" in traced:
+        from . import work
+
+        t = traced["mdbc_s_per_step"]
+        info["mdbc"] = {"ms_per_step": 1e3 * t,
+                        "launches_per_step": traced["mdbc_launches_per_step"],
+                        "roofline_pct": work.roofline_pct(
+                            (work_done or {}).get("mdbc", {}).get("bound_s"), t)}
     if cuda:
         try:
             info["card"] = subprocess.run(

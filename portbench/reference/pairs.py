@@ -36,50 +36,53 @@ def stencil_segments(cell, shape, strides, start):
     return lo, hi
 
 
+def row_slices(lo, hi, per_slice: int):
+    """Consecutive row ranges [r0, r1) of ``lo`` / ``hi`` whose candidates
+    number about ``per_slice`` each (a row is never split)."""
+    ends = torch.cumsum((hi - lo).sum(1), 0)
+    bounds = [0]
+    total = int(ends[-1]) if ends.numel() else 0
+    for cut in range(per_slice, total, per_slice):
+        bounds.append(int(torch.searchsorted(ends, cut)))
+    bounds.append(lo.shape[0])
+    return [(r0, r1) for r0, r1 in zip(bounds[:-1], bounds[1:]) if r1 > r0]
+
+
+def candidates(lo, hi, r0, r1):
+    """(i, j): every row i of [r0, r1) with every sorted row j of its
+    stencil's ranges."""
+    dev = lo.device
+    S = lo.shape[1]
+    lens = (hi[r0:r1] - lo[r0:r1]).reshape(-1)
+    seg = torch.repeat_interleave(torch.arange(lens.numel(), device=dev), lens)
+    first = torch.cumsum(lens, 0) - lens
+    j = lo[r0:r1].reshape(-1)[seg] + (torch.arange(seg.numel(), device=dev) - first[seg])
+    i = r0 + torch.div(seg, S, rounding_mode="floor")
+    return i, j
+
+
 class PairList:
     def __init__(self, P, skin_share: float = 0.125):
         self.skin = skin_share * P.H
         self.R2 = (P.H + 2.0 * self.skin) ** 2
 
     def rebuild(self, cell, key, grid, pos):
-        """New cells (``cell`` relative to the grid, rows sorted by ``key``)."""
-        counts = torch.bincount(key, minlength=grid.ncells)
-        start = torch.zeros(grid.ncells + 1, dtype=torch.int64, device=key.device)
-        start[1:] = torch.cumsum(counts, 0)
-        self.lo, self.hi = stencil_segments(cell, grid.shape, grid.strides, start)
+        """New cells (``cell`` relative to the grid, rows sorted by ``key``);
+        ``start`` keeps each cell's first sorted row for mDBC's ghosts."""
+        self.start = grid.starts(key)
+        self.lo, self.hi = stencil_segments(cell, grid.shape, grid.strides, self.start)
         self._refresh(pos)
 
     def _refresh(self, pos):
-        lens = (self.hi - self.lo).reshape(-1)
-        S = self.lo.shape[1]
-        per_row = lens.reshape(-1, S).sum(1)
-        ends = torch.cumsum(per_row, 0)
-        bounds = [0]
-        total = int(ends[-1]) if ends.numel() else 0
-        for cut in range(CANDIDATES_PER_CHUNK, total, CANDIDATES_PER_CHUNK):
-            bounds.append(int(torch.searchsorted(ends, cut)))
-        bounds.append(pos.shape[0])
         I, J = [], []
-        for r0, r1 in zip(bounds[:-1], bounds[1:]):
-            if r1 <= r0:
-                continue
-            i, j = self._candidates(r0, r1, S)
+        for r0, r1 in row_slices(self.lo, self.hi, CANDIDATES_PER_CHUNK):
+            i, j = candidates(self.lo, self.hi, r0, r1)
             xij = pos[i] - pos[j]
             keep = ((xij * xij).sum(-1) <= self.R2) & (i != j)
             I.append(i[keep])
             J.append(j[keep])
         self.I, self.J = torch.cat(I), torch.cat(J)
         self.base = pos.clone()
-
-    def _candidates(self, r0, r1, S):
-        dev = self.lo.device
-        lo = self.lo[r0:r1].reshape(-1)
-        lens = (self.hi[r0:r1] - self.lo[r0:r1]).reshape(-1)
-        seg = torch.repeat_interleave(torch.arange(lens.numel(), device=dev), lens)
-        first = torch.cumsum(lens, 0) - lens
-        j = lo[seg] + (torch.arange(seg.numel(), device=dev) - first[seg])
-        i = r0 + torch.div(seg, S, rounding_mode="floor")
-        return i, j
 
     def within(self, pos, H2):
         """The pairs inside the support at ``pos`` (rows in the order the

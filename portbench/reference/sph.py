@@ -5,12 +5,13 @@ It is a frozen copy of the port's model equations and of the step's order
 (reference SPHExample, ``src/SPHCellList.jl``): the lazy cell-list rebuild
 (a stable sort by cell when the displacement accumulator reaches h, and the
 stale cells' 3^D stencil between rebuilds), the CFL time step, the Tait
-pressure, two neighbour sweeps (continuity, LINEAR density diffusion with
-its cell-ordered roles, pressure force, ARTIFICIAL or LAMINAR_SPS
-viscosity, PLANAR shifting's sums), the symplectic predictor-corrector,
-the boundary clamps, prescribed motion and PLANAR shifting.  It imports no
-part of the program and none of its kernels: pairs come from a Verlet list
-of the stencil's candidates (``pairs.py``), the sums from ``index_add_``.
+pressure, SIMPLE mDBC's boundary densities (``mdbc.py``), two neighbour
+sweeps (continuity, LINEAR density diffusion with its cell-ordered roles,
+pressure force, ARTIFICIAL or LAMINAR_SPS viscosity, PLANAR shifting's
+sums), the symplectic predictor-corrector, the boundary clamps, prescribed
+motion and PLANAR shifting.  It imports no part of the program and none of
+its kernels: pairs come from a Verlet list of the stencil's candidates
+(``pairs.py``), the sums from ``index_add_``.
 
 It computes in the dtype it is given: float64 is the reference, the next
 precision below the configuration's float32 (bfloat16) is the control.  The
@@ -59,6 +60,7 @@ class Physics:
     diffusion: str
     shifting: bool
     motion: tuple      # (marker, speed, start, end, direction) per moving body
+    mdbc: bool = False
 
     @property
     def H2(self) -> float:
@@ -71,7 +73,7 @@ def physics(config: dict) -> Physics:
         raise NotImplementedError(f"kernel family {k['family']}")
     if m["diffusion"] != "linear" or m["viscosity"] not in ("artificial", "laminar_sps"):
         raise NotImplementedError(f"model set {m}")
-    if m["mdbc"] != "none" or m["kernel_output"] != "none":
+    if m["mdbc"] not in ("none", "simple") or m["kernel_output"] != "none":
         raise NotImplementedError(f"mode set {m}")
     dims = k["dims"]
     dx, rho0, g = c["dx"], c.get("rho0", 1000.0), c.get("g", 9.81)
@@ -90,7 +92,7 @@ def physics(config: dict) -> Physics:
         nu0=c.get("nu0", 1e-6), blin=c.get("blin_constant", 0.0066),
         smag=c.get("smagorinsky_constant", 0.12), h=h, H=kk * h, alpha_d=alpha_d,
         eta2=(0.01 * h) ** 2, viscosity=m["viscosity"], diffusion=m["diffusion"],
-        shifting=m["shifting"] == "planar", motion=motion)
+        shifting=m["shifting"] == "planar", motion=motion, mdbc=m["mdbc"] == "simple")
 
 
 def map_floor(x, inv):
@@ -124,17 +126,36 @@ class Grid:
             s.append(s[-1] * n)
         return tuple(s)
 
+    def cells(self, points, P: Physics):
+        """(cell, key): each point's cell of pitch H, clamped into the grid and
+        relative to it, and the cell's linear key (x fastest)."""
+        dev = points.device
+        lo = torch.tensor(self.cmin, device=dev)
+        hi = lo + torch.tensor(self.shape, device=dev) - 1
+        cell = torch.minimum(torch.maximum(map_floor(points, 1.0 / P.H), lo), hi) - lo
+        return cell, (cell * torch.tensor(self.strides, device=dev)).sum(-1)
+
+    def starts(self, key):
+        """[ncells + 1]: each cell's first row among rows sorted by ``key``."""
+        start = torch.zeros(self.ncells + 1, dtype=torch.int64, device=key.device)
+        start[1:] = torch.cumsum(torch.bincount(key, minlength=self.ncells), 0)
+        return start
+
 
 class State:
-    """Rows in the current sorted order; ``ids`` names them."""
+    """Rows in the current sorted order; ``ids`` names them.  ``ghost``
+    [n, D]: each row's ghost point (zero where it has none), with mDBC."""
 
     def __init__(self, P: Physics, ids, ptype, marker, pos, vel, acc, rho, t,
-                 iteration: int, dtype, device):
+                 iteration: int, dtype, device, ghost=None):
         f = lambda a: torch.as_tensor(np.asarray(a, np.float64)).to(device, dtype)  # noqa: E731
         self.ids = torch.as_tensor(np.asarray(ids, np.int64), device=device)
         self.ptype = torch.as_tensor(np.asarray(ptype, np.int64), device=device)
         marker = torch.as_tensor(np.asarray(marker, np.int64), device=device)
         self.pos, self.vel, self.acc, self.rho = f(pos), f(vel), f(acc), f(rho)
+        self.ghost = None if ghost is None else f(ghost)
+        self.fields = ("ids", "ptype", "pos", "vel", "acc", "rho", "ml", "gf", "moving",
+                       "speed", "t0", "t1", "dir") + (() if ghost is None else ("ghost",))
         self.pos_half = self.pos.clone()
         self.ml = (self.ptype == FLUID).to(dtype)
         self.gf = torch.where(self.ptype == FLUID, -1.0,
@@ -158,8 +179,7 @@ class State:
         self.rebuilds = 0
 
     def permute(self, perm):
-        for name in ("ids", "ptype", "pos", "vel", "acc", "rho", "ml", "gf", "moving",
-                     "speed", "t0", "t1", "dir"):
+        for name in self.fields:
             setattr(self, name, getattr(self, name)[perm])
 
     def numpy(self) -> dict:
@@ -274,11 +294,7 @@ def _laminar_sps(P: Physics, xij, vij, gw, d2, rho_i, rho_j):
 def rebuild(s: State, grid: Grid, P: Physics, pairs: PairList):
     """Stage 02's rebuild: cells of the current positions clamped into the
     grid, a stable sort by linear key (x fastest), the stencil's pairs."""
-    dev = s.pos.device
-    lo = torch.tensor(grid.cmin, device=dev)
-    hi = lo + torch.tensor(grid.shape, device=dev) - 1
-    cell = torch.minimum(torch.maximum(map_floor(s.pos, 1.0 / P.H), lo), hi) - lo
-    key = (cell * torch.tensor(grid.strides, device=dev)).sum(-1)
+    cell, key = grid.cells(s.pos, P)
     perm = torch.argsort(key, stable=True)
     s.permute(perm)
     s.cell, s.key = cell[perm], key[perm]
@@ -297,6 +313,10 @@ def step(P: Physics, grid: Grid, s: State, pairs: PairList, dx_acc):
 
     pos, vel = motion(s, s.pos, s.vel, dt2)
     prs = eos(s.rho, P)
+    if P.mdbc:
+        from . import mdbc
+
+        s.rho = mdbc.correct(P, grid, pairs.start, s.ghost, pos, s.rho, s.ptype == FLUID)
     drho, acc, _, _ = sweep(P, s, pairs, pos, s.rho, prs, vel)
     acc[:, -1] += P.g * s.gf
     ml = s.ml[:, None]

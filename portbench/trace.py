@@ -1,7 +1,8 @@
 """Reduction of a ``torch.profiler`` trace of a traced sub-window: the union
 of device activity, the device operations that took most time, the longest
-idle gaps named by the host's CUDA runtime call under them, and a kernel's
-time per launch.
+idle gaps named by the host's CUDA runtime call under them, a kernel's
+time per launch, and the total time and launches of named groups of device
+operations.
 
 Times are the profiler's (microseconds from its start).  The harness frames
 the sub-window with one marker kernel at each end, so it runs from the end
@@ -23,9 +24,13 @@ def _device_type(e):
     return str(getattr(e, "device_type", "")).rsplit(".", 1)[-1]
 
 
-def reduce(events, kernel_names=("block_sweep_kernel",), top: int = 10) -> dict:
+def reduce(events, kernel_names=("block_sweep_kernel",), top: int = 10,
+           groups: dict = None) -> dict:
     """``events``: the profiler's ``events()`` (FunctionEvent records); None
-    where the markers and something between them are not all there."""
+    where the markers and something between them are not all there.
+    ``groups`` (name: a part of a device operation's name) adds, for each
+    group, ``<name>_s`` and ``<name>_launches``: the seconds and the count of
+    the device operations whose names hold that part."""
     device, host = [], []
     for e in events:
         a, b = e.time_range.start, e.time_range.end
@@ -51,6 +56,11 @@ def reduce(events, kernel_names=("block_sweep_kernel",), top: int = 10) -> dict:
     idle_named = [[_host_at(host, a, b), (b - a) / 1e6] for a, b in idle]
 
     kernel = [(a, b) for a, b, name in device if any(k in name for k in kernel_names)]
+    totals = {}
+    for group, part in (groups or {}).items():
+        mine = [b - a for a, b, name in device if part in name]
+        totals[f"{group}_s"] = sum(mine) / 1e6
+        totals[f"{group}_launches"] = len(mine)
     return {
         "window_s": (hi - lo) / 1e6,
         "busy_s": busy / 1e6,
@@ -59,6 +69,7 @@ def reduce(events, kernel_names=("block_sweep_kernel",), top: int = 10) -> dict:
         "idle_gaps": idle_named,
         "kernel_launches": len(kernel),
         "kernel_s": sum(b - a for a, b in kernel) / 1e6,
+        **totals,
     }
 
 
